@@ -1,0 +1,533 @@
+"""Chip smoke test of the PyTorch/CUDA port (repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one CUDA card.  It
+
+  1. prints the card (nvidia-smi name and power limit), the torch and
+     CUDA versions, and builds every CUDA kernel of the serve path from
+     the sources in the checkout (one nvcc per source, in parallel);
+  2. holds each kernel against its plain PyTorch version on the card at
+     the serve path's shapes (8 lanes, 12 heads, head_dim 64, 16-token
+     pages, 8 pages a lane, 16-token chunks), with position -1 holes,
+     an all-masked lane, ragged and mid-page chunks, plus a GQA case
+     with a window and a case with the serve's own history lengths:
+     atol = rtol = 1e-4;
+  3. checks the full-width model on a small input: a prefill chunk and a
+     decode token through the kernels, through the page gather on the
+     card, and through the page gather on the CPU agree within
+     atol = rtol = 1e-3 (f32 sums in other orders; the bf16 pool);
+  4. times each kernel and its plain version with CUDA events on the
+     serve-length case — device time from CUDA graph replay, and the
+     time of an eager call, host included — and computes each kernel's
+     bound from its inputs;
+  5. serves paper-ee-100m at full width through
+     ``repro_torch.launch.serve.main`` — once under recall_index after
+     calibrating on 512 x 64 numpy-seeded prompts (k 24, lambda 0.5),
+     once under always_last — with the kernels' launch counters set to
+     0 just before each serve and read just after; every request must
+     complete with its full token count and both kernels must launch;
+  6. prints a ``kernels`` JSON line (``launches`` is the recall_index
+     serve's count, the main path; ``launches_by_path`` holds each
+     serve's own), the card line, and last
+     ``{"ok": true, "device": {...}}``.
+
+It exits nonzero, printing no result, when CUDA is not available or
+when the repository's sources are not beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: CUDA is not available — this script needs an "
+             "NVIDIA GPU")
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.configs import get_config                    # noqa: E402
+from repro_torch.kernels import (build, paged_attention,      # noqa: E402
+                                 paged_attention_plain, paged_prefill,
+                                 paged_prefill_plain)
+from repro_torch.launch import serve                          # noqa: E402
+from repro_torch.models import attention as A                 # noqa: E402
+from repro_torch.models import model as M                     # noqa: E402
+from repro_torch.models.param import materialize, tree_map    # noqa: E402
+
+DEV = torch.device("cuda")
+TOL_KERNEL = 1e-4
+TOL_MODEL = 1e-3
+HBM_BYTES_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOP_S = 67e12           # H100 SXM f32 outside the tensor cores
+# the serve path's shapes (full-width paper-ee-100m)
+B, H, HKV, HD, PS, MAXP, C = 8, 12, 12, 64, 16, 8, 16
+SERVE_ARGS = ["--arch", "paper-ee-100m", "--server", "--kv", "paged",
+              "--page-size", str(PS), "--prefill-chunk", str(C),
+              "--paged-kernel", "--lanes", str(B), "--rate", "8",
+              "--duration", "2", "--tokens", "16", "--prompt-len", "32",
+              "--lam", "0.5", "--device", "cuda"]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
+        else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+# ---------------------------------------------------------------------------
+# inputs at the serve path's shapes (numpy-seeded)
+# ---------------------------------------------------------------------------
+
+def pool_inputs(rng, lens, *, hkv, hd, holes=True):
+    """A page pool holding each lane's history of ``lens[i]`` positions
+    (page 0 = garbage sink, position -1), stale positions in the tails
+    of partly filled pages, and -1 holes in lane 0's first page."""
+    n_pages = 1 + sum(-(-n // PS) for n in lens)
+    k = (rng.normal(size=(n_pages, PS, hkv, hd)) * 0.5).astype(np.float32)
+    v = (rng.normal(size=(n_pages, PS, hkv, hd)) * 0.5).astype(np.float32)
+    pos = np.full((n_pages, PS), -1, np.int32)
+    table = np.zeros((len(lens), MAXP), np.int32)
+    nxt = 1
+    for lane, n in enumerate(lens):
+        for j in range(-(-n // PS)):
+            lo = j * PS
+            w = min(PS, n - lo)
+            pos[nxt, :w] = np.arange(lo, lo + w)
+            pos[nxt, w:] = np.arange(n, n + PS - w)
+            table[lane, j] = nxt
+            nxt += 1
+    if holes and lens[0] > 0:
+        pos[table[0, 0], 1::3] = -1
+    return (torch.from_numpy(k).to(DEV, torch.bfloat16),
+            torch.from_numpy(v).to(DEV, torch.bfloat16),
+            torch.from_numpy(pos).to(DEV), torch.from_numpy(table).to(DEV))
+
+
+# histories of the timed cases: what the serve below gives the kernels
+# (32-token prompts in 16-token chunks, then up to 16 decoded tokens)
+SERVE_LENS = [33, 48, 40, 35, 47, 38, 44, 36]
+SERVE_STARTS, SERVE_WIDTHS = [0, 16, 0, 16, 16, 0, 16, 0], [C] * B
+
+
+def decode_case(seed, *, h=H, hkv=HKV, window=None,
+                lens=(48, 33, 17, 128, 1, 64, 0, 90)):   # lane 6: masked
+    rng = np.random.default_rng(seed)
+    k, v, pos, table = pool_inputs(rng, lens, hkv=hkv, hd=HD)
+    q_pos = torch.tensor([max(n, 1) - 1 if n else -1 for n in lens],
+                         dtype=torch.int32, device=DEV)
+    q = torch.from_numpy((rng.normal(size=(B, h, HD)) * 0.5)
+                         .astype(np.float32)).to(DEV)
+    return (q, k, v, pos, table, q_pos), dict(scale=HD ** -0.5,
+                                              window=window)
+
+
+def prefill_case(seed, *, h=H, hkv=HKV, window=None,
+                 starts=(16, 0, 21, 48, 5, 0, 32, 100),   # mid-page 21, 5
+                 widths=(16, 16, 11, 16, 3, 0, 16, 7)):   # lane 5 idle
+    rng = np.random.default_rng(seed)
+    k, v, pos, table = pool_inputs(rng, starts, hkv=hkv, hd=HD)
+    q_pos = np.full((B, C), -1, np.int32)
+    for lane, (s, w) in enumerate(zip(starts, widths)):
+        q_pos[lane, :w] = np.arange(s, s + w)
+    q_pos = torch.from_numpy(q_pos).to(DEV)
+    start = torch.tensor(starts, dtype=torch.int32, device=DEV)
+
+    def rnd(*shape):
+        return torch.from_numpy((rng.normal(size=shape) * 0.5)
+                                .astype(np.float32)).to(DEV)
+
+    q, ck, cv = rnd(B, C, h, HD), rnd(B, C, hkv, HD), rnd(B, C, hkv, HD)
+    return (q, k, v, pos, table, q_pos, start, ck, cv, q_pos), \
+        dict(scale=HD ** -0.5, window=window)
+
+
+# ---------------------------------------------------------------------------
+# bounds: the bytes each call must move and the flops its inputs need
+# ---------------------------------------------------------------------------
+
+def _visible(kpos, qp, window):
+    ok = (kpos >= 0) & (kpos <= qp)
+    if window is not None:
+        ok &= kpos > qp - window
+    return ok
+
+
+def decode_bound(args, kw):
+    """Bytes and flops one decode call needs on these inputs: q of the
+    live lanes in and all of out written once; the positions and table
+    entries of the visited pages; the K and V rows of the visible keys
+    only (the kernel skips a masked slot before it reads K or V)."""
+    q, k, v, pos, table, q_pos = args
+    b, h, hd = q.shape
+    hkv = k.shape[2]
+    qp = q_pos.long().cpu()
+    n_used = torch.clamp(torch.div(qp, PS, rounding_mode="floor") + 1,
+                         min=0, max=table.shape[1])
+    pages = int(n_used.sum())
+    tab, posc = table.cpu().long(), pos.cpu()
+    keys = 0
+    for lane in range(b):
+        kp = posc[tab[lane, :int(n_used[lane])]].reshape(-1)
+        keys += int(_visible(kp, int(qp[lane]), kw["window"]).sum())
+    live = int((qp >= 0).sum())
+    nbytes = (live * h * hd * 4 + q.numel() * 4       # q in, out
+              + keys * hkv * hd * 2 * 2                # visible K and V
+              + pages * PS * 4 + pages * 4 + b * 4)    # pos, table, q_pos
+    flops = keys * h * 4 * hd
+    return nbytes, flops
+
+
+def prefill_bound(args, kw):
+    """Bytes and flops one prefill-chunk call needs on these inputs: q
+    of the rows at a position >= 0 in and all of out written once; the
+    in-flight k/v of those rows; the positions and table entries of the
+    visited history pages; the K and V rows of the history keys that
+    some row of the lane sees.  c_pos is q_pos, so it is read once."""
+    q, k, v, pos, table, q_pos, start, ck, cv, c_pos = args
+    b, c, h, hd = q.shape
+    hkv = k.shape[2]
+    st = start.long().cpu()
+    n_hist = torch.clamp(-torch.div(-st, PS, rounding_mode="floor"), 0,
+                         table.shape[1])
+    pages = int(n_hist.sum())
+    tab, posc, qpc = table.cpu().long(), pos.cpu(), q_pos.cpu()
+    pairs = hist_rows = 0
+    for lane in range(b):
+        kp = posc[tab[lane, :int(n_hist[lane])]].reshape(-1)
+        kp = kp[kp < int(st[lane])]
+        seen = torch.zeros(kp.shape, dtype=torch.bool)
+        for row in range(c):
+            qp = int(qpc[lane, row])
+            if qp < 0:
+                continue
+            vis = _visible(kp, qp, kw["window"])
+            seen |= vis
+            pairs += int(vis.sum())
+            pairs += int(_visible(qpc[lane], qp, kw["window"]).sum())
+        hist_rows += int(seen.sum())
+    rows = int((qpc >= 0).sum())
+    nbytes = (rows * h * hd * 4 + q.numel() * 4        # q in, out
+              + rows * hkv * hd * 4 * 2                 # in-flight k, v
+              + hist_rows * hkv * hd * 2 * 2            # history K and V
+              + pages * PS * 4 + pages * 4              # pos, table
+              + q_pos.numel() * 4 + b * 4)              # q_pos, start
+    flops = pairs * h * 4 * hd
+    return nbytes, flops
+
+
+def bound_ms(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_ms(fn, iters=200, warm=20):
+    """Mean time per eager call over ``iters`` back-to-back calls: the
+    larger of the device time and the host's cost to issue the call."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """Device time per call: ``calls`` calls captured in one CUDA graph
+    and replayed ``replays`` times, so the host's cost to issue each
+    call is not in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / (calls * replays)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    t0 = time.perf_counter()
+    built = build.build_all()
+    wall = time.perf_counter() - t0
+    for name, info in built.items():
+        regs = [ln.strip() for ln in info["log"].splitlines()
+                if "registers" in ln]
+        log(f"build {name}: {info['seconds']:.1f} s "
+            f"({'; '.join(regs) or 'cached'})")
+    log(f"kernel build wall time: {wall:.1f} s (all sources in parallel)")
+
+
+def phase_kernel_checks():
+    """Each kernel against its plain version on the card."""
+    errs = {"paged_attention": 0.0, "paged_prefill": 0.0}
+    cases = [("paged_attention", "mha", paged_attention,
+              paged_attention_plain, decode_case(0)),
+             ("paged_attention", "gqa-window", paged_attention,
+              paged_attention_plain, decode_case(1, hkv=6, window=24)),
+             ("paged_prefill", "mha", paged_prefill, paged_prefill_plain,
+              prefill_case(2)),
+             ("paged_prefill", "gqa-window", paged_prefill,
+              paged_prefill_plain, prefill_case(3, hkv=6, window=20)),
+             ("paged_attention", "serve", paged_attention,
+              paged_attention_plain, decode_case(4, lens=SERVE_LENS)),
+             ("paged_prefill", "serve", paged_prefill, paged_prefill_plain,
+              prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS))]
+    for name, case, kern, plain, (args, kw) in cases:
+        got = kern(*args, **kw)
+        torch.cuda.synchronize()
+        want = plain(*args, **kw)
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, atol=TOL_KERNEL, rtol=TOL_KERNEL)
+        log(f"check {name} [{case}] vs plain: max_abs_err {err:.3e} "
+            f"(atol=rtol={TOL_KERNEL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} [{case}] disagrees with its plain "
+                             f"version: max_abs_err {err}")
+        errs[name] = max(errs[name], err)
+    # masked rows/lanes come back exactly zero
+    args, kw = decode_case(0)
+    if paged_attention(*args, **kw)[6].abs().max() != 0:
+        raise SystemExit("paged_attention: all-masked lane is not zero")
+    args, kw = prefill_case(2)
+    out = paged_prefill(*args, **kw)
+    if out[args[5] < 0].abs().max() != 0:
+        raise SystemExit("paged_prefill: padded rows are not zero")
+    return errs
+
+
+def phase_model_check(params, cfg):
+    """Full-width model on a small input: one 16-token prefill chunk for
+    two lanes, then one decode token, through the kernels and through
+    the page gather on the card, and through the gather on the CPU."""
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab, (2, C)).astype(np.int32)
+    widths = (C, 11)
+    n_pages = 5
+    table = np.asarray([[1, 2, 0, 0], [3, 4, 0, 0]], np.int32)
+    pos = np.full((2, C), -1, np.int32)
+    dp = np.zeros((2, C), np.int32)
+    ds = np.zeros((2, C), np.int32)
+    for lane, w in enumerate(widths):
+        pos[lane, :w] = np.arange(w)
+        dp[lane, :w] = table[lane, np.arange(w) // PS]
+        ds[lane, :w] = np.arange(w) % PS
+    dec_pos = np.asarray(widths, np.int32)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    outs = {}
+    for name, prm, dev, kern in (("kernel", params, DEV, True),
+                                 ("gather", params, DEV, False),
+                                 ("cpu", params_cpu, torch.device("cpu"),
+                                  False)):
+        def t(a, dtype=torch.int32, dev=dev):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        caches = []
+        for spec in M.paged_cache_specs(cfg, n_pages, PS):
+            caches.append({"attn": {
+                k: (torch.full(s, -1, dtype=d, device=dev) if k == "pos"
+                    else torch.zeros(s, dtype=d, device=dev))
+                for k, (s, d) in spec["attn"].items()}})
+        chunk = A.PrefillChunk(
+            tok=t(toks), pos=t(pos), dest_page=t(dp), dest_slot=t(ds),
+            start=t([0, 0]), last_idx=t([w - 1 for w in widths]),
+            emit=t([True, True], torch.bool),
+            active=t([True, True], torch.bool))
+        kv = A.PagedKV(page_table=t(table),
+                       write_page=t(table[np.arange(2), dec_pos // PS]),
+                       write_slot=t(dec_pos % PS))
+        with torch.no_grad(), A.paged_kernel(kern):
+            x = prm["embed"]["table"][chunk.tok.long()]
+            for si in range(len(cfg.segments)):
+                x, _ = M.prefill_chunk_segment(prm, cfg, si, x, caches[si],
+                                               kv.page_table, chunk)
+            h = x[torch.arange(2, device=dev), chunk.last_idx.long()]
+            first, _ = M.ramp_readout(prm, cfg, h)
+            # a fixed decode token (not the argmax) keeps a near-tie in
+            # the first-token logits from changing the decode input
+            x = prm["embed"]["table"][t([7, 11]).long()][:, None, :]
+            ells = []
+            for si in range(len(cfg.segments)):
+                x, _, ro = M.decode_segment(prm, cfg, si, x, caches[si],
+                                            t(dec_pos), paged=kv,
+                                            write_mask=t([True, True],
+                                                         torch.bool))
+                if ro is not None:
+                    ells.append(ro[1])
+            logits, ell = M.ramp_readout(prm, cfg, x[:, 0, :])
+            ells.append(ell)
+        outs[name] = [first.float().cpu(), logits.float().cpu(),
+                      torch.stack(ells, 1).cpu()]
+    for name in ("kernel", "gather"):
+        errs = [float((a - b).abs().max())
+                for a, b in zip(outs[name], outs["cpu"])]
+        ok = all(torch.allclose(a, b, atol=TOL_MODEL, rtol=TOL_MODEL)
+                 and bool(torch.isfinite(a).all())
+                 for a, b in zip(outs[name], outs["cpu"]))
+        log(f"model check [{name} on the card vs gather on the CPU]: "
+            f"first-token logits {errs[0]:.3e}, decode logits "
+            f"{errs[1]:.3e}, node losses {errs[2]:.3e} "
+            f"(atol=rtol={TOL_MODEL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"model check failed for the {name} path")
+    shapes = [tuple(o.shape) for o in outs["kernel"]]
+    want = [(2, cfg.vocab), (2, cfg.vocab), (2, cfg.n_ramps + 1)]
+    if shapes != want:
+        raise SystemExit(f"model check shapes {shapes} != {want}")
+
+
+def phase_timing():
+    rows = {}
+    for name, kern, plain, (args, kw), bound in (
+            ("paged_attention", paged_attention, paged_attention_plain,
+             decode_case(4, lens=SERVE_LENS), decode_bound),
+            ("paged_prefill", paged_prefill, paged_prefill_plain,
+             prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS),
+             prefill_bound)):
+        def run_kern():
+            return kern(*args, **kw)
+
+        def run_plain():
+            return plain(*args, **kw)
+
+        # in turns: plain, kernel, kernel, plain
+        plain_g = [graph_ms(run_plain)]
+        kern_g = [graph_ms(run_kern), graph_ms(run_kern)]
+        plain_g.append(graph_ms(run_plain))
+        kern_e, plain_e = time_ms(run_kern), time_ms(run_plain, iters=50)
+        nbytes, flops = bound(args, kw)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        rows[name] = dict(ms=min(kern_g), plain_ms=min(plain_g),
+                          bound_ms=b_ms, bound_by=b_by, eager_ms=kern_e,
+                          plain_eager_ms=plain_e)
+        log(f"time {name} (device, CUDA graph replay): kernel "
+            f"{kern_g[0]:.5f} / {kern_g[1]:.5f} ms, plain {plain_g[0]:.5f} "
+            f"/ {plain_g[1]:.5f} ms; eager call (host included): kernel "
+            f"{kern_e:.5f} ms, plain {plain_e:.5f} ms; bound {b_ms:.6f} ms "
+            f"by {b_by} ({nbytes} bytes, {flops} flops)")
+    return rows
+
+
+def phase_serve(policy):
+    """One full-width serve; the launch counters are zeroed just before
+    and read just after."""
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    paged_prefill.launches = 0
+    t0 = time.perf_counter()
+    run = serve.main(SERVE_ARGS + ["--policy", policy])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": paged_attention.launches,
+                "paged_prefill": paged_prefill.launches}
+    if run is None:
+        raise SystemExit(f"serve [{policy}]: the workload was empty")
+    n_nodes = run.stepper.cfg.n_ramps + 1
+    vocab = run.stepper.cfg.vocab
+    for req in run.requests:
+        rec = run.metrics.records[req.rid]
+        if rec.n_tokens != req.max_tokens or rec.finished is None:
+            raise SystemExit(f"serve [{policy}]: request {req.rid} got "
+                             f"{rec.n_tokens}/{req.max_tokens} tokens")
+        if not all(0 <= tk < vocab for tk in rec.tokens):
+            raise SystemExit(f"serve [{policy}]: token out of range")
+    s = run.metrics.summary(slo=1.0)
+    if not 0 <= s["mean_served_node"] <= n_nodes - 1:
+        raise SystemExit(f"serve [{policy}]: served node out of range")
+    for name, n in launches.items():
+        if n <= 0:
+            raise SystemExit(f"serve [{policy}]: {name} never launched on "
+                             "the serve path")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"serve [{policy}]: {s['completed']}/{s['requests']} requests, "
+        f"{s['tokens']} tokens, {s['throughput_tok_s']:.1f} tok/s, "
+        f"TTFT p50 {1e3 * s['ttft']['p50']:.1f} ms p99 "
+        f"{1e3 * s['ttft']['p99']:.1f} ms, token latency p50 "
+        f"{1e3 * s['token_latency']['p50']:.2f} ms, mean served node "
+        f"{s['mean_served_node']:.2f}, launches {launches}, "
+        f"peak memory {peak:.0f} MiB, wall {wall:.1f} s "
+        f"(calibration and warmup included)")
+    return launches
+
+
+def main() -> None:
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}, device "
+        f"{torch.cuda.get_device_name(0)}")
+    # f32 matmuls in full f32 (no TF32), as the JAX reference computes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    errs = phase_kernel_checks()
+    cfg = get_config("paper-ee-100m")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = materialize(M.model_defs(cfg), gen, DEV)
+    phase_model_check(params, cfg)
+    del params
+    times = phase_timing()
+    # each serve's own counts; the main path is the recall_index serve
+    by_path = {policy: phase_serve(policy)
+               for policy in ("recall_index", "always_last")}
+    src = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:87"),
+           "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                             "src/repro/kernels/paged_prefill.py:120")}
+    kernels = [dict(name=name, route="cuda", source=src[name][0],
+                    replaces=src[name][1],
+                    launches=by_path["recall_index"][name],
+                    launches_by_path={p: n[name] for p, n in by_path.items()},
+                    max_abs_err=errs[name], ms=times[name]["ms"],
+                    plain_ms=times[name]["plain_ms"],
+                    bound_ms=times[name]["bound_ms"],
+                    bound_by=times[name]["bound_by"], library_ms=None,
+                    eager_ms=times[name]["eager_ms"],
+                    plain_eager_ms=times[name]["plain_eager_ms"], ok=True)
+               for name in ("paged_attention", "paged_prefill")]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,300 @@
+"""GQA attention: the full-sequence path (calibration prefill), the
+one-token decode against the paged KV pool, and the prefill chunk
+against the same pool.
+
+Paged layout (serving.kvpool): ``k, v: (P, page, Hkv, hd)`` bf16 and
+``pos: (P, page)`` i32 in a global page pool, plus a per-lane `PagedKV`
+handle carrying the page table and this token's (page, slot) write
+target.  Page 0 is the reserved garbage sink: lanes masked out by
+``write_mask`` (early-exited or unoccupied) write their K/V there with
+position -1, so those bytes are never attended; unused page-table
+entries also point at page 0.
+
+Pool writes are IN PLACE (``index_put_``), where the JAX package
+returns a new pool from ``.at[...].set``.  Several lanes may write the
+same (page, slot) only on the garbage page 0, and every such write
+stores position -1, so the order in which duplicates land never
+matters.
+
+``paged_kernel(True)`` routes the paged decode and the prefill chunk
+through the CUDA kernels of `repro_torch.kernels`; off, they take the
+page-table gather plus `_sdpa`, as the JAX package's default does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import paged_attention, paged_prefill
+from repro_torch.models.common import (causal_mask, rms_norm, rope,
+                                       rope_cos_sin)
+from repro_torch.models.config import AttnConfig
+from repro_torch.models.param import ParamDef
+
+__all__ = ["attn_defs", "attn_forward", "attn_decode",
+           "attn_prefill_chunk", "init_cache_defs", "PagedKV",
+           "PrefillChunk", "paged_kernel"]
+
+# must agree with serving.kvpool.alloc.GARBAGE_PAGE (a literal, so the
+# model layer never imports the serving layer)
+_GARBAGE_PAGE = 0
+
+
+class PagedKV(NamedTuple):
+    """Per-token device view of a lane's paged-KV state (the host-side
+    planner is serving.kvpool.KVPool)."""
+
+    page_table: torch.Tensor   # (B, lane_pages) i32, garbage-page padded
+    write_page: torch.Tensor   # (B,) i32 page receiving this token's KV
+    write_slot: torch.Tensor   # (B,) i32 slot within that page
+
+
+class PrefillChunk(NamedTuple):
+    """Per-step device view of the prefill chunks co-scheduled with
+    decode: up to C prompt tokens per admitting lane, planned host-side
+    by the scheduler's chunk planner.  Idle lanes and ragged tails are
+    padded: position -1 rows are inert, garbage-page destinations
+    swallow their writes."""
+
+    tok: torch.Tensor          # (B, C) i32 chunk tokens (0 for padding)
+    pos: torch.Tensor          # (B, C) i32 absolute positions (-1 = pad)
+    dest_page: torch.Tensor    # (B, C) i32 pool page per token
+    dest_slot: torch.Tensor    # (B, C) i32 slot within the page
+    start: torch.Tensor        # (B,) i32 chunk-start position
+    last_idx: torch.Tensor     # (B,) i32 row of the chunk's last token
+    emit: torch.Tensor         # (B,) bool final chunk: emit first token
+    active: torch.Tensor       # (B,) bool lanes prefilling this step
+
+
+def attn_defs(cfg: AttnConfig, d_model: int) -> dict:
+    if cfg.mla is not None:
+        raise NotImplementedError("the port has GQA attention only")
+    defs = {
+        "wq": ParamDef((d_model, cfg.n_heads * cfg.head_dim),
+                       ("embed", "heads")),
+        "wk": ParamDef((d_model, cfg.n_kv_heads * cfg.head_dim),
+                       ("embed", "kv_heads")),
+        "wv": ParamDef((d_model, cfg.n_kv_heads * cfg.head_dim),
+                       ("embed", "kv_heads")),
+        "wo": ParamDef((cfg.n_heads * cfg.head_dim, d_model),
+                       ("heads", "embed")),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((cfg.head_dim,), (None,), init="ones")
+        defs["k_norm"] = ParamDef((cfg.head_dim,), (None,), init="ones")
+    return defs
+
+
+def init_cache_defs(cfg: AttnConfig, batch: int, cache_len: int) -> dict:
+    """(shape, dtype) spec of one layer's KV cache: bf16 K/V, i32 pos."""
+    return {
+        "k": ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
+              torch.bfloat16),
+        "v": ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
+              torch.bfloat16),
+        "pos": ((batch, cache_len), torch.int32),
+    }
+
+
+def _split_heads(x, n_heads, head_dim):
+    return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+
+def _scale(cfg: AttnConfig) -> float:
+    return cfg.softmax_scale or 1.0 / math.sqrt(cfg.head_dim)
+
+
+def _qk_norm(p, q, k, cfg: AttnConfig, eps):
+    if cfg.qk_norm:
+        q = rms_norm({"scale": p["q_norm"]}, q, eps)
+        k = rms_norm({"scale": p["k_norm"]}, k, eps)
+    return q, k
+
+
+def _sdpa(q, k, v, mask, scale):
+    """Plain einsum + softmax attention.  q (B,S,H,hd), k (B,T,Hkv,hd),
+    v (B,T,Hkv,vd) with H = G*Hkv; mask (B,S,T) or (S,T)."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    vd = v.shape[-1]
+    g = h // hkv
+    q = q.reshape(b, s, hkv, g, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
+    if mask.dim() == 2:
+        mask = mask[None]
+    logits = logits.masked_fill(~mask[:, None, None, :, :], -1e30)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(b, s, h, vd)
+
+
+def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: AttnConfig, eps: float = 1e-5):
+    """Full causal self-attention (prefill).  Returns (y, {"k", "v"})."""
+    b, s, _ = x.shape
+    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    q, k = _qk_norm(p, q, k, cfg, eps)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    q = rope(q, cos, sin)
+    k = rope(k, cos, sin)
+    mask = causal_mask(positions, positions, cfg.window)
+    out = _sdpa(q, k, v, mask, _scale(cfg))
+    y = out.reshape(b, s, -1) @ p["wo"]
+    return y, {"k": k, "v": v}
+
+
+# Paged attention implementation: the page-table gather + _sdpa (off,
+# the default) or the CUDA kernels of repro_torch.kernels (on).  Read at
+# call time.
+_PAGED_KERNEL = contextvars.ContextVar("repro_torch_paged_kernel",
+                                       default=False)
+
+
+@contextlib.contextmanager
+def paged_kernel(on: bool = True):
+    """Send paged decode and prefill chunks through the kernels' wrappers
+    (``on``) or through the page gather + `_sdpa` (off), the reference
+    model's own non-kernel path.  The gather is kept apart from the
+    kernels' plain versions on purpose: it computes the same contract a
+    second, independent way, so it witnesses the kernels on the card."""
+    tok = _PAGED_KERNEL.set(on)
+    try:
+        yield
+    finally:
+        _PAGED_KERNEL.reset(tok)
+
+
+def _gqa_qkv_decode(p: dict, x: torch.Tensor, pos: torch.Tensor,
+                    cfg: AttnConfig, eps: float):
+    """The new token's q/k/v (+ qk-norm + rope).  x (B,1,D) -> q/k/v
+    (B,1,H*,hd)."""
+    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    q, k = _qk_norm(p, q, k, cfg, eps)
+    cos, sin = rope_cos_sin(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    return rope(q, cos, sin), rope(k, cos, sin), v
+
+
+def _gather_pages(cache: dict, table: torch.Tensor, dtype):
+    """(k, v, pos) of every page in ``table`` (B, maxp), flattened to
+    (B, maxp*ps, ...)."""
+    b, maxp = table.shape
+    ps = cache["k"].shape[1]
+    t = table.long()
+    k = cache["k"][t].to(dtype).reshape(b, maxp * ps, *cache["k"].shape[2:])
+    v = cache["v"][t].to(dtype).reshape(b, maxp * ps, *cache["v"].shape[2:])
+    return k, v, cache["pos"][t].reshape(b, maxp * ps)
+
+
+def _gqa_decode_paged(p, x, cache, pos, cfg: AttnConfig, eps,
+                      paged: PagedKV, write_mask):
+    """One-token GQA decode against the paged pool: write the new
+    token's K/V into the lane's (page, slot) target, in place, then
+    attend over the lane's pages."""
+    q, k, v = _gqa_qkv_decode(p, x, pos, cfg, eps)
+    wp = paged.write_page.long()
+    pw = pos.to(torch.int32)
+    if write_mask is not None:
+        wp = torch.where(write_mask, wp, _GARBAGE_PAGE)
+        pw = torch.where(write_mask, pw, -1)
+    ws = paged.write_slot.long()
+    cache["k"].index_put_((wp, ws), k[:, 0].to(cache["k"].dtype))
+    cache["v"].index_put_((wp, ws), v[:, 0].to(cache["v"].dtype))
+    cache["pos"].index_put_((wp, ws), pw)
+
+    table = paged.page_table
+    scale = _scale(cfg)
+    if _PAGED_KERNEL.get():
+        out = paged_attention(q[:, 0], cache["k"], cache["v"], cache["pos"],
+                              table, pos.to(torch.int32), scale=scale,
+                              window=cfg.window)[:, None]     # (B,1,H,hd)
+    else:
+        k_full, v_full, pos_full = _gather_pages(cache, table, q.dtype)
+        mask = causal_mask(pos[:, None], pos_full, cfg.window)
+        mask &= (pos_full >= 0)[:, None, :]
+        out = _sdpa(q, k_full, v_full, mask, scale)
+    return out.reshape(x.shape[0], 1, -1) @ p["wo"], cache
+
+
+def attn_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
+                       cfg: AttnConfig, eps: float, table: torch.Tensor,
+                       chunk: PrefillChunk):
+    """One prefill CHUNK against the paged pool: compute the chunk's
+    q/k/v, write K/V into the per-token (page, slot) targets (in place),
+    then attend over the lane's page-table history plus the chunk's own
+    in-flight keys, causally.
+
+    The in-flight keys are the ACTIVATION-dtype k/v (not the bf16 pool
+    round-trip), and history reads are clipped to ``kpos <
+    chunk.start`` so the chunk's own just-written positions are attended
+    exactly once.  x (B, C, D); table (B, maxp) i32; returns
+    (y (B, C, D), cache).
+    """
+    b, c, _ = x.shape
+    rpos = torch.clamp(chunk.pos, min=0)       # rope of pad rows: masked
+    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    q, k = _qk_norm(p, q, k, cfg, eps)
+    cos, sin = rope_cos_sin(rpos, cfg.head_dim, cfg.rope_theta)
+    q = rope(q, cos, sin)
+    k = rope(k, cos, sin)
+
+    # prefix-cache hits / pad rows / inactive lanes go to the garbage
+    # sink with stored position -1
+    live = chunk.active[:, None] & (chunk.pos >= 0) \
+        & (chunk.dest_page != _GARBAGE_PAGE)
+    dp = torch.where(live, chunk.dest_page, _GARBAGE_PAGE).long()
+    pw = torch.where(live, chunk.pos, -1).to(torch.int32)
+    ds = chunk.dest_slot.long()
+    cache["k"].index_put_((dp, ds), k.to(cache["k"].dtype))
+    cache["v"].index_put_((dp, ds), v.to(cache["v"].dtype))
+    cache["pos"].index_put_((dp, ds), pw)
+
+    scale = _scale(cfg)
+    if _PAGED_KERNEL.get():
+        out = paged_prefill(q, cache["k"], cache["v"], cache["pos"], table,
+                            chunk.pos, chunk.start, k, v, chunk.pos,
+                            scale=scale, window=cfg.window)
+    else:
+        k_hist, v_hist, pos_hist = _gather_pages(cache, table, q.dtype)
+        hist_ok = (pos_hist >= 0) & (pos_hist < chunk.start[:, None])
+        k_all = torch.cat([k_hist, k], dim=1)
+        v_all = torch.cat([v_hist, v], dim=1)
+        pos_all = torch.cat([pos_hist, chunk.pos], dim=1)
+        ok_all = torch.cat([hist_ok, chunk.pos >= 0], dim=1)
+        mask = causal_mask(chunk.pos, pos_all, cfg.window) \
+            & ok_all[:, None, :]
+        out = _sdpa(q, k_all, v_all, mask, scale)
+    return out.reshape(b, c, -1) @ p["wo"], cache
+
+
+def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+                cfg: AttnConfig, eps: float = 1e-5,
+                paged: PagedKV | None = None, write_mask=None):
+    """One-token decode against the paged KV pool.
+
+    Args:
+      x: (B, 1, D) current token activations.
+      cache: one layer's pool {"k","v": (P,page,Hkv,hd), "pos": (P,page)},
+        updated in place.
+      pos: (B,) absolute position of the new token.
+      paged: page table + this token's write target.
+      write_mask: (B,) lanes whose write should land (masked lanes are
+        redirected to the garbage page).
+
+    Returns (y, cache).  The per-lane ring cache of the JAX package is
+    not part of the port.
+    """
+    if paged is None:
+        raise NotImplementedError("the port decodes against the paged KV "
+                                  "pool only")
+    return _gqa_decode_paged(p, x, cache, pos, cfg, eps, paged, write_mask)

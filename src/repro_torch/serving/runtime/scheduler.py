@@ -1,0 +1,411 @@
+"""Lane scheduling: fixed-width slots, immediate recycling, static
+shapes, on the paged KV pool with chunked prefill.
+
+Three layers:
+
+  * `LaneScheduler` — the pure allocator.  `n_lanes` slots; a lane is
+    recycled the moment its request finishes;
+    admission pops the `RequestQueue` into free lanes, gated by a
+    ``can_admit`` callback (the pool's page-budget reservation: when the
+    pool can't cover a request's worst case, the request STAYS QUEUED,
+    head-of-line, instead of being dropped).
+
+  * `EngineStepper` — the device state of the REAL model: the paged KV
+    pool, current tokens, positions and the carried strategy-bank
+    states.  Admission allocates the prompt's pages and registers a
+    prefill cursor; each `step` first executes the pool's host-planned
+    page ops (fresh-page position resets, copy-on-write splits), then
+    runs decode for the decoding lanes AND a planner-budgeted prefill
+    chunk for the admitting lanes through the shared
+    `serving.engine.make_token_step`.  The pool is updated in place
+    (``index_put_`` / indexed assignment), where the JAX package builds
+    a new pool each step.
+
+  * `ChunkPlanner` — the per-step token budget for those chunks, split
+    fairly across prompt-length buckets.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.attention import PagedKV, PrefillChunk
+from repro_torch.serving.engine import make_token_step
+from repro_torch.serving.kvpool import KVPool, PoolExhausted
+from repro_torch.serving.runtime.request import Request, RequestQueue
+from repro_torch.strategy.base import init_lane
+
+__all__ = ["LaneScheduler", "ChunkPlanner", "EngineStepper"]
+
+
+class LaneScheduler:
+    """Fixed-width lane allocator with immediate recycling."""
+
+    def __init__(self, n_lanes: int):
+        if n_lanes < 1:
+            raise ValueError("need at least one lane")
+        self.n_lanes = int(n_lanes)
+        self.lane_req: list[Request | None] = [None] * self.n_lanes
+        self.remaining = np.zeros(self.n_lanes, np.int64)
+        self.sid = np.zeros(self.n_lanes, np.int32)
+
+    def occupied_mask(self) -> np.ndarray:
+        return np.asarray([r is not None for r in self.lane_req])
+
+    def busy(self) -> bool:
+        return any(r is not None for r in self.lane_req)
+
+    def free_lanes(self) -> list[int]:
+        return [i for i, r in enumerate(self.lane_req) if r is None]
+
+    def admit(self, queue: RequestQueue, sid_of, *,
+              can_admit=None) -> list[tuple[int, Request]]:
+        """Pop queued requests into free lanes; returns assignments.
+
+        ``can_admit(req)`` gates (and RESERVES resources for) each pop —
+        the paged-KV page budget.  A False verdict stops admission at
+        the queue head: the request waits, later arrivals wait behind it
+        (deterministic head-of-line order; no starvation, no drops).
+        """
+        out = []
+        for lane in self.free_lanes():
+            if not len(queue):
+                break
+            if can_admit is not None and not can_admit(queue.peek()):
+                break
+            req = queue.pop()
+            self.lane_req[lane] = req
+            self.remaining[lane] = req.max_tokens
+            self.sid[lane] = sid_of(req)
+            out.append((lane, req))
+        return out
+
+    def consume_token(self, lane: int) -> bool:
+        """Account one emitted token; True when the budget is exhausted."""
+        self.remaining[lane] -= 1
+        return bool(self.remaining[lane] <= 0)
+
+    def release(self, lane: int) -> Request:
+        req = self.lane_req[lane]
+        if req is None:
+            raise ValueError(f"lane {lane} is already free")
+        self.lane_req[lane] = None
+        self.remaining[lane] = 0
+        self.sid[lane] = 0
+        return req
+
+
+class ChunkPlanner:
+    """Per-step prefill-chunk planning under a token budget with
+    prompt-length-bucketed fairness (DESIGN.md §9).
+
+    Each step, at most ``budget`` prompt tokens are spread over the
+    lanes currently mid-prefill, every lane capped at ``chunk`` tokens
+    (the device chunk width).  Lanes are grouped into power-of-two
+    prompt-length BUCKETS (in units of ``chunk``) and the budget is
+    split evenly across the nonempty buckets — a lane prefilling a
+    4096-token prompt can take at most its bucket's share, so freshly
+    admitted short prompts always find budget and reach their first
+    token in O(1) steps instead of queueing behind the long prefill
+    (and vice versa: the long prompt keeps its share no matter how many
+    shorts arrive, so neither side starves).  Within a bucket a
+    rotating round-robin pointer decides who goes first; the
+    budget-split remainder rotates across buckets.  Unused share flows
+    to the next bucket, then tops up any lane still under its cap —
+    the budget is never wasted while work remains.
+
+    Used by both the real `EngineStepper` and the virtual-clock
+    `SimStepper`, so the sim sweeps exercise the exact admission
+    discipline the engine serves with.
+    """
+
+    def __init__(self, chunk: int, budget: int | None = None):
+        if chunk < 1:
+            raise ValueError("chunk must be >= 1")
+        self.chunk = int(chunk)
+        self.budget = int(budget) if budget is not None else self.chunk
+        if self.budget < 1:
+            raise ValueError("budget must be >= 1")
+        self._rr = 0
+
+    def bucket(self, prompt_len: int) -> int:
+        """Power-of-two bucket index: 0 for prompts up to one chunk,
+        then doubling (chunk, 2*chunk] -> 1, (2c, 4c] -> 2, ..."""
+        return max(0, -(-int(prompt_len) // self.chunk) - 1).bit_length()
+
+    def plan(self, lanes: dict) -> dict:
+        """``lanes``: lane -> (remaining_tokens, prompt_len).  Returns
+        lane -> tokens to prefill this step (each in [1, chunk], total
+        <= budget)."""
+        if not lanes:
+            return {}
+        buckets: dict[int, list[int]] = {}
+        for lane in sorted(lanes):
+            buckets.setdefault(self.bucket(lanes[lane][1]), []).append(lane)
+        keys = sorted(buckets)
+        base, rem = divmod(self.budget, len(keys))
+        rem_at = self._rr % len(keys)
+
+        def rotated(seq):
+            off = self._rr % len(seq)
+            return seq[off:] + seq[:off]
+
+        out: dict[int, int] = {}
+        leftover = 0
+        for i, bk in enumerate(keys):
+            share = base + (rem if i == rem_at else 0) + leftover
+            for lane in rotated(buckets[bk]):
+                w = min(self.chunk, lanes[lane][0], share)
+                if w > 0:
+                    out[lane] = w
+                    share -= w
+            leftover = share
+        if leftover > 0:       # top-up pass: no budget left stranded
+            for lane in rotated(sorted(lanes)):
+                got = out.get(lane, 0)
+                add = min(self.chunk - got, lanes[lane][0] - got, leftover)
+                if add > 0:
+                    out[lane] = got + add
+                    leftover -= add
+                if leftover == 0:
+                    break
+        self._rr += 1
+        return out
+
+
+
+def _materialize_cache(spec, device, key=None):
+    """Zero-filled pool from a `models.model.paged_cache_specs` tree
+    (``pos`` buffers start at -1 == empty slot)."""
+    if isinstance(spec, dict):
+        return {k: _materialize_cache(v, device, k) for k, v in spec.items()}
+    shape, dtype = spec
+    if key == "pos":
+        return torch.full(shape, -1, dtype=dtype, device=device)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+class EngineStepper:
+    """Real-model lane state: the paged pool + the shared token step."""
+
+    def __init__(self, params, cfg, strategies: tuple, *, n_lanes: int,
+                 cache_len: int, prompt_len: int, page_size: int = 16,
+                 n_pages: int | None = None, paged_kernel: bool = False,
+                 prefill_chunk: int, prefill_budget: int | None = None):
+        if not prefill_chunk:
+            raise ValueError("the port admits through chunked prefill "
+                             "only: pass prefill_chunk")
+        for seg in cfg.segments:
+            if seg.block.mixer != "attn":
+                raise ValueError("chunked prefill supports attention "
+                                 f"segments only, not {seg.block.mixer!r}")
+        self.params = params
+        self.cfg = cfg
+        self.device = params["embed"]["table"].device
+        self.strategies = strategies
+        self.n_lanes = int(n_lanes)
+        self.cache_len = int(cache_len)
+        self.prompt_len = int(prompt_len)
+        self.full_depth = len(cfg.segments)
+        self.prefill_chunk = int(prefill_chunk)
+        self.planner = ChunkPlanner(self.prefill_chunk, prefill_budget)
+        self._step = make_token_step(params, cfg, strategies,
+                                     paged_kernel_on=paged_kernel,
+                                     prefill_slots=self.prefill_chunk)
+        self.pool = KVPool(n_lanes=self.n_lanes, page_size=page_size,
+                           lane_pages=-(-self.cache_len // page_size),
+                           n_pages=n_pages)
+        self.alloc()
+
+    def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=self.device)
+
+    # ---- paged device ops (in place) ------------------------------------
+
+    def _reset_pages(self, pages: torch.Tensor) -> None:
+        """Gate the stale bytes of freshly allocated pages before a
+        chunked admission writes into them: pos[:, pages] = -1 in every
+        layer.  ``pages`` is garbage-padded (the sink's positions are -1
+        by construction, so resetting it again changes nothing)."""
+        for seg_c in self.caches:
+            seg_c["attn"]["pos"][:, pages.long()] = -1
+
+    def _paged_prep(self, fresh, cow_src, cow_dst) -> None:
+        """Pre-step page ops: COW page copies (src -> dst in every layer;
+        the right-hand side is gathered before any write lands) and
+        fresh-page position resets.  Idle entries are garbage-page pairs
+        (0 -> 0), which copy the sink onto itself."""
+        src, dst = cow_src.long(), cow_dst.long()
+        for seg_c in self.caches:
+            attn = seg_c["attn"]
+            for leaf in attn.values():
+                leaf[:, dst] = leaf[:, src]
+            attn["pos"][:, fresh.long()] = -1
+
+    # ---- lane state ------------------------------------------------------
+
+    def alloc(self) -> None:
+        """(Re)build empty lane state: an empty pool, fresh bank states."""
+        self.pool.reset()
+        specs = M.paged_cache_specs(self.cfg, self.pool.n_pages,
+                                    self.pool.page_size)
+        self.caches = [_materialize_cache(s, self.device) for s in specs]
+        self.tok = torch.zeros((self.n_lanes,), dtype=torch.int32,
+                               device=self.device)
+        self.pos = torch.zeros((self.n_lanes,), dtype=torch.int32,
+                               device=self.device)
+        self.states = tuple(s.init(self.n_lanes) for s in self.strategies)
+        # chunked-prefill lane state: lane -> {prompt, plan, cursor, lp}
+        self._prefilling = {}
+        self._idle_chunk = None
+        self.chunk_stats = {"tokens_computed": 0, "tokens_skipped": 0,
+                            "chunk_steps": 0, "prefills": 0}
+
+    def reserve(self, req: Request) -> bool:
+        """Admission gate (the scheduler's ``can_admit``): reserve the
+        request's worst-case page need."""
+        return self.pool.reserve(req.prompt, req.max_tokens)
+
+    def release(self, lane: int) -> None:
+        """Return the lane's pages to the pool and drop any prefill
+        cursor it still holds."""
+        self._prefilling.pop(lane, None)
+        self.pool.release(lane)
+
+    def admit(self, lane: int, req: Request) -> None:
+        """Admit the request into ``lane``: allocate the prompt's pages
+        now and defer the compute — the prompt is fed through the step
+        ``prefill_chunk`` tokens at a time, co-scheduled with decode,
+        and prefix-cache hits skip their already-cached chunks."""
+        plan = self.pool.admit(lane, req.prompt, req.max_tokens,
+                               register_prefix=False)
+        self._reset_pages(self._dev(plan.new_pages))
+        lp = int(req.prompt.shape[0])
+        # full prefix hit still recomputes the final token: the
+        # first-token logits need the last position's hidden state
+        cursor = min(plan.n_shared_tokens, lp - 1)
+        self.chunk_stats["tokens_skipped"] += cursor
+        self.chunk_stats["prefills"] += 1
+        self._prefilling[lane] = {
+            "prompt": np.asarray(req.prompt, np.int32),
+            "plan": plan, "cursor": cursor, "lp": lp}
+        # the recycled lane starts from fresh strategy state no matter
+        # what its predecessor observed
+        self.states = tuple(init_lane(s, st, lane)
+                            for s, st in zip(self.strategies, self.states))
+
+    def warmup(self) -> None:
+        """Run one dummy request through prefill and a decode token
+        before the serving clock starts (on the card this builds and
+        loads the kernels), then reset all lane state."""
+        dummy = Request(rid=-1, prompt=np.zeros(self.prompt_len, np.int32),
+                        max_tokens=1)
+        if not self.reserve(dummy):
+            raise PoolExhausted(
+                f"kv pool of {self.pool.n_pages} pages x "
+                f"{self.pool.page_size} tokens cannot fit even one "
+                f"{self.prompt_len}-token request — raise --pages or "
+                "--page-size")
+        self.admit(0, dummy)
+        occ = np.zeros((self.n_lanes,), bool)
+        occ[0] = True
+        sid0 = np.zeros((self.n_lanes,), np.int32)
+        for _ in range(2 * self.prompt_len + 2):
+            if not self._prefilling:
+                break
+            self.step(occ, sid0)
+        self.step(occ, sid0)
+        self.alloc()
+
+    def _build_chunk(self, widths: dict):
+        """Turn the planner's lane -> width map into the device
+        `PrefillChunk` (all idle when nothing is prefilling: position -1
+        rows, garbage destinations).  Advances the per-lane cursors and
+        returns the lanes whose prompt finishes with this chunk."""
+        if not widths and self._idle_chunk is not None:
+            return self._idle_chunk, []
+        n, c = self.n_lanes, self.prefill_chunk
+        tok = np.zeros((n, c), np.int32)
+        pos = np.full((n, c), -1, np.int32)
+        dp = np.zeros((n, c), np.int32)     # 0 == the garbage sink
+        ds = np.zeros((n, c), np.int32)
+        start = np.zeros(n, np.int32)
+        last = np.zeros(n, np.int32)
+        emit = np.zeros(n, bool)
+        act = np.zeros(n, bool)
+        finished = []
+        for lane, w in widths.items():
+            st = self._prefilling[lane]
+            cur = st["cursor"]
+            sl = slice(cur, cur + w)
+            tok[lane, :w] = st["prompt"][sl]
+            pos[lane, :w] = np.arange(cur, cur + w, dtype=np.int32)
+            dp[lane, :w] = st["plan"].dest_page[sl]
+            ds[lane, :w] = st["plan"].dest_slot[sl]
+            start[lane] = cur
+            last[lane] = w - 1
+            act[lane] = True
+            st["cursor"] = cur + w
+            if st["cursor"] == st["lp"]:
+                emit[lane] = True
+                finished.append(lane)
+            self.chunk_stats["tokens_computed"] += w
+        chunk = PrefillChunk(
+            tok=self._dev(tok), pos=self._dev(pos), dest_page=self._dev(dp),
+            dest_slot=self._dev(ds), start=self._dev(start),
+            last_idx=self._dev(last), emit=self._dev(emit, torch.bool),
+            active=self._dev(act, torch.bool))
+        if widths:
+            self.chunk_stats["chunk_steps"] += 1
+        else:
+            self._idle_chunk = chunk
+        return chunk, finished
+
+    def step(self, occupied: np.ndarray, sid: np.ndarray):
+        """One step: a decode token for every occupied DECODING lane and
+        a budgeted prefill chunk for the admitting lanes.
+
+        Returns host-side ``(emitted (B,), served (B,), seg_batch,
+        seg_policy, emit_mask (B,) bool)``; ``emit_mask`` marks the lanes
+        whose ``emitted`` entry is a real token (lanes mid-prefill emit
+        nothing).
+        """
+        decode = np.asarray(occupied, bool).copy()
+        widths: dict = {}
+        if self._prefilling:
+            for lane in self._prefilling:
+                decode[lane] = False
+            widths = self.planner.plan({
+                lane: (st["lp"] - st["cursor"], st["lp"])
+                for lane, st in self._prefilling.items()})
+        occ = self._dev(decode, torch.bool)
+        plan = self.pool.prepare_step(decode)
+        if plan.fresh.any() or plan.cow_dst.any():
+            # page ops only when the plan has any
+            self._paged_prep(self._dev(plan.fresh), self._dev(plan.cow_src),
+                             self._dev(plan.cow_dst))
+        kv = PagedKV(page_table=self._dev(self.pool.table),
+                     write_page=self._dev(plan.write_page),
+                     write_slot=self._dev(plan.write_slot))
+        chunk, finished = self._build_chunk(widths)
+        tok, self.caches, served, sb, sp, self.states = self._step(
+            self.tok, self.caches, self.pos, occ, self._dev(sid), kv,
+            self.states, chunk)
+        self.pool.note_written(decode)
+        self.tok = tok
+        self.pos = self.pos + occ.to(torch.int32)
+        if finished:
+            # the final chunk seeded tok[lane] with the first token;
+            # point the lane past its prompt and make its pages
+            # shareable now that every byte exists
+            lanes = self._dev(finished, torch.long)
+            self.pos[lanes] = self._dev(
+                [self._prefilling[ln]["lp"] for ln in finished])
+            for lane in finished:
+                st = self._prefilling.pop(lane)
+                self.pool.commit_prefix(lane, st["prompt"])
+        return (tok.cpu().numpy(), served.cpu().numpy(), int(sb), int(sp),
+                decode)

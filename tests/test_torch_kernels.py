@@ -1,0 +1,285 @@
+"""The port's paged-decode and chunked-prefill kernels (repro_torch.kernels)
+against the JAX package: their plain PyTorch versions — what a CPU
+tensor runs — are held against `repro.kernels.ref` and against the
+Pallas kernels run in interpret mode, on the same numpy inputs.
+
+Tolerance: f32 outputs within atol = rtol = 1e-5 (the two frameworks sum
+in different orders).  The bf16 pools are built from the same f32 numpy
+arrays in both frameworks and must be bit-equal.
+
+The CUDA kernels themselves run only on the card: `test_cuda_kernels_
+match_plain` holds each against its plain version there and skips on a
+machine without one.  The JAX package is imported by the fixture of the
+tests that need it, so that test also runs where JAX is not installed
+(``pytest -m cuda tests/test_torch_kernels.py``).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import (paged_attention, paged_attention_plain,
+                                 paged_prefill, paged_prefill_plain)
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX side: jax.numpy and the JAX package's kernels."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ops, ref
+    return types.SimpleNamespace(jnp=jnp, ops=ops, ref=ref)
+
+
+def _bf16_pair(jnp, a: np.ndarray):
+    """The same f32 numpy array as a bf16 JAX array and a bf16 tensor,
+    checked bit-equal."""
+    j = jnp.asarray(a).astype(jnp.bfloat16)
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    np.testing.assert_array_equal(np.asarray(j).view(np.uint16),
+                                  t.view(torch.int16).numpy().view(np.uint16))
+    return j, t
+
+
+def _pool(rng, *, hkv, hd, ps, starts, holes, stale_page):
+    """Per-lane sequential page histories of ``starts[i]`` positions
+    (page 0 is the garbage sink, all -1).  ``holes`` punches position
+    -1 holes (early-exit writes) into lane 0's history; the tail of a
+    partly filled page holds stale positions at and past the lane's
+    length; ``stale_page`` appends one page of in-range positions that
+    only garbage table padding points at."""
+    n_pages = 1 + sum(-(-s // ps) for s in starts) + int(stale_page)
+    k = (rng.normal(size=(n_pages, ps, hkv, hd)) * 0.5).astype(np.float32)
+    v = (rng.normal(size=(n_pages, ps, hkv, hd)) * 0.5).astype(np.float32)
+    pos = np.full((n_pages, ps), -1, np.int32)
+    pages = []
+    nxt = 1
+    for s in starts:
+        lane_pages = []
+        for j in range(-(-s // ps)):
+            lo = j * ps
+            w = min(ps, s - lo)
+            pos[nxt, :w] = np.arange(lo, lo + w)
+            pos[nxt, w:] = np.arange(s, s + ps - w)
+            lane_pages.append(nxt)
+            nxt += 1
+        pages.append(lane_pages)
+    if holes and pages[0]:
+        first = pages[0][0]
+        pos[first, 1:ps:3] = -1
+    if stale_page:
+        pos[nxt] = np.arange(ps)
+    return k, v, pos, pages, nxt if stale_page else 0
+
+
+def _table(pages, maxp, pad):
+    table = np.full((len(pages), maxp), pad, np.int32)
+    for lane, lp in enumerate(pages):
+        table[lane, :len(lp)] = lp
+    return table
+
+
+# --------------------------------------------------------------------------
+# paged decode attention
+# --------------------------------------------------------------------------
+
+DECODE_CASES = {
+    # name: (h, hkv, hd, ps, maxp, lens, q_pos override, window, holes,
+    #        stale padding)
+    "mha": (4, 4, 32, 8, 4, (20, 5, 9), None, None, False, False),
+    "gqa": (4, 2, 64, 8, 4, (20, 5, 9), None, None, False, False),
+    "window": (4, 2, 64, 8, 4, (30, 12, 3), None, 10, False, False),
+    "holes": (4, 4, 32, 8, 4, (20, 5, 9), None, None, True, False),
+    "stale_padding": (4, 2, 32, 8, 4, (9, 5, 3), None, None, False, True),
+    "all_masked": (4, 2, 32, 8, 3, (0, 6, 0), (0, 5, -1), None, False,
+                   False),
+}
+
+
+def _decode_inputs(case):
+    h, hkv, hd, ps, maxp, lens, qpos_over, window, holes, stale = \
+        DECODE_CASES[case]
+    rng = np.random.default_rng(sorted(DECODE_CASES).index(case))
+    k, v, pos, pages, stale_id = _pool(rng, hkv=hkv, hd=hd, ps=ps,
+                                       starts=lens, holes=holes,
+                                       stale_page=stale)
+    table = _table(pages, maxp, stale_id)
+    q_pos = np.asarray([n - 1 for n in lens], np.int32)
+    if qpos_over is not None:
+        q_pos = np.asarray(qpos_over, np.int32)
+    q = (rng.normal(size=(len(lens), h, hd)) * 0.5).astype(np.float32)
+    return dict(q=q, k=k, v=v, pos=pos, table=table, q_pos=q_pos, hd=hd,
+                ps=ps, maxp=maxp, hkv=hkv, window=window)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_paged_attention_plain_matches_jax(case, jx):
+    jnp, ops, ref = jx.jnp, jx.ops, jx.ref
+    d = _decode_inputs(case)
+    scale = 1.0 / np.sqrt(d["hd"])
+    kj, kt = _bf16_pair(jnp, d["k"])
+    vj, vt = _bf16_pair(jnp, d["v"])
+    out = paged_attention_plain(
+        torch.from_numpy(d["q"]), kt, vt, torch.from_numpy(d["pos"]),
+        torch.from_numpy(d["table"]), torch.from_numpy(d["q_pos"]),
+        scale=scale, window=d["window"]).numpy()
+    b, h, hd = d["q"].shape
+    hkv = d["hkv"]
+    n_used = jnp.minimum(jnp.asarray(d["q_pos"]) // d["ps"] + 1, d["maxp"])
+    r = ref.paged_attention_ref(
+        jnp.asarray(d["q"]).reshape(b, hkv, h // hkv, hd),
+        kj.transpose(0, 2, 1, 3), vj.transpose(0, 2, 1, 3),
+        jnp.asarray(d["pos"]), jnp.asarray(d["table"]),
+        jnp.asarray(d["q_pos"]), n_used, scale=scale,
+        window=d["window"]).reshape(b, h, hd)
+    np.testing.assert_allclose(out, np.asarray(r), **TOL)
+    pallas = ops.paged_attention(
+        jnp.asarray(d["q"]), kj, vj, jnp.asarray(d["pos"]),
+        jnp.asarray(d["table"]), jnp.asarray(d["q_pos"]), scale=scale,
+        window=d["window"], interpret=True)
+    np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
+    if case == "all_masked":
+        # lanes with nothing attendable come back exactly zero
+        np.testing.assert_array_equal(out[[0, 2]], 0.0)
+        assert np.isfinite(out).all()
+
+
+# --------------------------------------------------------------------------
+# chunked prefill
+# --------------------------------------------------------------------------
+
+PREFILL_CASES = {
+    # name: (h, hkv, hd, ps, maxp, starts, widths, c, window, holes)
+    "aligned_ragged": (4, 4, 32, 8, 4, (16, 8), (6, 3), 6, None, False),
+    "gqa_mid_page": (4, 2, 64, 8, 4, (17, 3), (5, 5), 5, None, False),
+    "idle_slot": (4, 2, 32, 8, 3, (12, 0, 0), (4, 0, 6), 6, None, False),
+    "window_seam": (8, 4, 32, 8, 4, (20, 9), (6, 4), 6, 10, False),
+    "holes": (4, 2, 32, 8, 4, (19, 7), (5, 2), 5, None, True),
+}
+
+
+def _prefill_inputs(case):
+    h, hkv, hd, ps, maxp, starts, widths, c, window, holes = \
+        PREFILL_CASES[case]
+    rng = np.random.default_rng(10 + sorted(PREFILL_CASES).index(case))
+    k, v, pos, pages, _ = _pool(rng, hkv=hkv, hd=hd, ps=ps, starts=starts,
+                                holes=holes, stale_page=False)
+    table = _table(pages, maxp, 0)
+    b = len(starts)
+    q_pos = np.full((b, c), -1, np.int32)
+    for lane, (s, w) in enumerate(zip(starts, widths)):
+        q_pos[lane, :w] = np.arange(s, s + w)
+    q = (rng.normal(size=(b, c, h, hd)) * 0.5).astype(np.float32)
+    ck = (rng.normal(size=(b, c, hkv, hd)) * 0.5).astype(np.float32)
+    cv = (rng.normal(size=(b, c, hkv, hd)) * 0.5).astype(np.float32)
+    return dict(q=q, k=k, v=v, pos=pos, table=table, q_pos=q_pos,
+                start=np.asarray(starts, np.int32), ck=ck, cv=cv, hd=hd,
+                ps=ps, maxp=maxp, hkv=hkv, window=window)
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_paged_prefill_plain_matches_jax(case, jx):
+    jnp, ops, ref = jx.jnp, jx.ops, jx.ref
+    d = _prefill_inputs(case)
+    scale = 1.0 / np.sqrt(d["hd"])
+    kj, kt = _bf16_pair(jnp, d["k"])
+    vj, vt = _bf16_pair(jnp, d["v"])
+    t = {n: torch.from_numpy(d[n]) for n in
+         ("q", "pos", "table", "q_pos", "start", "ck", "cv")}
+    out = paged_prefill_plain(t["q"], kt, vt, t["pos"], t["table"],
+                              t["q_pos"], t["start"], t["ck"], t["cv"],
+                              t["q_pos"], scale=scale,
+                              window=d["window"]).numpy()
+    j = {n: jnp.asarray(d[n]) for n in
+         ("q", "pos", "table", "q_pos", "start", "ck", "cv")}
+    b, c, h, hd = d["q"].shape
+    hkv = d["hkv"]
+    n_hist = jnp.clip(-(-j["start"] // d["ps"]), 0, d["maxp"])
+    r = ref.paged_prefill_ref(
+        j["q"].reshape(b, c, hkv, h // hkv, hd).transpose(0, 2, 1, 3, 4),
+        j["q_pos"], kj.transpose(0, 2, 1, 3), vj.transpose(0, 2, 1, 3),
+        j["pos"], j["table"], j["start"], n_hist,
+        j["ck"].transpose(0, 2, 1, 3), j["cv"].transpose(0, 2, 1, 3),
+        j["q_pos"], scale=scale, window=d["window"])
+    r = np.asarray(r).transpose(0, 2, 1, 3, 4).reshape(b, c, h, hd)
+    np.testing.assert_allclose(out, r, **TOL)
+    pallas = ops.paged_prefill(j["q"], kj, vj, j["pos"], j["table"],
+                               j["q_pos"], j["start"], j["ck"], j["cv"],
+                               j["q_pos"], scale=scale, window=d["window"],
+                               interpret=True)
+    np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
+    pad = d["q_pos"] < 0
+    if pad.any():
+        # padded rows (ragged tails, idle slots) come back exactly zero
+        np.testing.assert_array_equal(out[pad], 0.0)
+        assert np.isfinite(out).all()
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    """On CPU tensors the wrappers ARE the plain versions and launch
+    nothing (their launch counters stay put)."""
+    d = _decode_inputs("gqa")
+    before = paged_attention.launches
+    args = (torch.from_numpy(d["q"]),
+            torch.from_numpy(d["k"]).to(torch.bfloat16),
+            torch.from_numpy(d["v"]).to(torch.bfloat16),
+            torch.from_numpy(d["pos"]), torch.from_numpy(d["table"]),
+            torch.from_numpy(d["q_pos"]))
+    torch.testing.assert_close(paged_attention(*args, scale=0.125),
+                               paged_attention_plain(*args, scale=0.125),
+                               rtol=0, atol=0)
+    assert paged_attention.launches == before
+    p = _prefill_inputs("idle_slot")
+    before = paged_prefill.launches
+    t = {n: torch.from_numpy(p[n]) for n in
+         ("q", "pos", "table", "q_pos", "start", "ck", "cv")}
+    kt = torch.from_numpy(p["k"]).to(torch.bfloat16)
+    vt = torch.from_numpy(p["v"]).to(torch.bfloat16)
+    pargs = (t["q"], kt, vt, t["pos"], t["table"], t["q_pos"], t["start"],
+             t["ck"], t["cv"], t["q_pos"])
+    torch.testing.assert_close(paged_prefill(*pargs, scale=0.125),
+                               paged_prefill_plain(*pargs, scale=0.125),
+                               rtol=0, atol=0)
+    assert paged_prefill.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """Each CUDA kernel against its plain version on the card, on every
+    decode and prefill case above (atol = rtol = 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for case in sorted(DECODE_CASES):
+        d = _decode_inputs(case)
+        args = (torch.from_numpy(d["q"]).to(dev),
+                torch.from_numpy(d["k"]).to(dev, torch.bfloat16),
+                torch.from_numpy(d["v"]).to(dev, torch.bfloat16),
+                torch.from_numpy(d["pos"]).to(dev),
+                torch.from_numpy(d["table"]).to(dev),
+                torch.from_numpy(d["q_pos"]).to(dev))
+        n = paged_attention.launches
+        got = paged_attention(*args, scale=0.125, window=d["window"])
+        torch.cuda.synchronize()
+        assert paged_attention.launches == n + 1
+        want = paged_attention_plain(*args, scale=0.125,
+                                     window=d["window"])
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for case in sorted(PREFILL_CASES):
+        p = _prefill_inputs(case)
+        t = {n: torch.from_numpy(p[n]).to(dev) for n in
+             ("q", "pos", "table", "q_pos", "start", "ck", "cv")}
+        pargs = (t["q"], torch.from_numpy(p["k"]).to(dev, torch.bfloat16),
+                 torch.from_numpy(p["v"]).to(dev, torch.bfloat16),
+                 t["pos"], t["table"], t["q_pos"], t["start"], t["ck"],
+                 t["cv"], t["q_pos"])
+        n = paged_prefill.launches
+        got = paged_prefill(*pargs, scale=0.125, window=p["window"])
+        torch.cuda.synchronize()
+        assert paged_prefill.launches == n + 1
+        want = paged_prefill_plain(*pargs, scale=0.125, window=p["window"])
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

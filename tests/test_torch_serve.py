@@ -1,0 +1,211 @@
+"""The port's serving path (repro_torch.serving, repro_torch.launch)
+against the JAX package's, end to end on the smoke config.
+
+  * The same requests, weights and tables served by the JAX
+    `EngineStepper` (paged pool, chunked prefill, page-gather path) and
+    by the port — once with the kernel switch on (plain versions on
+    the CPU), once on its gather path: per request, tokens and served
+    nodes are EQUAL, and so are the chunked-prefill stats and the
+    segment counters.
+  * The same seed gives the same workload in both packages.
+  * The port's serve report renders the reference's lines from the same
+    stats.
+  * The launcher runs end to end on the CPU when asked to, and refuses
+    to run without CUDA otherwise.
+  * Nothing under src/repro_torch/, nor chip_smoke.py, imports jax or
+    the JAX package.
+"""
+
+import ast
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import strategy as jstrategy
+from repro.configs import get_config
+from repro.models import model as M
+from repro.models.param import materialize
+from repro.serving import runtime as jrt
+from repro.serving.obs.report import ServeReport as JReport
+from repro.serving.runtime.request import Request as JRequest
+from repro.serving.runtime.workload import WorkloadSpec as JSpec
+from repro_torch import strategy as tstrategy
+from repro_torch.bridge import (chain_from_numpy, line_tables_from_numpy,
+                                params_from_numpy, support_from_numpy,
+                                to_tensor)
+from repro_torch.launch import serve as tserve
+from repro_torch.serving import runtime as trt
+from repro_torch.serving.obs.report import ServeReport as TReport
+from repro_torch.serving.runtime.request import Request as TRequest
+from repro_torch.serving.runtime.workload import WorkloadSpec as TSpec
+
+ROOT = Path(__file__).resolve().parents[1]
+PROMPT_LEN = 12
+
+
+@pytest.fixture(scope="module")
+def setup():
+    torch.set_num_threads(2)
+    cfg = get_config("paper-ee-100m", smoke=True)
+    params = materialize(M.model_defs(cfg), jax.random.PRNGKey(0))
+    casc = jstrategy.Cascade.calibrate(params, cfg, jax.random.PRNGKey(1),
+                                       lam=0.5, k=8, t=64, seq=16)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params))
+    tcasc = tstrategy.Cascade(
+        support=support_from_numpy(jax.tree.map(np.asarray, casc.support)),
+        chain=chain_from_numpy(jax.tree.map(np.asarray, casc.chain)),
+        costs=to_tensor(np.asarray(casc.costs)), lam=casc.lam,
+        line_tables=line_tables_from_numpy(
+            jax.tree.map(np.asarray, casc.solve_line())))
+    return cfg, params, casc, tparams, tcasc
+
+
+def _requests(cls, cfg, n=6, seed=7):
+    """Every other request repeats one base prompt (prefix-cache hits);
+    all arrive at t = 0, so admission depends only on lane turnover."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, cfg.vocab, PROMPT_LEN, dtype=np.int32)
+    out = []
+    for rid in range(n):
+        prompt = base.copy() if rid % 2 == 0 else rng.integers(
+            0, cfg.vocab, PROMPT_LEN, dtype=np.int32)
+        out.append(cls(rid=rid, prompt=prompt, max_tokens=2 + rid % 3,
+                       arrival=0.0, strategy="recall_index"))
+    return out
+
+
+def _serve_logged(rt, stepper, sid_of, requests):
+    """Serve and log, per request, the node that served each token."""
+    sched = rt.LaneScheduler(2)
+    nodes = {r.rid: [] for r in requests}
+    step = stepper.step
+
+    def logged(occupied, sid):
+        out = step(occupied, sid)
+        served, emit = out[1], out[-1]
+        for lane in np.flatnonzero(emit):
+            req = sched.lane_req[lane]
+            if req is not None:       # None: the stepper's own warmup
+                nodes[req.rid].append(int(served[lane]))
+        return out
+
+    stepper.step = logged
+    metrics = rt.Server(stepper, sched, sid_of).serve(requests)
+    return metrics, nodes
+
+
+@pytest.fixture(scope="module")
+def reference_run(setup):
+    cfg, params, casc, _, _ = setup
+    requests = _requests(JRequest, cfg)
+    bank, sid_of = jrt.build_bank(requests, jrt.cascade_factory(casc),
+                                  ("recall_index", None))
+    stepper = jrt.EngineStepper(params, cfg, bank, n_lanes=2, cache_len=32,
+                                prompt_len=PROMPT_LEN, kv="paged",
+                                page_size=8, prefill_chunk=5,
+                                prefill_budget=8)
+    metrics, nodes = _serve_logged(jrt, stepper, sid_of, requests)
+    return (requests, metrics, nodes, dict(stepper.chunk_stats),
+            stepper.pool.stats())
+
+
+@pytest.mark.parametrize("kernel", [True, False], ids=["kernel", "gather"])
+def test_port_serves_what_the_reference_serves(setup, reference_run,
+                                               kernel):
+    cfg, _, _, tparams, tcasc = setup
+    jreqs, jm, jnodes, jstats, _ = reference_run
+    requests = _requests(TRequest, cfg)
+    bank, sid_of = trt.build_bank(requests, trt.cascade_factory(tcasc),
+                                  ("recall_index", None))
+    stepper = trt.EngineStepper(tparams, cfg, bank, n_lanes=2, cache_len=32,
+                                prompt_len=PROMPT_LEN, page_size=8,
+                                prefill_chunk=5, prefill_budget=8,
+                                paged_kernel=kernel)
+    with torch.no_grad():
+        tm, tnodes = _serve_logged(trt, stepper, sid_of, requests)
+    for req in jreqs:
+        assert tm.records[req.rid].tokens == jm.records[req.rid].tokens, \
+            f"request {req.rid}"
+        assert tnodes[req.rid] == jnodes[req.rid], f"request {req.rid}"
+        assert tm.records[req.rid].n_tokens == req.max_tokens
+    assert stepper.chunk_stats == jstats
+    assert jstats["tokens_skipped"] > 0           # prefix hits exercised
+    assert (tm.steps, tm.seg_batch, tm.seg_policy, tm.lane_steps) == \
+        (jm.steps, jm.seg_batch, jm.seg_policy, jm.lane_steps)
+
+
+def test_report_renders_the_reference_lines(setup, reference_run):
+    cfg = setup[0]
+    _, jm, _, jstats, jpool = reference_run
+    lines = []
+    for cls in (JReport, TReport):
+        rep = cls()
+        rep.add_runtime(jm.summary(slo=1.0), slo_ms=1e3)
+        rep.add_segments(jm.seg_batch, jm.seg_policy, steps=jm.steps,
+                         n_seg=len(cfg.segments), lane_steps=jm.lane_steps)
+        rep.add_pool(jpool)
+        rep.add_chunked_prefill(jstats)
+        lines.append(rep.lines())
+    assert lines[1] == lines[0]
+    assert len(lines[1]) == 7        # runtime 4, segments, pool, chunk
+
+
+@pytest.mark.parametrize("workload", ["poisson", "bursty", "diurnal"])
+def test_same_seed_same_workload(workload):
+    kw = dict(rate=6.0, duration=3.0, prompt_len=9, vocab=512,
+              max_tokens=(2, 7), seed=3, strategy="recall_index")
+    jr = jrt.make_workload(workload, JSpec(**kw))
+    tr = trt.make_workload(workload, TSpec(**kw))
+    assert len(jr) == len(tr) > 0
+    for a, b in zip(jr, tr):
+        assert (a.rid, a.arrival, a.max_tokens, a.strategy, a.lam) == \
+            (b.rid, b.arrival, b.max_tokens, b.strategy, b.lam)
+        np.testing.assert_array_equal(a.prompt, b.prompt)
+
+
+def test_launcher_serves_smoke_on_cpu(capsys):
+    torch.set_num_threads(2)
+    run = tserve.main(["--smoke", "--device", "cpu", "--server",
+                       "--kv", "paged", "--paged-kernel", "--page-size",
+                       "8", "--prefill-chunk", "8", "--lanes", "2",
+                       "--rate", "6", "--duration", "0.5", "--tokens", "4",
+                       "--prompt-len", "10"])
+    assert run is not None and run.requests
+    for req in run.requests:
+        assert run.metrics.records[req.rid].n_tokens == req.max_tokens
+    out = capsys.readouterr().out
+    assert "calibrated T-Tamer tables: n=2 K=24" in out
+    assert f"completed {len(run.requests)}/{len(run.requests)}" in out
+
+
+def test_launcher_refuses_to_run_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        tserve.main(["--smoke", "--server"])
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20 and files[-1].exists()
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(ROOT)}:{node.lineno} "
+                               f"imports {name}")
+    assert not bad, "\n".join(bad)
