@@ -5,35 +5,53 @@
 Run from the root of a checkout, on a machine with one CUDA card.  It
 
   1. prints the card (nvidia-smi name and power limit), the torch and
-     CUDA versions, and builds every CUDA kernel of the serve path from
-     the sources in the checkout (one nvcc per source, in parallel);
-  2. holds each kernel against its plain PyTorch version on the card at
-     the serve path's shapes (8 lanes, 12 heads, head_dim 64, 16-token
-     pages, 8 pages a lane, 16-token chunks), with position -1 holes,
-     an all-masked lane, ragged and mid-page chunks, plus a GQA case
-     with a window and a case with the serve's own history lengths:
-     atol = rtol = 1e-4;
-  3. checks the full-width model on a small input: a prefill chunk and a
-     decode token through the kernels, through the page gather on the
-     card, and through the page gather on the CPU agree within
-     atol = rtol = 1e-3 (f32 sums in other orders; the bf16 pool);
-  4. times each kernel and its plain version with CUDA events on the
-     serve-length case — device time from CUDA graph replay, and the
-     time of an eager call, host included — and computes each kernel's
-     bound from its inputs;
+     CUDA versions, and builds every CUDA kernel of the serve paths from
+     the sources in the checkout (one nvcc per source, in parallel):
+     paged_attention, paged_prefill, flash_attention, bellman_backup;
+  2. holds each kernel against its plain PyTorch version on the card:
+     the paged pair at the chunked serve's shapes (8 lanes, 12 heads,
+     head_dim 64, 16-token pages, 8 pages a lane, 16-token chunks),
+     with position -1 holes, an all-masked lane, ragged and mid-page
+     chunks, a GQA case with a window and the serve's own history
+     lengths, atol = rtol = 1e-4; flash_attention at the calibration
+     prefill's shape (512, 64, 12, 12, 64), a ring admission's (1, 32,
+     12, 12, 64), a GQA case with a window and a ragged length, and
+     head_dim 32 and 96 cases, atol = rtol = 1e-4 (f32 sums in another
+     order); bellman_backup at K = 24 and 64 on row-stochastic
+     transitions, atol = rtol = 1e-5;
+  3. checks the full-width model on small inputs: a prefill chunk and a
+     decode token through the paged kernels, through the page gather on
+     the card and through the page gather on the CPU agree within
+     atol = rtol = 1e-3; a whole-prompt prefill into ring caches
+     through the flash kernel, through the einsum path on the card and
+     on the CPU agrees within 1e-3 (logits, node losses), with equal
+     ring positions and ring K/V within a bf16 ulp (1e-2); the line
+     solve of the serve's own calibration (512 x 64 numpy-seeded
+     prompts, k 24, lambda 0.5) through the Bellman kernel and through
+     the plain backup gives equal stop tables and cont / phi / sigma /
+     value within rtol 1e-5;
+  4. times each kernel and its plain version with CUDA events — device
+     time from CUDA graph replay, and the time of an eager call, host
+     included — on the chunked serve's shapes (paged pair), the
+     calibration prefill's shape (flash_attention, beside one call of
+     ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick the
+     port never calls) and K = 24 (bellman_backup), and computes each
+     kernel's bound from its inputs;
   5. serves paper-ee-100m at full width through
-     ``repro_torch.launch.serve.main`` — once under recall_index after
-     calibrating on 512 x 64 numpy-seeded prompts (k 24, lambda 0.5),
-     once under always_last — with the kernels' launch counters set to
-     0 just before each serve and read just after; every request must
-     complete with its full token count and both kernels must launch;
-  6. prints a ``kernels`` JSON line (``launches`` is the recall_index
-     serve's count, the main path; ``launches_by_path`` holds each
-     serve's own), the card line, and last
-     ``{"ok": true, "device": {...}}``.
+     ``repro_torch.launch.serve.main`` four times — chunked paged under
+     recall_index and under always_last (the paged pair's path), the
+     ring server with --flash --dp-kernel under recall_index (the new
+     pair's path), and the one-shot batch with --flash --dp-kernel —
+     with every kernel's launch counter set to 0 just before each serve
+     and read just after; every request must complete with its full
+     token count, and each path's kernels must launch (and the paged
+     pair must not on the ring and one-shot paths);
+  6. prints a ``kernels`` JSON line (``launches`` is each kernel's
+     count on its own main path; ``launches_by_path`` holds every
+     serve's), the card line, and last ``{"ok": true, "device": {...}}``.
 
-It exits nonzero, printing no result, when CUDA is not available or
-when the repository's sources are not beside it.
+It exits nonzero, printing no result, when CUDA is not available, when
+the repository's sources are not beside it, or when any check fails.
 """
 
 from __future__ import annotations
@@ -46,6 +64,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available — this script needs an "
@@ -55,26 +74,65 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config                    # noqa: E402
-from repro_torch.kernels import (build, paged_attention,      # noqa: E402
-                                 paged_attention_plain, paged_prefill,
-                                 paged_prefill_plain)
+from repro_torch.core.line_dp import solve_line               # noqa: E402
+from repro_torch.kernels import (bellman_backup,              # noqa: E402
+                                 bellman_backup_plain, build,
+                                 flash_attention, flash_attention_plain,
+                                 paged_attention, paged_attention_plain,
+                                 paged_prefill, paged_prefill_plain)
 from repro_torch.launch import serve                          # noqa: E402
 from repro_torch.models import attention as A                 # noqa: E402
 from repro_torch.models import model as M                     # noqa: E402
 from repro_torch.models.param import materialize, tree_map    # noqa: E402
+from repro_torch.strategy import Cascade                      # noqa: E402
 
 DEV = torch.device("cuda")
 TOL_KERNEL = 1e-4
+TOL_DP = 1e-5
 TOL_MODEL = 1e-3
+TOL_BF16 = 1e-2
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_S = 67e12           # H100 SXM f32 outside the tensor cores
 # the serve path's shapes (full-width paper-ee-100m)
 B, H, HKV, HD, PS, MAXP, C = 8, 12, 12, 64, 16, 8, 16
-SERVE_ARGS = ["--arch", "paper-ee-100m", "--server", "--kv", "paged",
-              "--page-size", str(PS), "--prefill-chunk", str(C),
-              "--paged-kernel", "--lanes", str(B), "--rate", "8",
-              "--duration", "2", "--tokens", "16", "--prompt-len", "32",
-              "--lam", "0.5", "--device", "cuda"]
+TRAFFIC = ["--arch", "paper-ee-100m", "--lanes", str(B), "--rate", "8",
+           "--duration", "2", "--tokens", "16", "--prompt-len", "32",
+           "--lam", "0.5", "--device", "cuda"]
+SERVE_ARGS = TRAFFIC + ["--server", "--kv", "paged", "--page-size", str(PS),
+                        "--prefill-chunk", str(C), "--paged-kernel"]
+# every serve the script drives: (name, argv, kernels that must launch,
+# kernels that must not)
+PAGED, NEW = ("paged_attention", "paged_prefill"), ("flash_attention",
+                                                     "bellman_backup")
+SERVES = [
+    ("chunked_recall_index", SERVE_ARGS + ["--policy", "recall_index"],
+     PAGED, ()),
+    ("chunked_always_last", SERVE_ARGS + ["--policy", "always_last"],
+     PAGED, ()),
+    ("ring_recall_index", TRAFFIC + ["--server", "--kv", "ring", "--flash",
+                                     "--dp-kernel", "--policy",
+                                     "recall_index"], NEW, PAGED),
+    ("one_shot", ["--arch", "paper-ee-100m", "--flash", "--dp-kernel",
+                  "--batch", "8", "--tokens", "16", "--prompt-len", "32",
+                  "--cache-len", "128", "--lam", "0.5", "--device", "cuda"],
+     NEW, PAGED),
+]
+MAIN_PATH = {"paged_attention": "chunked_recall_index",
+             "paged_prefill": "chunked_recall_index",
+             "flash_attention": "ring_recall_index",
+             "bellman_backup": "ring_recall_index"}
+KERNELS = {"paged_attention": paged_attention, "paged_prefill": paged_prefill,
+           "flash_attention": flash_attention,
+           "bellman_backup": bellman_backup}
+SOURCES = {
+    "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:87"),
+    "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                      "src/repro/kernels/paged_prefill.py:120"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:87"),
+    "bellman_backup": ("src/repro_torch/csrc/bellman_backup.cu",
+                       "src/repro/kernels/bellman_backup.py:38")}
 
 
 def log(msg: str) -> None:
@@ -231,6 +289,66 @@ def prefill_bound(args, kw):
     return nbytes, flops
 
 
+# flash attention: (b, s, h, hkv, hd, window) — the calibration
+# prefill's shape first (the timed case), then a ring admission's
+FLASH_CASES = [("calibration", (512, 64, 12, 12, 64, None)),
+               ("ring-admission", (1, 32, 12, 12, 64, None)),
+               ("gqa-window-ragged", (2, 200, 8, 2, 128, 48)),
+               ("hd32", (4, 100, 4, 2, 32, None)),
+               ("hd96", (2, 130, 6, 3, 96, 40))]
+
+
+def flash_case(seed, b, s, h, hkv, hd, window):
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).to(DEV)
+
+    return (rnd(b, s, h, hd), rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)), \
+        dict(scale=hd ** -0.5, window=window)
+
+
+def bellman_case(seed, k):
+    """One backup as the line solve gives it: phi rows sorted along X, a
+    row-stochastic transition, the min-index table of a sorted grid."""
+    rng = np.random.default_rng(seed)
+    x = k + 2
+    grid = np.sort(rng.uniform(0.01, 1.0, k)).astype(np.float32)
+    xv = np.concatenate([[0.0], grid, [grid[-1] * 1e4 + 1e4]])
+    mi = np.where(xv[:, None] <= grid[None, :], np.arange(x)[:, None],
+                  np.arange(1, k + 1)[None, :])
+    phi = np.sort(rng.uniform(0, 1, (k, x)), axis=1).astype(np.float32)
+    trans = rng.dirichlet(np.ones(k), size=k).astype(np.float32)
+    return (torch.from_numpy(phi).to(DEV), torch.from_numpy(trans).to(DEV),
+            torch.tensor(0.17, dtype=torch.float32, device=DEV),
+            torch.from_numpy(mi.T.astype(np.int32).copy()).to(DEV)), {}
+
+
+def flash_bound(args, kw):
+    """Bytes and flops one flash call needs: q in and out written once;
+    every key row is visible to its own query row, so all of k and v is
+    read once; 4 * hd flops per visible (row, key) pair and query
+    head."""
+    q, k, v = args
+    b, s, h, hd = q.shape
+    seen = torch.arange(1, s + 1)
+    if kw["window"] is not None:
+        seen = torch.clamp(seen, max=kw["window"])
+    pairs = int(seen.sum()) * b * h
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    return nbytes, 4 * hd * pairs
+
+
+def bellman_bound(args, kw):
+    """Bytes and flops of one backup: phi, trans, mi_t and cost read
+    once, cont written once; 2 * K flops per output."""
+    phi, trans, cost, mi_t = args
+    k, x = phi.shape
+    nbytes = 4 * (2 * phi.numel() + trans.numel() + mi_t.numel() + 1)
+    return nbytes, 2 * k * k * x
+
+
 def bound_ms(nbytes, flops):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -297,32 +415,40 @@ def phase_build():
 
 def phase_kernel_checks():
     """Each kernel against its plain version on the card."""
-    errs = {"paged_attention": 0.0, "paged_prefill": 0.0}
-    cases = [("paged_attention", "mha", paged_attention,
-              paged_attention_plain, decode_case(0)),
-             ("paged_attention", "gqa-window", paged_attention,
-              paged_attention_plain, decode_case(1, hkv=6, window=24)),
-             ("paged_prefill", "mha", paged_prefill, paged_prefill_plain,
-              prefill_case(2)),
-             ("paged_prefill", "gqa-window", paged_prefill,
-              paged_prefill_plain, prefill_case(3, hkv=6, window=20)),
-             ("paged_attention", "serve", paged_attention,
-              paged_attention_plain, decode_case(4, lens=SERVE_LENS)),
-             ("paged_prefill", "serve", paged_prefill, paged_prefill_plain,
-              prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS))]
-    for name, case, kern, plain, (args, kw) in cases:
-        got = kern(*args, **kw)
+    errs = {name: 0.0 for name in KERNELS}
+    cases = [("paged_attention", "mha", decode_case(0), TOL_KERNEL),
+             ("paged_attention", "gqa-window",
+              decode_case(1, hkv=6, window=24), TOL_KERNEL),
+             ("paged_prefill", "mha", prefill_case(2), TOL_KERNEL),
+             ("paged_prefill", "gqa-window",
+              prefill_case(3, hkv=6, window=20), TOL_KERNEL),
+             ("paged_attention", "serve", decode_case(4, lens=SERVE_LENS),
+              TOL_KERNEL),
+             ("paged_prefill", "serve",
+              prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS),
+              TOL_KERNEL)]
+    cases += [("flash_attention", case, flash_case(10 + i, *shape),
+               TOL_KERNEL) for i, (case, shape) in enumerate(FLASH_CASES)]
+    cases += [("bellman_backup", f"K={k}", bellman_case(k, k), TOL_DP)
+              for k in (24, 64)]
+    plains = {"paged_attention": paged_attention_plain,
+              "paged_prefill": paged_prefill_plain,
+              "flash_attention": flash_attention_plain,
+              "bellman_backup": bellman_backup_plain}
+    for name, case, (args, kw), tol in cases:
+        got = KERNELS[name](*args, **kw)
         torch.cuda.synchronize()
-        want = plain(*args, **kw)
+        want = plains[name](*args, **kw)
         err = float((got - want).abs().max())
         ok = bool(torch.isfinite(got).all()) and torch.allclose(
-            got, want, atol=TOL_KERNEL, rtol=TOL_KERNEL)
+            got, want, atol=tol, rtol=tol)
         log(f"check {name} [{case}] vs plain: max_abs_err {err:.3e} "
-            f"(atol=rtol={TOL_KERNEL}) {'ok' if ok else 'FAIL'}")
+            f"(atol=rtol={tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{name} [{case}] disagrees with its plain "
                              f"version: max_abs_err {err}")
         errs[name] = max(errs[name], err)
+        del got, want
     # masked rows/lanes come back exactly zero
     args, kw = decode_case(0)
     if paged_attention(*args, **kw)[6].abs().max() != 0:
@@ -334,7 +460,7 @@ def phase_kernel_checks():
     return errs
 
 
-def phase_model_check(params, cfg):
+def phase_model_check(params, params_cpu, cfg):
     """Full-width model on a small input: one 16-token prefill chunk for
     two lanes, then one decode token, through the kernels and through
     the page gather on the card, and through the gather on the CPU."""
@@ -351,7 +477,6 @@ def phase_model_check(params, cfg):
         dp[lane, :w] = table[lane, np.arange(w) // PS]
         ds[lane, :w] = np.arange(w) % PS
     dec_pos = np.asarray(widths, np.int32)
-    params_cpu = tree_map(lambda t: t.cpu(), params)
     outs = {}
     for name, prm, dev, kern in (("kernel", params, DEV, True),
                                  ("gather", params, DEV, False),
@@ -413,14 +538,122 @@ def phase_model_check(params, cfg):
         raise SystemExit(f"model check shapes {shapes} != {want}")
 
 
+def phase_flash_model_check(params, params_cpu, cfg):
+    """Full-width whole-prompt prefill into ring caches: through the
+    flash kernel, through the einsum path on the card and on the CPU.
+    The prompt (40 tokens) outruns the 32-slot ring, so the caches keep
+    its tail."""
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (2, 40))
+    cache_len = 32
+    outs = {}
+    n0 = flash_attention.launches
+    for name, prm, dev, flash in (("flash", params, DEV, True),
+                                  ("einsum", params, DEV, False),
+                                  ("cpu", params_cpu, torch.device("cpu"),
+                                   False)):
+        with torch.no_grad():
+            logits, caches, losses, _ = M.prefill(
+                prm, cfg, {"tokens": torch.as_tensor(toks, device=dev)},
+                cache_len, use_flash=flash)
+        outs[name] = (logits.float().cpu(), losses.cpu(),
+                      [{k: t.cpu() for k, t in c["attn"].items()}
+                       for c in caches])
+    n_layers = sum(seg.n_layers for seg in cfg.segments)
+    if flash_attention.launches - n0 != n_layers:
+        raise SystemExit(f"flash prefill launched the kernel "
+                         f"{flash_attention.launches - n0} times, not "
+                         f"{n_layers}")
+    for a, b in (("flash", "einsum"), ("flash", "cpu"), ("einsum", "cpu")):
+        (la, na, ca), (lb, nb, cb) = outs[a], outs[b]
+        ok = all(torch.allclose(x, y, atol=TOL_MODEL, rtol=TOL_MODEL)
+                 and bool(torch.isfinite(x).all())
+                 for x, y in ((la, lb), (na, nb)))
+        ok &= all(torch.equal(x["pos"], y["pos"]) for x, y in zip(ca, cb))
+        kv_err = max(float((x[n].float() - y[n].float()).abs().max())
+                     for x, y in zip(ca, cb) for n in ("k", "v"))
+        ok &= all(torch.allclose(x[n].float(), y[n].float(),
+                                 atol=TOL_BF16, rtol=TOL_BF16)
+                  for x, y in zip(ca, cb) for n in ("k", "v"))
+        log(f"model check [prefill, {a} vs {b}]: logits "
+            f"{float((la - lb).abs().max()):.3e}, node losses "
+            f"{float((na - nb).abs().max()):.3e} (atol=rtol={TOL_MODEL}); "
+            f"ring pos equal; ring k/v {kv_err:.3e} (atol=rtol={TOL_BF16})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"flash model check failed: {a} vs {b}")
+    shapes = (tuple(outs["flash"][0].shape), tuple(outs["flash"][1].shape))
+    if shapes != ((2, cfg.vocab), (2, cfg.n_ramps + 1)):
+        raise SystemExit(f"flash model check shapes {shapes}")
+
+
+def phase_dp_check(params, cfg):
+    """The serve's own calibration (the launcher's numpy prompts from
+    seed 0, k 24, lambda 0.5), its chain solved through the Bellman
+    kernel and through the plain backup."""
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab, (serve.CALIB_PROMPTS, serve.CALIB_LEN))
+    casc = Cascade.calibrate(params, cfg, tokens, 0.5, k=serve.CALIB_K)
+    plain = solve_line(casc.chain, casc.costs, casc.support)
+    n0 = bellman_backup.launches
+    kern = solve_line(casc.chain, casc.costs, casc.support, use_kernel=True)
+    torch.cuda.synchronize()
+    if bellman_backup.launches - n0 != casc.n_nodes:
+        raise SystemExit("the kernel solve did not launch once a node")
+    ok = torch.equal(kern.stop, plain.stop)
+    errs = {}
+    for f in ("cont", "phi", "sigma", "value"):
+        a, b = getattr(kern, f), getattr(plain, f)
+        errs[f] = float((a - b).abs().max())
+        ok &= bool(torch.isfinite(a).all()) and torch.allclose(
+            a, b, rtol=TOL_DP, atol=0.0)
+    log(f"dp check [solve_line kernel vs plain, n={kern.n} K={kern.k}]: "
+        f"stop tables {'equal' if torch.equal(kern.stop, plain.stop) else 'DIFFER'}, "
+        + ", ".join(f"{f} {e:.3e}" for f, e in errs.items())
+        + f" (rtol={TOL_DP}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the line solve through the Bellman kernel "
+                         "disagrees with the plain solve")
+
+
+def phase_calibration_timing(params, cfg):
+    """The calibration prefill (the serve's 512 x 64 prompts, at the
+    calibration's ring length) with and without --flash, in turns
+    (einsum, flash, flash, einsum), host clock around a synchronized
+    call."""
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (serve.CALIB_PROMPTS, serve.CALIB_LEN)), device=DEV)
+
+    def run(flash):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            M.prefill(params, cfg, {"tokens": tokens}, serve.CALIB_LEN + 8,
+                      use_flash=flash)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    run(False), run(True)                        # warm up both paths
+    times = {False: [run(False)], True: [run(True), run(True)]}
+    times[False].append(run(False))
+    log(f"time calibration prefill ({serve.CALIB_PROMPTS} x "
+        f"{serve.CALIB_LEN}, full depth, ring caches built): einsum "
+        f"attention {times[False][0]:.2f} / {times[False][1]:.2f} ms, "
+        f"flash {times[True][0]:.2f} / {times[True][1]:.2f} ms")
+
+
 def phase_timing():
     rows = {}
+    flash_args, flash_kw = flash_case(10, *FLASH_CASES[0][1])
     for name, kern, plain, (args, kw), bound in (
             ("paged_attention", paged_attention, paged_attention_plain,
              decode_case(4, lens=SERVE_LENS), decode_bound),
             ("paged_prefill", paged_prefill, paged_prefill_plain,
              prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS),
-             prefill_bound)):
+             prefill_bound),
+            ("flash_attention", flash_attention, flash_attention_plain,
+             (flash_args, flash_kw), flash_bound),
+            ("bellman_backup", bellman_backup, bellman_backup_plain,
+             bellman_case(24, 24), bellman_bound)):
         def run_kern():
             return kern(*args, **kw)
 
@@ -434,9 +667,28 @@ def phase_timing():
         kern_e, plain_e = time_ms(run_kern), time_ms(run_plain, iters=50)
         nbytes, flops = bound(args, kw)
         b_ms, b_by = bound_ms(nbytes, flops)
+        lib = None
+        if name == "flash_attention":
+            # the yardstick: one PyTorch call computing the same function
+            # (never called by the port), on (B, H, S, hd) copies made
+            # outside the timing
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
+
+            def run_lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=kw["scale"])
+
+            lib = min(graph_ms(run_lib), graph_ms(run_lib))
+            lib_err = float((run_lib().transpose(1, 2) - run_plain())
+                            .abs().max())
+            log(f"time {name}: library call "
+                f"F.scaled_dot_product_attention(is_causal=True) {lib:.5f} "
+                f"ms (device, graph replay; max_abs_err vs plain "
+                f"{lib_err:.3e})")
+            del qt, kt, vt
         rows[name] = dict(ms=min(kern_g), plain_ms=min(plain_g),
-                          bound_ms=b_ms, bound_by=b_by, eager_ms=kern_e,
-                          plain_eager_ms=plain_e)
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          eager_ms=kern_e, plain_eager_ms=plain_e)
         log(f"time {name} (device, CUDA graph replay): kernel "
             f"{kern_g[0]:.5f} / {kern_g[1]:.5f} ms, plain {plain_g[0]:.5f} "
             f"/ {plain_g[1]:.5f} ms; eager call (host included): kernel "
@@ -445,45 +697,69 @@ def phase_timing():
     return rows
 
 
-def phase_serve(policy):
-    """One full-width serve; the launch counters are zeroed just before
-    and read just after."""
-    torch.cuda.reset_peak_memory_stats()
-    paged_attention.launches = 0
-    paged_prefill.launches = 0
-    t0 = time.perf_counter()
-    run = serve.main(SERVE_ARGS + ["--policy", policy])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"paged_attention": paged_attention.launches,
-                "paged_prefill": paged_prefill.launches}
+def _check_serve_run(name, argv, run, n_nodes, vocab):
+    """Every request (or batch row) got its full token count; tokens and
+    served nodes are in range.  Returns a summary string."""
     if run is None:
-        raise SystemExit(f"serve [{policy}]: the workload was empty")
-    n_nodes = run.stepper.cfg.n_ramps + 1
-    vocab = run.stepper.cfg.vocab
+        raise SystemExit(f"serve [{name}]: the workload was empty")
+    if isinstance(run, serve.BatchRun):
+        st = run.stats
+        args = serve.parse_args(argv)
+        b, t = args.batch, args.tokens
+        if st.tokens.shape != (b, t) or st.served_nodes.shape != (b, t):
+            raise SystemExit(f"serve [{name}]: generated "
+                             f"{st.tokens.shape}, not {(b, t)}")
+        if not ((st.tokens >= 0) & (st.tokens < vocab)).all():
+            raise SystemExit(f"serve [{name}]: token out of range")
+        if not ((st.served_nodes >= 0) & (st.served_nodes < n_nodes)).all():
+            raise SystemExit(f"serve [{name}]: served node out of range")
+        hist = np.bincount(st.served_nodes.ravel(), minlength=n_nodes)
+        return (f"{b}x{t} tokens, served-node histogram {hist.tolist()}, "
+                f"segments run {st.segments_run_batch}/"
+                f"{st.segments_full // b} batch launches")
     for req in run.requests:
         rec = run.metrics.records[req.rid]
         if rec.n_tokens != req.max_tokens or rec.finished is None:
-            raise SystemExit(f"serve [{policy}]: request {req.rid} got "
+            raise SystemExit(f"serve [{name}]: request {req.rid} got "
                              f"{rec.n_tokens}/{req.max_tokens} tokens")
         if not all(0 <= tk < vocab for tk in rec.tokens):
-            raise SystemExit(f"serve [{policy}]: token out of range")
+            raise SystemExit(f"serve [{name}]: token out of range")
     s = run.metrics.summary(slo=1.0)
     if not 0 <= s["mean_served_node"] <= n_nodes - 1:
-        raise SystemExit(f"serve [{policy}]: served node out of range")
-    for name, n in launches.items():
-        if n <= 0:
-            raise SystemExit(f"serve [{policy}]: {name} never launched on "
-                             "the serve path")
+        raise SystemExit(f"serve [{name}]: served node out of range")
+    return (f"{s['completed']}/{s['requests']} requests, {s['tokens']} "
+            f"tokens, {s['throughput_tok_s']:.1f} tok/s, TTFT p50 "
+            f"{1e3 * s['ttft']['p50']:.1f} ms p99 "
+            f"{1e3 * s['ttft']['p99']:.1f} ms, token latency p50 "
+            f"{1e3 * s['token_latency']['p50']:.2f} ms, mean served node "
+            f"{s['mean_served_node']:.2f}")
+
+
+def phase_serve(name, argv, must, must_not):
+    """One full-width serve; every kernel's launch counter is zeroed
+    just before and read just after."""
+    cfg = get_config("paper-ee-100m")
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    summary = _check_serve_run(name, argv, run, cfg.n_ramps + 1, cfg.vocab)
+    for k in must:
+        if launches[k] <= 0:
+            raise SystemExit(f"serve [{name}]: {k} never launched on the "
+                             "serve path")
+    for k in must_not:
+        if launches[k] != 0:
+            raise SystemExit(f"serve [{name}]: {k} launched "
+                             f"{launches[k]} times off its path")
     peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"serve [{policy}]: {s['completed']}/{s['requests']} requests, "
-        f"{s['tokens']} tokens, {s['throughput_tok_s']:.1f} tok/s, "
-        f"TTFT p50 {1e3 * s['ttft']['p50']:.1f} ms p99 "
-        f"{1e3 * s['ttft']['p99']:.1f} ms, token latency p50 "
-        f"{1e3 * s['token_latency']['p50']:.2f} ms, mean served node "
-        f"{s['mean_served_node']:.2f}, launches {launches}, "
-        f"peak memory {peak:.0f} MiB, wall {wall:.1f} s "
-        f"(calibration and warmup included)")
+    log(f"serve [{name}]: {summary}, launches {launches}, peak memory "
+        f"{peak:.0f} MiB, wall {wall:.1f} s (calibration and warmup "
+        f"included)")
     return launches
 
 
@@ -496,32 +772,35 @@ def main() -> None:
     # f32 matmuls in full f32 (no TF32), as the JAX reference computes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     phase_build()
     errs = phase_kernel_checks()
     cfg = get_config("paper-ee-100m")
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = materialize(M.model_defs(cfg), gen, DEV)
-    phase_model_check(params, cfg)
-    del params
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    phase_model_check(params, params_cpu, cfg)
+    phase_flash_model_check(params, params_cpu, cfg)
+    phase_dp_check(params, cfg)
+    phase_calibration_timing(params, cfg)
+    del params, params_cpu
     times = phase_timing()
-    # each serve's own counts; the main path is the recall_index serve
-    by_path = {policy: phase_serve(policy)
-               for policy in ("recall_index", "always_last")}
-    src = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                               "src/repro/kernels/paged_attention.py:87"),
-           "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
-                             "src/repro/kernels/paged_prefill.py:120")}
-    kernels = [dict(name=name, route="cuda", source=src[name][0],
-                    replaces=src[name][1],
-                    launches=by_path["recall_index"][name],
+    # each serve's own counts; each kernel's main path is MAIN_PATH's
+    by_path = {name: phase_serve(name, argv, must, must_not)
+               for name, argv, must, must_not in SERVES}
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
+                    replaces=SOURCES[name][1],
+                    launches=by_path[MAIN_PATH[name]][name],
                     launches_by_path={p: n[name] for p, n in by_path.items()},
                     max_abs_err=errs[name], ms=times[name]["ms"],
                     plain_ms=times[name]["plain_ms"],
                     bound_ms=times[name]["bound_ms"],
-                    bound_by=times[name]["bound_by"], library_ms=None,
+                    bound_by=times[name]["bound_by"],
+                    library_ms=times[name]["library_ms"],
                     eager_ms=times[name]["eager_ms"],
                     plain_eager_ms=times[name]["plain_eager_ms"], ok=True)
-               for name in ("paged_attention", "paged_prefill")]
+               for name in KERNELS]
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,15 @@ beside a plain PyTorch version of the same contract.  A wrapper runs the
 plain version for CPU tensors and launches its kernel for CUDA tensors;
 its ``launches`` attribute counts the kernel launches."""
 
+from repro_torch.kernels.bellman_backup import (bellman_backup,
+                                                bellman_backup_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
 from repro_torch.kernels.paged_prefill import (paged_prefill,
                                                paged_prefill_plain)
 
-__all__ = ["paged_attention", "paged_attention_plain", "paged_prefill",
-           "paged_prefill_plain"]
+__all__ = ["bellman_backup", "bellman_backup_plain", "flash_attention",
+           "flash_attention_plain", "paged_attention",
+           "paged_attention_plain", "paged_prefill", "paged_prefill_plain"]

@@ -1,7 +1,13 @@
 """Serving launcher of the port: initializes a model from a seed,
 calibrates a `Cascade` on numpy-seeded prompts, builds the requested
-strategy from the registry, and serves a seeded open-loop workload with
-continuous batching on the paged KV pool and chunked prefill:
+strategy from the registry, and serves through the segment engine —
+either one batched generation on ring caches (default) or a seeded
+open-loop workload with continuous batching (``--server``), on per-lane
+ring caches (``--kv ring``, the default) or the paged KV pool, with
+stop-the-world or chunked (``--prefill-chunk``) admission:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-ee-100m \
+      --flash --dp-kernel --batch 8 --tokens 16
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-ee-100m \
       --server --kv paged --prefill-chunk 16 --paged-kernel \
@@ -10,13 +16,17 @@ continuous batching on the paged KV pool and chunked prefill:
 It runs on the card (``--device cuda``, the default) and refuses to go
 on when CUDA is missing; ``--device cpu`` runs the same path with the
 kernels' plain PyTorch versions.  ``--paged-kernel`` sends every paged
-decode and every prefill chunk through the CUDA kernels.
+decode and every prefill chunk through the CUDA kernels, ``--flash``
+every whole-prompt prefill (calibration, stop-the-world admission, the
+one-shot batch) through the flash-attention kernel, and ``--dp-kernel``
+the calibration's line solve through the Bellman-backup kernel.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -26,10 +36,11 @@ from repro_torch.configs import get_config
 from repro_torch.models import model as M
 from repro_torch.models.param import materialize
 from repro_torch.serving import runtime as rt
-from repro_torch.serving.obs.report import ServeReport
+from repro_torch.serving.engine import Engine, GenerationStats
+from repro_torch.serving.obs.report import ServeReport, segments_saved_line
 from repro_torch.serving.runtime.workload import WorkloadSpec, make_workload
 
-__all__ = ["main", "ServeRun"]
+__all__ = ["main", "ServeRun", "BatchRun"]
 
 CALIB_PROMPTS, CALIB_LEN, CALIB_K = 512, 64, 24
 SLO_S = 1.0        # the TTFT limit that goodput counts against
@@ -43,6 +54,14 @@ class ServeRun:
     metrics: rt.RuntimeMetrics
     stepper: rt.EngineStepper
     cascade: strategy.Cascade
+
+
+@dataclasses.dataclass
+class BatchRun:
+    """What one one-shot ``main`` call (no ``--server``) generated."""
+
+    prompts: np.ndarray            # (batch, prompt_len) i32
+    stats: GenerationStats
 
 
 def _device(name: str) -> torch.device:
@@ -60,6 +79,7 @@ def parse_args(argv=None):
     ap.add_argument("--policy", default="recall_index",
                     choices=strategy.available())
     ap.add_argument("--lam", type=float, default=0.5)
+    ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--cache-len", type=int, default=128)
@@ -69,18 +89,16 @@ def parse_args(argv=None):
                          "launcher never falls back to the CPU)")
     ap.add_argument("--server", action="store_true",
                     help="serve an open-loop workload with continuous "
-                         "batching; required, as it is the port's only "
-                         "serving mode (kept so that the reference "
-                         "launcher's command lines run unchanged)")
+                         "batching instead of one fixed batch")
     ap.add_argument("--rate", type=float, default=8.0,
                     help="mean arrivals/sec")
     ap.add_argument("--duration", type=float, default=5.0,
                     help="arrival window in seconds")
-    ap.add_argument("--lanes", type=int, default=8, help="lane count")
-    ap.add_argument("--kv", default="paged", choices=("paged",),
-                    help="decode KV memory: the paged pool, the port's "
-                         "only one (kept so that the reference launcher's "
-                         "command lines run unchanged)")
+    ap.add_argument("--lanes", type=int, default=None,
+                    help="lane count (default: --batch)")
+    ap.add_argument("--kv", default="ring", choices=("ring", "paged"),
+                    help="decode KV memory: per-lane ring caches or the "
+                         "paged pool with shared-prefix reuse")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--pages", type=int, default=None,
@@ -89,43 +107,59 @@ def parse_args(argv=None):
     ap.add_argument("--paged-kernel", action="store_true",
                     help="run paged decode and prefill chunks through the "
                          "CUDA kernels (plain PyTorch on --device cpu)")
-    ap.add_argument("--prefill-chunk", type=int, default=16,
-                    help="prompt tokens per prefill chunk, co-scheduled "
-                         "with decode")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="co-schedule admission prefill with decode in "
+                         "chunks of this many prompt tokens instead of "
+                         "stop-the-world batch-1 prefills (--kv paged)")
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="max prompt tokens prefilled per step across "
                          "all admitting lanes (default: --prefill-chunk)")
+    ap.add_argument("--flash", action="store_true",
+                    help="run every whole-prompt prefill (calibration, "
+                         "stop-the-world admission, the one-shot batch) "
+                         "through the flash-attention kernel: the port's "
+                         "handle on the reference's prefill(use_flash=True)")
+    ap.add_argument("--dp-kernel", action="store_true",
+                    help="run the calibration's line solve through the "
+                         "Bellman-backup kernel: the port's handle on the "
+                         "reference's solve_line(use_kernel=True)")
     ap.add_argument("--json", default=None,
                     help="write runtime metrics JSON here")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.lanes is None:
+        args.lanes = args.batch
+    return args
 
 
-def main(argv=None) -> ServeRun | None:
-    args = parse_args(argv)
-    if not args.server:
-        raise SystemExit("the port serves --server traffic only")
-    device = _device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = materialize(M.model_defs(cfg), gen, device)
-    print("no checkpoint given — serving random init (demo mode)")
+def _serve_batch(args, cfg, params, casc, device) -> BatchRun:
+    """The one-shot path: one fixed batch of numpy-seeded prompts,
+    prefilled together and decoded to ``--tokens`` on ring caches."""
+    engine = Engine(params, cfg, strategy.make(args.policy, casc),
+                    cache_len=args.cache_len, use_flash=args.flash)
+    prompts = np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+    t0 = time.time()
+    with torch.no_grad():
+        stats = engine.generate(
+            {"tokens": torch.as_tensor(prompts, device=device)},
+            args.tokens)
+    dt = time.time() - t0
+    n_nodes = cfg.n_ramps + 1
+    print(f"generated {args.batch}x{args.tokens} tokens in {dt:.2f}s "
+          f"({args.batch * args.tokens / dt:.1f} tok/s)")
+    print(segments_saved_line(stats.segments_run_batch,
+                              stats.segments_run_policy,
+                              steps=args.tokens, n_seg=len(cfg.segments),
+                              lane_steps=args.tokens * args.batch))
+    print(f"served-node histogram: "
+          f"{np.bincount(stats.served_nodes.ravel(), minlength=n_nodes)}")
+    return BatchRun(prompts=prompts, stats=stats)
 
+
+def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
+    """The ``--server`` path: a seeded open-loop workload through the
+    continuous-batching runtime."""
     name = args.policy
-    if strategy.needs_tables(name):
-        # table-backed strategies calibrate on the model's own losses,
-        # over prompts drawn with numpy from --seed
-        tokens = np.random.default_rng(args.seed).integers(
-            0, cfg.vocab, (CALIB_PROMPTS, CALIB_LEN))
-        casc = strategy.Cascade.calibrate(params, cfg, tokens, args.lam,
-                                          k=CALIB_K)
-        tables = casc.line_tables
-        print(f"calibrated T-Tamer tables: n={tables.n} K={tables.k} "
-              f"online-optimal value {float(tables.value):.4f}")
-    else:
-        casc = strategy.Cascade.uniform(cfg.n_ramps + 1, lam=args.lam,
-                                        device=device)
-    print(f"strategy: {name} (registry: {', '.join(strategy.available())})")
-
     lo = max(1, min(4, args.tokens))
     spec = WorkloadSpec(rate=args.rate, duration=args.duration,
                         prompt_len=args.prompt_len, vocab=cfg.vocab,
@@ -139,20 +173,24 @@ def main(argv=None) -> ServeRun | None:
                                  (name, None))
     stepper = rt.EngineStepper(params, cfg, bank, n_lanes=args.lanes,
                                cache_len=args.cache_len,
-                               prompt_len=args.prompt_len,
+                               prompt_len=args.prompt_len, kv=args.kv,
                                page_size=args.page_size,
                                n_pages=args.pages,
                                paged_kernel=args.paged_kernel,
                                prefill_chunk=args.prefill_chunk,
-                               prefill_budget=args.prefill_budget)
+                               prefill_budget=args.prefill_budget,
+                               use_flash=args.flash)
     server = rt.Server(stepper, rt.LaneScheduler(args.lanes), sid_of)
+    kv_desc = args.kv if args.kv == "ring" else (
+        f"paged ({stepper.pool.n_pages} pages x {args.page_size} tokens)")
+    if args.prefill_chunk:
+        kv_desc += (f", chunked prefill ({args.prefill_chunk}-token "
+                    f"chunks, {stepper.planner.budget} tokens/step)")
     print(f"serving {len(requests)} poisson requests "
           f"(rate {args.rate}/s x {args.duration}s) on {args.lanes} lanes, "
-          f"policy {name}, kv paged ({stepper.pool.n_pages} pages x "
-          f"{args.page_size} tokens), chunked prefill "
-          f"({args.prefill_chunk}-token chunks, {stepper.planner.budget} "
-          f"tokens/step), device {device}, paged kernels "
-          f"{'on' if args.paged_kernel else 'off'}, "
+          f"policy {name}, kv {kv_desc}, device {device}, paged kernels "
+          f"{'on' if args.paged_kernel else 'off'}, flash "
+          f"{'on' if args.flash else 'off'}, "
           f"SLO ttft<={SLO_S * 1e3:.0f}ms ...")
     with torch.no_grad():
         metrics = server.serve(requests)
@@ -161,20 +199,59 @@ def main(argv=None) -> ServeRun | None:
     report.add_segments(metrics.seg_batch, metrics.seg_policy,
                         steps=metrics.steps, n_seg=len(cfg.segments),
                         lane_steps=metrics.lane_steps)
-    pool_stats = stepper.pool.stats()
-    report.add_pool(pool_stats)
-    report.add_chunked_prefill(stepper.chunk_stats)
+    pool_stats = None
+    if stepper.pool is not None:
+        pool_stats = stepper.pool.stats()
+        report.add_pool(pool_stats)
+    if args.prefill_chunk:
+        report.add_chunked_prefill(stepper.chunk_stats)
     report.print()
     if args.json:
         extra = {"policy": name, "rate": args.rate, "lanes": args.lanes,
                  "kv": args.kv, "prefill_chunk": args.prefill_chunk,
                  "device": str(device), "paged_kernel": args.paged_kernel,
-                 "kv_pool": pool_stats,
-                 "chunked_prefill": stepper.chunk_stats}
+                 "flash": args.flash}
+        if pool_stats is not None:
+            extra["kv_pool"] = pool_stats
+        if args.prefill_chunk:
+            extra["chunked_prefill"] = stepper.chunk_stats
         metrics.to_json(args.json, slo=SLO_S, extra=extra)
         print(f"wrote metrics JSON to {args.json}")
     return ServeRun(requests=requests, metrics=metrics, stepper=stepper,
                     cascade=casc)
+
+
+def main(argv=None) -> ServeRun | BatchRun | None:
+    args = parse_args(argv)
+    device = _device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = materialize(M.model_defs(cfg), gen, device)
+    print("no checkpoint given — serving random init (demo mode)")
+
+    name = args.policy
+    if strategy.needs_tables(name):
+        # table-backed strategies calibrate on the model's own losses,
+        # over prompts drawn with numpy from --seed
+        tokens = np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, (CALIB_PROMPTS, CALIB_LEN))
+        casc = strategy.Cascade.calibrate(params, cfg, tokens, args.lam,
+                                          k=CALIB_K, use_flash=args.flash,
+                                          use_kernel=args.dp_kernel)
+        tables = casc.line_tables
+        print(f"calibrated T-Tamer tables: n={tables.n} K={tables.k} "
+              f"online-optimal value {float(tables.value):.4f}")
+    else:
+        casc = strategy.Cascade.uniform(cfg.n_ramps + 1, lam=args.lam,
+                                        device=device)
+    print(f"strategy: {name} (registry: {', '.join(strategy.available())})")
+
+    if args.server:
+        return _serve_traffic(args, cfg, params, casc, device)
+    if args.kv != "ring":
+        print("note: --kv paged applies to --server traffic mode; "
+              "the one-shot batch path always uses ring caches")
+    return _serve_batch(args, cfg, params, casc, device)
 
 
 if __name__ == "__main__":

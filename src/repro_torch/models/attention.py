@@ -1,6 +1,11 @@
-"""GQA attention: the full-sequence path (calibration prefill), the
-one-token decode against the paged KV pool, and the prefill chunk
-against the same pool.
+"""GQA attention: the full-sequence path (whole-prompt prefill), the
+one-token decode against a lane's ring cache or against the paged KV
+pool, and the prefill chunk against the same pool.
+
+Ring layout: ``k, v: (B, C, Hkv, hd)`` bf16 and ``pos: (B, C)`` i32 per
+lane, position p stored at slot ``p % C`` (-1 = empty slot).  Decode
+writes the new token's slot in place (``index_put_``); the engine puts
+back the slots of lanes that were not active (``_mask_lane_writes``).
 
 Paged layout (serving.kvpool): ``k, v: (P, page, Hkv, hd)`` bf16 and
 ``pos: (P, page)`` i32 in a global page pool, plus a per-lane `PagedKV`
@@ -30,7 +35,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import paged_attention, paged_prefill
+from repro_torch.kernels import (flash_attention, paged_attention,
+                                 paged_prefill)
 from repro_torch.models.common import (causal_mask, rms_norm, rope,
                                        rope_cos_sin)
 from repro_torch.models.config import AttnConfig
@@ -134,8 +140,13 @@ def _sdpa(q, k, v, mask, scale):
 
 
 def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: AttnConfig, eps: float = 1e-5):
-    """Full causal self-attention (prefill).  Returns (y, {"k", "v"})."""
+                 cfg: AttnConfig, eps: float = 1e-5,
+                 use_flash: bool = False):
+    """Full causal self-attention (prefill).  Returns (y, {"k", "v"}).
+
+    ``use_flash`` runs the attention through the flash-attention kernel
+    (plain PyTorch on CPU tensors); off, through `_sdpa`.  The prefill
+    positions are ``0..S-1`` on every row, the kernel's contract."""
     b, s, _ = x.shape
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
     k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
@@ -144,8 +155,12 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     q = rope(q, cos, sin)
     k = rope(k, cos, sin)
-    mask = causal_mask(positions, positions, cfg.window)
-    out = _sdpa(q, k, v, mask, _scale(cfg))
+    if use_flash:
+        out = flash_attention(q, k, v, scale=_scale(cfg), causal=True,
+                              window=cfg.window)
+    else:
+        mask = causal_mask(positions, positions, cfg.window)
+        out = _sdpa(q, k, v, mask, _scale(cfg))
     y = out.reshape(b, s, -1) @ p["wo"]
     return y, {"k": k, "v": v}
 
@@ -280,21 +295,36 @@ def attn_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                 cfg: AttnConfig, eps: float = 1e-5,
                 paged: PagedKV | None = None, write_mask=None):
-    """One-token decode against the paged KV pool.
+    """One-token decode against the ring cache, or — when a `PagedKV`
+    handle is given — against the paged KV pool.  Either is updated in
+    place.
 
     Args:
       x: (B, 1, D) current token activations.
-      cache: one layer's pool {"k","v": (P,page,Hkv,hd), "pos": (P,page)},
-        updated in place.
+      cache: ring {"k","v": (B,C,Hkv,hd), "pos": (B,C)} or paged pool
+        {"k","v": (P,page,Hkv,hd), "pos": (P,page)}.
       pos: (B,) absolute position of the new token.
-      paged: page table + this token's write target.
-      write_mask: (B,) lanes whose write should land (masked lanes are
-        redirected to the garbage page).
+      paged: page table + this token's write target (paged mode only).
+      write_mask: (B,) lanes whose write should land (paged mode; masked
+        lanes are redirected to the garbage page — ring callers mask via
+        the engine's `_mask_lane_writes` instead).
 
-    Returns (y, cache).  The per-lane ring cache of the JAX package is
-    not part of the port.
+    Returns (y, cache).
     """
-    if paged is None:
-        raise NotImplementedError("the port decodes against the paged KV "
-                                  "pool only")
-    return _gqa_decode_paged(p, x, cache, pos, cfg, eps, paged, write_mask)
+    if paged is not None:
+        return _gqa_decode_paged(p, x, cache, pos, cfg, eps, paged,
+                                 write_mask)
+    b = x.shape[0]
+    c = cache["k"].shape[1]
+    q, k, v = _gqa_qkv_decode(p, x, pos, cfg, eps)
+    slot = (pos % c).long()                                  # ring write
+    bidx = torch.arange(b, device=x.device)
+    cache["k"].index_put_((bidx, slot), k[:, 0].to(cache["k"].dtype))
+    cache["v"].index_put_((bidx, slot), v[:, 0].to(cache["v"].dtype))
+    cache["pos"].index_put_((bidx, slot), pos.to(torch.int32))
+    new_pos = cache["pos"]
+    mask = causal_mask(pos[:, None], new_pos, cfg.window)   # (B,1,C)
+    mask &= (new_pos >= 0)[:, None, :]
+    out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
+                _scale(cfg))
+    return out.reshape(b, 1, -1) @ p["wo"], cache

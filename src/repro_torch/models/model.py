@@ -5,17 +5,25 @@ Public API (functions over a nested-dict params tree):
   * ``ramp_readout(...)``          — per-node norm, tied unembedding and
                                      the loss proxy 1 - max softmax.
   * ``prefill(...)``               — full pass over whole prompts: last
-                                     logits + per-node losses (the
-                                     calibration pass).
+                                     logits, ring KV caches, per-node
+                                     losses (calibration and every
+                                     stop-the-world admission).
+  * ``decode_step(...)``           — one full-depth token on the ring
+                                     caches.
   * ``decode_segment(...)``        — one segment for one token against
-                                     the paged pool (the serving
-                                     engine's unit of work).
+                                     the ring caches or the paged pool
+                                     (the serving engine's unit of
+                                     work).
   * ``prefill_chunk_segment(...)`` — one segment for one prefill chunk.
+  * ``cache_specs(...)``           — the ring caches' (shape, dtype)
+                                     spec tree.
   * ``paged_cache_specs(...)``     — the paged pool's (shape, dtype)
                                      spec tree.
 
 Layers are stacked per segment as in the JAX package; a Python loop
-over the stack takes the place of its ``lax.scan``.
+over the stack takes the place of its ``lax.scan``, so decode always
+runs unrolled (the JAX package's ``decode_unroll`` switch has nothing
+to switch here).
 """
 
 from __future__ import annotations
@@ -29,9 +37,9 @@ from repro_torch.models.common import embed_def, rms_norm, rms_norm_def
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import tree_map
 
-__all__ = ["model_defs", "prefill", "decode_segment",
-           "prefill_chunk_segment", "paged_cache_specs", "unembed",
-           "ramp_readout", "layer"]
+__all__ = ["model_defs", "prefill", "decode_step", "decode_segment",
+           "prefill_chunk_segment", "cache_specs", "paged_cache_specs",
+           "unembed", "ramp_readout", "layer"]
 
 
 def _stack_defs(defs, n: int):
@@ -85,37 +93,59 @@ def ramp_readout(params, cfg: ModelConfig, h: torch.Tensor,
     return logits, 1.0 - p.amax(dim=-1)
 
 
-def prefill(params, cfg: ModelConfig, batch: dict):
-    """Full pass over whole prompts: returns (last_logits (B,V),
-    node_losses (B, n_nodes), next_pos (B,)).  n_nodes = ramps + final
-    (the final head is the last node).  The ring KV caches the JAX
-    package also builds here are not part of the port."""
-    tokens = batch["tokens"]
-    x = params["embed"]["table"][tokens.long()]
+def _stack_layers(trees: list):
+    """Per-layer trees of tensors -> one tree stacked on a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_layers([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: dict):
+    """Returns (x (B,S,D), positions (B,S) i32)."""
+    x = params["embed"]["table"][batch["tokens"].long()]
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    node_losses = []
+    return x, positions
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int, *,
+            use_flash: bool = False):
+    """Serving prefill over whole prompts: returns (last_logits (B,V),
+    caches, node_losses (B, n_nodes), next_pos (B,)).  ``caches`` holds
+    per segment the ring caches `cache_specs` describes, stacked over
+    the segment's layers; n_nodes = ramps + final (the final head is the
+    last node).  ``use_flash`` runs every layer's attention through the
+    flash-attention kernel."""
+    x, positions = _embed_inputs(params, cfg, batch)
+    node_losses, caches = [], []
     for si, seg in enumerate(cfg.segments):
         p_seg = params["segments"][si]["blocks"]
+        rings = []
         for li in range(seg.n_layers):
-            x = blocks.block_forward(layer(p_seg, li), x, positions,
-                                     seg.block, cfg.norm_eps)
+            x, entry = blocks.block_forward(layer(p_seg, li), x, positions,
+                                            seg.block, cfg.norm_eps,
+                                            use_flash)
+            rings.append(blocks.build_ring_cache(entry, positions,
+                                                 cache_len))
+        caches.append(_stack_layers(rings))
         if seg.ramp:
             node_losses.append(
                 ramp_readout(params, cfg, x[:, -1, :], segment=si)[1])
     logits, final_loss = ramp_readout(params, cfg, x[:, -1, :])
     node_losses.append(final_loss)
-    return logits, torch.stack(node_losses, dim=1), positions[:, -1] + 1
+    return (logits, caches, torch.stack(node_losses, dim=1),
+            positions[:, -1] + 1)
 
 
 def decode_segment(params, cfg: ModelConfig, si: int, x: torch.Tensor,
                    cache_seg, pos: torch.Tensor, paged=None,
                    write_mask=None):
-    """Run segment ``si`` for one token against the paged pool (written
-    in place).  x (B,1,D) -> (x', cache_seg, readout) where readout is
-    None for ramp-less segments and otherwise the `ramp_readout` pair
-    (logits (B,V), loss proxy (B,))."""
+    """Run segment ``si`` for one token against its ring caches or, with
+    ``paged``, the paged pool (written in place).  x (B,1,D) -> (x',
+    cache_seg, readout) where readout is None for ramp-less segments and
+    otherwise the `ramp_readout` pair (logits (B,V), loss proxy
+    (B,))."""
     seg = cfg.segments[si]
     p_seg = params["segments"][si]["blocks"]
     for li in range(seg.n_layers):
@@ -143,17 +173,42 @@ def prefill_chunk_segment(params, cfg: ModelConfig, si: int,
     return x, cache_seg
 
 
+def decode_step(params, cfg: ModelConfig, batch: dict, caches, pos):
+    """Full-depth one-token step on the ring caches (updated in place;
+    no early exit).  batch: {"tokens": (B,)}.  Returns (logits (B,V),
+    caches, node_losses (B, n_nodes))."""
+    x = params["embed"]["table"][batch["tokens"].long()][:, None, :]
+    node_losses = []
+    for si in range(len(cfg.segments)):
+        x, _, ro = decode_segment(params, cfg, si, x, caches[si], pos)
+        if ro is not None:
+            node_losses.append(ro[1])
+    logits, final_loss = ramp_readout(params, cfg, x[:, 0, :])
+    node_losses.append(final_loss)
+    return logits, caches, torch.stack(node_losses, dim=1)
+
+
+def _stack_specs(spec, n: int):
+    if isinstance(spec, dict):
+        return {k: _stack_specs(v, n) for k, v in spec.items()}
+    shape, dtype = spec
+    return (n,) + shape, dtype
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> list:
+    """(shape, dtype) spec tree of the ring caches, per segment and
+    stacked over its layers: ``k, v (L, B, cache_len, Hkv, hd)``,
+    ``pos (L, B, cache_len)``."""
+    return [_stack_specs(blocks.cache_defs(seg.block, cfg.d_model, batch,
+                                           cache_len), seg.n_layers)
+            for seg in cfg.segments]
+
+
 def paged_cache_specs(cfg: ModelConfig, n_pages: int,
                       page_size: int) -> list:
     """(shape, dtype) spec tree of the paged pool, per segment and
     stacked over its layers: ``k, v (L, P, page_size, Hkv, hd)``,
     ``pos (L, P, page_size)``."""
-    def stack(spec, n):
-        if isinstance(spec, dict):
-            return {k: stack(v, n) for k, v in spec.items()}
-        shape, dtype = spec
-        return (n,) + shape, dtype
-
-    return [stack(blocks.cache_defs(seg.block, cfg.d_model, n_pages,
-                                    page_size), seg.n_layers)
+    return [_stack_specs(blocks.cache_defs(seg.block, cfg.d_model, n_pages,
+                                           page_size), seg.n_layers)
             for seg in cfg.segments]

@@ -13,22 +13,33 @@ for the prefill chunk), where the JAX program syncs once per token.
 The segment counters are kept as device tensors and read once, with
 the emitted tokens, at the end of the step.
 
-Exited and unoccupied lanes write their K/V to the pool's garbage page
-(the decode path redirects them), so each lane's stream depends on its
-own request alone.
+Exited and unoccupied lanes never change their own cache: on the paged
+pool they write their K/V to the garbage page (the decode path
+redirects them); on the ring caches every lane writes its slot in
+place and `_mask_lane_writes` puts back the slots of the lanes that
+were not active.  So each lane's stream depends on its own request
+alone.
+
+`Engine` serves one fixed batch (prefill, then greedy decode on the
+ring caches); `Classifier` serves the paper's classification setting
+over the prefill.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from repro_torch.models import model as M
 from repro_torch.models.attention import paged_kernel
+from repro_torch.models.blocks import block_forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.strategy.base import reset_lanes
 
-__all__ = ["make_token_step", "bank_observe", "bank_serve",
-           "fold_readout"]
+__all__ = ["Engine", "GenerationStats", "Classifier", "make_token_step",
+           "bank_observe", "bank_serve", "fold_readout"]
 
 
 def _check_online(strategy):
@@ -37,6 +48,41 @@ def _check_online(strategy):
             f"{type(strategy).__name__} needs hindsight (online=False) and "
             "cannot drive the serving engine")
     return strategy
+
+
+@dataclasses.dataclass
+class GenerationStats:
+    tokens: np.ndarray              # (B, T) generated tokens
+    served_nodes: np.ndarray        # (B, T) which node served each token
+    segments_run_batch: int         # segments actually launched (batch)
+    segments_run_policy: int        # sum over lanes of nodes probed
+    segments_full: int              # full-depth reference
+
+
+def _ring_slots(cache_seg: dict, pos: torch.Tensor) -> dict:
+    """Copies of what every layer's ring cache holds at each lane's
+    write slot ``pos % C``: the bits a decode of this segment is about
+    to overwrite."""
+    attn = cache_seg["attn"]
+    slot = (pos % attn["k"].shape[2]).long()
+    bidx = torch.arange(pos.shape[0], device=pos.device)
+    return {name: leaf[:, bidx, slot].clone() for name, leaf in attn.items()}
+
+
+def _mask_lane_writes(cache_seg: dict, saved: dict, pos: torch.Tensor,
+                      active: torch.Tensor) -> None:
+    """Keep inactive lanes' ring-cache bits: put back, in place, the
+    slots `_ring_slots` saved for the lanes that are not ``active``.
+    (On the paged pool the decode already redirected masked lanes'
+    writes to the garbage page, so there is nothing to do there.)"""
+    keep = ~active
+    if not bool(keep.any()):
+        return
+    attn = cache_seg["attn"]
+    slot = (pos % attn["k"].shape[2]).long()[keep]
+    bidx = torch.nonzero(keep)[:, 0]
+    for name, leaf in attn.items():
+        leaf[:, bidx, slot] = saved[name][:, keep]
 
 
 def bank_observe(strategies, states, node, losses, preds, active, sid):
@@ -78,41 +124,56 @@ def fold_readout(strategies, states, node, logits, ell, active, sid, best):
 
 
 def make_token_step(params, cfg: ModelConfig, strategies, *,
+                    carry_state: bool = False, paged: bool = False,
                     paged_kernel_on: bool = False, prefill_slots: int = 0):
-    """Build the one-token segment sweep of the continuous-batching
-    runtime, on the paged KV pool, with the strategy bank's per-lane
-    states carried across steps.
+    """Build the one-token segment sweep shared by `Engine.generate` and
+    the continuous-batching runtime.
 
     Args:
       strategies: a tuple bank of online strategies; the per-lane
-        ``sid`` (B,) int32 argument picks each lane's member.  Every
-        occupied lane's state is re-initialized at its token boundary
-        (`strategy.base.reset_lanes`).
+        ``sid`` (B,) int32 argument picks each lane's member.  The
+        Engine passes a one-member bank.
+      carry_state: runtime mode — the step takes the bank's per-lane
+        states after ``kv`` and returns them updated; every occupied
+        lane's state is re-initialized at its token boundary
+        (`strategy.base.reset_lanes`).  Off (the Engine), every token
+        starts from fresh states.
+      paged: the caches are the paged KV pool and the step takes a
+        `models.attention.PagedKV` handle as ``kv``; off, they are the
+        per-lane ring caches and ``kv`` is None.
       paged_kernel_on: run the paged decode and the prefill chunk
         through the CUDA kernels (plain PyTorch on CPU tensors) instead
         of the page-table gather.
-      prefill_slots: > 0 adds CHUNKED PREFILL co-scheduled with decode:
-        the step takes a `models.attention.PrefillChunk` of up to
-        ``prefill_slots`` prompt tokens per admitting lane and runs its
-        full-depth sweep against the same pool.  Lanes whose chunk
-        finishes the prompt (``chunk.emit``) get their first token
-        (argmax of the final-position head logits) in ``next_tok``.
+      prefill_slots: > 0 (paged mode only) adds CHUNKED PREFILL
+        co-scheduled with decode: the step takes a
+        `models.attention.PrefillChunk` of up to ``prefill_slots``
+        prompt tokens per admitting lane and runs its full-depth sweep
+        against the same pool.  Lanes whose chunk finishes the prompt
+        (``chunk.emit``) get their first token (argmax of the
+        final-position head logits) in ``next_tok``.
 
     Returns ``step(tok (B,) i32, caches, pos (B,) i32, occupied (B,)
-    bool, sid (B,) i32, kv, states[, chunk]) -> (next_tok, caches,
-    served_node, seg_batch, seg_policy, states)``; the pool in
-    ``caches`` is updated in place, and seg_* are int32 device scalars
-    counting this token's launched segments and per-lane probes.
+    bool, sid (B,) i32, kv=None, states=None, chunk=None) -> (next_tok,
+    caches, served_node, seg_batch, seg_policy[, states])``; the caches
+    are updated in place, and seg_* are int32 device scalars counting
+    this token's launched segments and per-lane probes.
     """
     strategies = tuple(_check_online(s) for s in strategies)
+    if prefill_slots and not paged:
+        raise ValueError("prefill_slots needs the paged KV pool "
+                         "(chunks are committed page by page)")
     embed = params["embed"]["table"]
 
-    def step(tok, caches, pos, occupied, sid, kv, states_in, chunk=None):
+    def step(tok, caches, pos, occupied, sid, kv=None, states_in=None,
+             chunk=None):
         b = tok.shape[0]
         dev = tok.device
         x = embed[tok.long()][:, None, :]
-        states = tuple(reset_lanes(s, st, occupied)
-                       for s, st in zip(strategies, states_in))
+        if carry_state:
+            states = tuple(reset_lanes(s, st, occupied)
+                           for s, st in zip(strategies, states_in))
+        else:
+            states = tuple(s.init(b) for s in strategies)
         active = occupied
         best = torch.zeros((b, cfg.vocab), dtype=torch.float32, device=dev)
         seg_batch = torch.zeros((), dtype=torch.int32, device=dev)
@@ -124,9 +185,15 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
                 seg_batch += int(any_active)
                 seg_policy += active.sum(dtype=torch.int32)
                 if any_active:
-                    x, _, ro = M.decode_segment(params, cfg, si, x,
-                                                caches[si], pos, paged=kv,
-                                                write_mask=active)
+                    if paged:
+                        x, _, ro = M.decode_segment(
+                            params, cfg, si, x, caches[si], pos, paged=kv,
+                            write_mask=active)
+                    else:
+                        saved = _ring_slots(caches[si], pos)
+                        x, _, ro = M.decode_segment(params, cfg, si, x,
+                                                    caches[si], pos)
+                        _mask_lane_writes(caches[si], saved, pos, active)
                     if ro is not None:
                         states, active, best = fold_readout(
                             strategies, states, node, *ro, active, sid,
@@ -153,6 +220,111 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
                 next_tok = torch.where(chunk.emit, t0, next_tok)
 
         served = bank_serve(strategies, states, sid)
-        return next_tok, caches, served, seg_batch, seg_policy, states
+        out = (next_tok, caches, served, seg_batch, seg_policy)
+        return out + (states,) if carry_state else out
 
     return step
+
+
+class Engine:
+    """Batched greedy-decode engine with per-token early exit, on the
+    ring caches.  ``use_flash`` runs the prefill's attention through the
+    flash-attention kernel."""
+
+    def __init__(self, params, cfg: ModelConfig, strategy, cache_len: int,
+                 use_flash: bool = False):
+        self.params = params
+        self.cfg = cfg
+        self.strategy = _check_online(strategy)
+        self.cache_len = cache_len
+        self.use_flash = bool(use_flash)
+        self._step = make_token_step(params, cfg, (self.strategy,))
+
+    def prefill(self, batch: dict):
+        return M.prefill(self.params, self.cfg, batch, self.cache_len,
+                         use_flash=self.use_flash)
+
+    def generate(self, batch: dict, n_tokens: int) -> GenerationStats:
+        cfg = self.cfg
+        logits, caches, _, pos = self.prefill(batch)
+        b = logits.shape[0]
+        dev = logits.device
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        occupied = torch.ones((b,), dtype=torch.bool, device=dev)
+        sid = torch.zeros((b,), dtype=torch.int32, device=dev)
+        out_tokens, out_nodes = [], []
+        seg_batch = seg_policy = 0
+        for _ in range(n_tokens):
+            tok, caches, served, sb, sp = self._step(tok, caches, pos,
+                                                     occupied, sid)
+            out_tokens.append(tok.cpu().numpy())
+            out_nodes.append(served.cpu().numpy())
+            seg_batch += int(sb)
+            seg_policy += int(sp)
+            pos = pos + 1
+        return GenerationStats(
+            tokens=np.stack(out_tokens, 1),
+            served_nodes=np.stack(out_nodes, 1),
+            segments_run_batch=seg_batch,
+            segments_run_policy=seg_policy,
+            segments_full=n_tokens * len(cfg.segments) * b,
+        )
+
+
+class Classifier:
+    """Classification-mode serving — the paper's §6 experimental setting.
+
+    One request = one input sequence; the prediction is read at the last
+    position of a ramp (no decode loop).  The engine runs segment by
+    segment over the prefill, consulting the strategy after each ramp,
+    and serves whatever node ``strategy.serve`` designates.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, strategy):
+        self.params = params
+        self.cfg = cfg
+        self.strategy = _check_online(strategy)
+
+    def classify(self, batch: dict) -> dict:
+        cfg = self.cfg
+        params = self.params
+        strategy = self.strategy
+        x, positions = M._embed_inputs(params, cfg, batch)
+        b = x.shape[0]
+        state = strategy.init(b)
+        active = torch.ones((b,), dtype=torch.bool, device=x.device)
+        best = torch.zeros((b, cfg.vocab), dtype=torch.float32,
+                           device=x.device)
+        node = 0
+        seg_run = seg_policy = 0
+        n_seg = len(cfg.segments)
+        for si, seg in enumerate(cfg.segments):
+            if not bool(active.any()):
+                break
+            p_seg = params["segments"][si]["blocks"]
+            for li in range(seg.n_layers):
+                x, _ = block_forward(M.layer(p_seg, li), x, positions,
+                                     seg.block, cfg.norm_eps)
+            seg_run += 1
+            seg_policy += int(active.sum())
+            if seg.ramp:
+                # the engine's shared fold: observe, then refresh best
+                # logits for lanes whose SERVED node is this ramp
+                logits, loss = M.ramp_readout(params, cfg, x[:, -1, :],
+                                              segment=si)
+                (state,), active, best = fold_readout(
+                    (strategy,), (state,), node, logits, loss, active,
+                    None, best)
+                node += 1
+        if bool(active.any()):
+            logits, loss = M.ramp_readout(params, cfg, x[:, -1, :])
+            (state,), active, best = fold_readout(
+                (strategy,), (state,), node, logits, loss, active, None,
+                best)
+        return {
+            "labels": torch.argmax(best, dim=-1).cpu().numpy(),
+            "served_node": strategy.serve(state).cpu().numpy(),
+            "segments_run_batch": seg_run,
+            "segments_run_policy": seg_policy,
+            "segments_full": n_seg * b,
+        }

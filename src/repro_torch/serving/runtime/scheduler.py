@@ -1,5 +1,6 @@
 """Lane scheduling: fixed-width slots, immediate recycling, static
-shapes, on the paged KV pool with chunked prefill.
+shapes, on per-lane ring caches or on the paged KV pool, with
+stop-the-world or chunked prefill.
 
 Three layers:
 
@@ -10,16 +11,18 @@ Three layers:
     pool can't cover a request's worst case, the request STAYS QUEUED,
     head-of-line, instead of being dropped).
 
-  * `EngineStepper` — the device state of the REAL model: the paged KV
-    pool, current tokens, positions and the carried strategy-bank
-    states.  Admission allocates the prompt's pages and registers a
-    prefill cursor; each `step` first executes the pool's host-planned
-    page ops (fresh-page position resets, copy-on-write splits), then
-    runs decode for the decoding lanes AND a planner-budgeted prefill
-    chunk for the admitting lanes through the shared
-    `serving.engine.make_token_step`.  The pool is updated in place
-    (``index_put_`` / indexed assignment), where the JAX package builds
-    a new pool each step.
+  * `EngineStepper` — the device state of the REAL model: the ring
+    caches or the paged KV pool, current tokens, positions and the
+    carried strategy-bank states.  Stop-the-world admission prefills
+    the whole prompt at batch 1 and scatters it into the lane's ring
+    slot or its pages; chunked admission (paged only) allocates the
+    prompt's pages and registers a prefill cursor.  Each `step` first
+    executes the pool's host-planned page ops (fresh-page position
+    resets, copy-on-write splits), then runs decode for the decoding
+    lanes AND, when chunked, a planner-budgeted prefill chunk for the
+    admitting lanes through the shared `serving.engine.make_token_step`.
+    Caches are updated in place (``index_put_`` / indexed assignment),
+    where the JAX package builds new ones each step.
 
   * `ChunkPlanner` — the per-step token budget for those chunks, split
     fairly across prompt-length buckets.
@@ -177,8 +180,9 @@ class ChunkPlanner:
 
 
 def _materialize_cache(spec, device, key=None):
-    """Zero-filled pool from a `models.model.paged_cache_specs` tree
-    (``pos`` buffers start at -1 == empty slot)."""
+    """Zero-filled caches from a `models.model.cache_specs` or
+    `paged_cache_specs` tree (``pos`` buffers start at -1 == empty
+    slot)."""
     if isinstance(spec, dict):
         return {k: _materialize_cache(v, device, k) for k, v in spec.items()}
     shape, dtype = spec
@@ -188,19 +192,29 @@ def _materialize_cache(spec, device, key=None):
 
 
 class EngineStepper:
-    """Real-model lane state: the paged pool + the shared token step."""
+    """Real-model lane state: ring caches or the paged pool + the shared
+    token step."""
 
     def __init__(self, params, cfg, strategies: tuple, *, n_lanes: int,
-                 cache_len: int, prompt_len: int, page_size: int = 16,
-                 n_pages: int | None = None, paged_kernel: bool = False,
-                 prefill_chunk: int, prefill_budget: int | None = None):
-        if not prefill_chunk:
-            raise ValueError("the port admits through chunked prefill "
-                             "only: pass prefill_chunk")
-        for seg in cfg.segments:
-            if seg.block.mixer != "attn":
-                raise ValueError("chunked prefill supports attention "
-                                 f"segments only, not {seg.block.mixer!r}")
+                 cache_len: int, prompt_len: int, kv: str = "ring",
+                 page_size: int = 16, n_pages: int | None = None,
+                 paged_kernel: bool = False,
+                 prefill_chunk: int | None = None,
+                 prefill_budget: int | None = None,
+                 use_flash: bool = False):
+        if kv not in ("ring", "paged"):
+            raise ValueError(f"unknown kv mode {kv!r} (ring|paged)")
+        prefill_chunk = prefill_chunk or None      # 0 == disabled
+        if prefill_chunk is not None:
+            if kv != "paged":
+                raise ValueError("chunked prefill needs --kv paged "
+                                 "(chunks commit into the page pool)")
+            for seg in cfg.segments:
+                if seg.block.mixer != "attn" \
+                        or seg.block.attn.mla is not None:
+                    raise ValueError(
+                        "chunked prefill supports GQA attention segments "
+                        f"only, not mixer {seg.block.mixer!r}")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"]["table"].device
@@ -209,14 +223,22 @@ class EngineStepper:
         self.cache_len = int(cache_len)
         self.prompt_len = int(prompt_len)
         self.full_depth = len(cfg.segments)
-        self.prefill_chunk = int(prefill_chunk)
-        self.planner = ChunkPlanner(self.prefill_chunk, prefill_budget)
+        self.kv = kv
+        self.use_flash = bool(use_flash)
+        self.prefill_chunk = None if prefill_chunk is None \
+            else int(prefill_chunk)
+        self.planner = None if prefill_chunk is None else ChunkPlanner(
+            self.prefill_chunk, prefill_budget)
         self._step = make_token_step(params, cfg, strategies,
+                                     carry_state=True,
+                                     paged=(kv == "paged"),
                                      paged_kernel_on=paged_kernel,
-                                     prefill_slots=self.prefill_chunk)
-        self.pool = KVPool(n_lanes=self.n_lanes, page_size=page_size,
-                           lane_pages=-(-self.cache_len // page_size),
-                           n_pages=n_pages)
+                                     prefill_slots=self.prefill_chunk or 0)
+        self.pool = None
+        if kv == "paged":
+            self.pool = KVPool(n_lanes=self.n_lanes, page_size=page_size,
+                               lane_pages=-(-self.cache_len // page_size),
+                               n_pages=n_pages)
         self.alloc()
 
     def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -248,10 +270,13 @@ class EngineStepper:
     # ---- lane state ------------------------------------------------------
 
     def alloc(self) -> None:
-        """(Re)build empty lane state: an empty pool, fresh bank states."""
-        self.pool.reset()
-        specs = M.paged_cache_specs(self.cfg, self.pool.n_pages,
-                                    self.pool.page_size)
+        """(Re)build empty lane state: empty caches, fresh bank states."""
+        if self.pool is not None:
+            self.pool.reset()
+            specs = M.paged_cache_specs(self.cfg, self.pool.n_pages,
+                                        self.pool.page_size)
+        else:
+            specs = M.cache_specs(self.cfg, self.n_lanes, self.cache_len)
         self.caches = [_materialize_cache(s, self.device) for s in specs]
         self.tok = torch.zeros((self.n_lanes,), dtype=torch.int32,
                                device=self.device)
@@ -266,20 +291,80 @@ class EngineStepper:
 
     def reserve(self, req: Request) -> bool:
         """Admission gate (the scheduler's ``can_admit``): reserve the
-        request's worst-case page need."""
+        request's worst-case page need.  Ring mode has nothing to
+        reserve — lane availability is the only constraint."""
+        if self.pool is None:
+            return True
         return self.pool.reserve(req.prompt, req.max_tokens)
 
     def release(self, lane: int) -> None:
-        """Return the lane's pages to the pool and drop any prefill
-        cursor it still holds."""
+        """Return the lane's pages to the pool (ring lanes have nothing
+        to return) and drop any prefill cursor it still holds."""
         self._prefilling.pop(lane, None)
-        self.pool.release(lane)
+        if self.pool is not None:
+            self.pool.release(lane)
+
+    def _prefill_one(self, req: Request, cache_len: int):
+        """Whole-prompt prefill at batch 1: (caches, first token (1,),
+        next position (1,))."""
+        prompt = self._dev(np.asarray(req.prompt, np.int32)[None, :])
+        logits, pc, _, npos = M.prefill(self.params, self.cfg,
+                                        {"tokens": prompt}, cache_len,
+                                        use_flash=self.use_flash)
+        return pc, torch.argmax(logits, dim=-1).to(torch.int32), \
+            npos.to(torch.int32)
+
+    def _scatter_ring(self, lane: int, pc) -> None:
+        """Copy a batch-1 prefill's ring caches into the lane's slot."""
+        for seg_c, one in zip(self.caches, pc):
+            for name, leaf in seg_c["attn"].items():
+                leaf[:, lane] = one["attn"][name][:, 0]
+
+    def _scatter_pages(self, plan, pc) -> None:
+        """Scatter a batch-1 prefill (ring length == prompt length, so
+        slot t holds position t) into the admitted lane's pages: gate
+        the stale bytes of the freshly allocated pages, then write each
+        token to its (page, slot) target; prefix-shared tokens go to the
+        garbage page at position -1."""
+        dp = self._dev(plan.dest_page, torch.long)
+        ds = self._dev(plan.dest_slot, torch.long)
+        fresh = self._dev(plan.new_pages, torch.long)
+        pos_vals = self._dev(plan.pos_vals)
+        for seg_c, one in zip(self.caches, pc):
+            attn = seg_c["attn"]
+            attn["pos"][:, fresh] = -1
+            for name, leaf in attn.items():
+                leaf[:, dp, ds] = pos_vals if name == "pos" \
+                    else one["attn"][name][:, 0].to(leaf.dtype)
 
     def admit(self, lane: int, req: Request) -> None:
-        """Admit the request into ``lane``: allocate the prompt's pages
-        now and defer the compute — the prompt is fed through the step
-        ``prefill_chunk`` tokens at a time, co-scheduled with decode,
-        and prefix-cache hits skip their already-cached chunks."""
+        """Admit the request into ``lane``.
+
+        Stop-the-world (no ``prefill_chunk``): prefill the whole prompt
+        at batch 1 and scatter it into the lane's ring slot or pages;
+        every decode lane waits for it.  Chunked: allocate the prompt's
+        pages now and defer the compute — the prompt is fed through the
+        step ``prefill_chunk`` tokens at a time, co-scheduled with
+        decode, and prefix-cache hits skip their already-cached
+        chunks."""
+        if self.prefill_chunk is None:
+            if req.prompt.shape[0] != self.prompt_len:
+                raise ValueError(
+                    f"request {req.rid}: prompt length "
+                    f"{req.prompt.shape[0]} != stepper bucket "
+                    f"{self.prompt_len} (static shapes)")
+            if self.pool is None:
+                pc, t0, npos = self._prefill_one(req, self.cache_len)
+                self._scatter_ring(lane, pc)
+            else:
+                plan = self.pool.admit(lane, req.prompt, req.max_tokens)
+                pc, t0, npos = self._prefill_one(req, self.prompt_len)
+                self._scatter_pages(plan, pc)
+            self.tok[lane] = t0[0]
+            self.pos[lane] = npos[0]
+            self.states = tuple(init_lane(s, st, lane) for s, st
+                                in zip(self.strategies, self.states))
+            return
         plan = self.pool.admit(lane, req.prompt, req.max_tokens,
                                register_prefix=False)
         self._reset_pages(self._dev(plan.new_pages))
@@ -382,19 +467,25 @@ class EngineStepper:
                 lane: (st["lp"] - st["cursor"], st["lp"])
                 for lane, st in self._prefilling.items()})
         occ = self._dev(decode, torch.bool)
-        plan = self.pool.prepare_step(decode)
-        if plan.fresh.any() or plan.cow_dst.any():
-            # page ops only when the plan has any
-            self._paged_prep(self._dev(plan.fresh), self._dev(plan.cow_src),
-                             self._dev(plan.cow_dst))
-        kv = PagedKV(page_table=self._dev(self.pool.table),
-                     write_page=self._dev(plan.write_page),
-                     write_slot=self._dev(plan.write_slot))
-        chunk, finished = self._build_chunk(widths)
+        kv = chunk = None
+        finished: list = []
+        if self.pool is not None:
+            plan = self.pool.prepare_step(decode)
+            if plan.fresh.any() or plan.cow_dst.any():
+                # page ops only when the plan has any
+                self._paged_prep(self._dev(plan.fresh),
+                                 self._dev(plan.cow_src),
+                                 self._dev(plan.cow_dst))
+            kv = PagedKV(page_table=self._dev(self.pool.table),
+                         write_page=self._dev(plan.write_page),
+                         write_slot=self._dev(plan.write_slot))
+        if self.prefill_chunk is not None:
+            chunk, finished = self._build_chunk(widths)
         tok, self.caches, served, sb, sp, self.states = self._step(
             self.tok, self.caches, self.pos, occ, self._dev(sid), kv,
             self.states, chunk)
-        self.pool.note_written(decode)
+        if self.pool is not None:
+            self.pool.note_written(decode)
         self.tok = tok
         self.pos = self.pos + occ.to(torch.int32)
         if finished:

@@ -44,34 +44,42 @@ class Cascade:
 
     @classmethod
     def from_traces(cls, losses, costs, *, k: int = 32, lam: float = 1.0,
-                    device="cpu") -> "Cascade":
+                    device="cpu", use_kernel: bool = False) -> "Cascade":
         """Fit support + chain from (T, n) RAW loss traces (scaled by
-        ``lam`` before the support fit) and solve.  ``costs`` are taken
-        as-is and clamped to ``_MIN_COST``."""
+        ``lam`` before the support fit) and solve (``use_kernel``: the
+        solve's backups run through the Bellman-backup kernel).
+        ``costs`` are taken as-is and clamped to ``_MIN_COST``."""
         scaled = lam * np.asarray(losses)
         support = build_support(scaled, k, device=device)
         chain = estimate_chain(quantize(support, torch.as_tensor(scaled)), k)
         costs = torch.clamp(torch.as_tensor(costs, dtype=torch.float32,
                                             device=device), min=_MIN_COST)
         casc = cls(support=support, chain=chain, costs=costs, lam=lam)
-        casc.solve_line()
+        casc.solve_line(use_kernel=use_kernel)
         return casc
 
     @classmethod
-    def calibrate(cls, params, cfg, tokens, lam: float, *,
-                  k: int = 24) -> "Cascade":
+    def calibrate(cls, params, cfg, tokens, lam: float, *, k: int = 24,
+                  use_flash: bool = False,
+                  use_kernel: bool = False) -> "Cascade":
         """Fit a cascade from a model's own ramp losses on the (T, seq)
         calibration prompts ``tokens`` (the serving launcher's
-        calibration step); every node costs ``(1 - lam) / n``."""
+        calibration step); every node costs ``(1 - lam) / n``.
+        ``use_flash`` runs the calibration prefill's attention through
+        the flash-attention kernel, ``use_kernel`` the line solve's
+        backups through the Bellman-backup kernel."""
         from repro_torch.models import model as M   # keep core import light
         device = params["embed"]["table"].device
         tokens = torch.tensor(np.asarray(tokens), device=device)
         with torch.no_grad():
-            _, node_losses, _ = M.prefill(params, cfg, {"tokens": tokens})
+            _, _, node_losses, _ = M.prefill(
+                params, cfg, {"tokens": tokens}, tokens.shape[1] + 8,
+                use_flash=use_flash)
         raw = node_losses.cpu().numpy()
         n = raw.shape[1]
         costs = (1.0 - lam) * np.full((n,), 1.0 / n)
-        return cls.from_traces(raw, costs, k=k, lam=lam, device=device)
+        return cls.from_traces(raw, costs, k=k, lam=lam, device=device,
+                               use_kernel=use_kernel)
 
     @classmethod
     def uniform(cls, n_nodes: int, *, lam: float = 1.0,
@@ -89,9 +97,12 @@ class Cascade:
         return cls(support=support, chain=MarkovChain(p0=p0, trans=trans),
                    costs=costs, lam=lam)
 
-    def solve_line(self) -> LineTables:
-        """Solve (and cache) the with-recall line DP (Alg. 2)."""
+    def solve_line(self, use_kernel: bool = False) -> LineTables:
+        """Solve (and cache) the with-recall line DP (Alg. 2);
+        ``use_kernel`` runs its backups through the Bellman-backup
+        kernel."""
         if self.line_tables is None:
             self.line_tables = solve_line(self.chain, self.costs,
-                                          self.support)
+                                          self.support,
+                                          use_kernel=use_kernel)
         return self.line_tables

@@ -1,14 +1,17 @@
-"""The port's paged-decode and chunked-prefill kernels (repro_torch.kernels)
-against the JAX package: their plain PyTorch versions — what a CPU
-tensor runs — are held against `repro.kernels.ref` and against the
-Pallas kernels run in interpret mode, on the same numpy inputs.
+"""The port's kernels (repro_torch.kernels: paged decode, chunked
+prefill, flash attention, Bellman backup) against the JAX package:
+their plain PyTorch versions — what a CPU tensor runs — are held against
+`repro.kernels.ref` and against the Pallas kernels run in interpret
+mode, on the same numpy inputs.
 
 Tolerance: f32 outputs within atol = rtol = 1e-5 (the two frameworks sum
 in different orders).  The bf16 pools are built from the same f32 numpy
 arrays in both frameworks and must be bit-equal.
 
 The CUDA kernels themselves run only on the card: `test_cuda_kernels_
-match_plain` holds each against its plain version there and skips on a
+match_plain` and `test_cuda_flash_and_bellman_match_plain` hold each
+against its plain version there (atol = rtol = 1e-4 for attention, whose
+f32 sums run in another order; 1e-5 for the backup) and skip on a
 machine without one.  The JAX package is imported by the fixture of the
 tests that need it, so that test also runs where JAX is not installed
 (``pytest -m cuda tests/test_torch_kernels.py``).
@@ -20,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (paged_attention, paged_attention_plain,
+from repro_torch.kernels import (bellman_backup, bellman_backup_plain,
+                                 flash_attention, flash_attention_plain,
+                                 paged_attention, paged_attention_plain,
                                  paged_prefill, paged_prefill_plain)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -283,3 +288,127 @@ def test_cuda_kernels_match_plain():
         assert paged_prefill.launches == n + 1
         want = paged_prefill_plain(*pargs, scale=0.125, window=p["window"])
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# flash attention (whole-prompt prefill)
+# --------------------------------------------------------------------------
+
+FLASH_CASES = {
+    # name: (b, s, h, hkv, hd, window)
+    "causal_ragged": (2, 19, 4, 4, 32, None),
+    "gqa": (2, 24, 4, 2, 64, None),
+    "window": (1, 40, 4, 2, 32, 8),
+    "gqa_window_tiles": (1, 150, 4, 1, 96, 48),   # several 64-row tiles
+    "hd128": (1, 70, 2, 2, 128, None),
+}
+
+
+def _flash_inputs(case):
+    b, s, h, hkv, hd, window = FLASH_CASES[case]
+    rng = np.random.default_rng(20 + sorted(FLASH_CASES).index(case))
+    q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, s, hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, s, hkv, hd)).astype(np.float32)
+    return q, k, v, dict(scale=1.0 / np.sqrt(hd), window=window)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_plain_matches_jax(case, jx):
+    jnp, ops, ref = jx.jnp, jx.ops, jx.ref
+    q, k, v, kw = _flash_inputs(case)
+    out = flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), **kw).numpy()
+    assert out.shape == q.shape and np.isfinite(out).all()
+    r = ref.flash_attention_ref(
+        *(jnp.asarray(a).transpose(0, 2, 1, 3) for a in (q, k, v)), **kw)
+    np.testing.assert_allclose(out, np.asarray(r).transpose(0, 2, 1, 3),
+                               **TOL)
+    pallas = ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), block_q=64, block_kv=64,
+                                 interpret=True, **kw)
+    np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
+
+
+# --------------------------------------------------------------------------
+# Bellman backup (line DP)
+# --------------------------------------------------------------------------
+
+def _bellman_inputs(k, seed):
+    """A backup as the solve gives it: phi rows sorted along X, a
+    row-stochastic transition and a min-index table from a sorted grid
+    (mi_t[y, x] = X-index of min(xvals[x], grid[y]))."""
+    rng = np.random.default_rng(seed)
+    x = k + 2
+    grid = np.sort(rng.uniform(0.01, 1.0, k)).astype(np.float32)
+    xv = np.concatenate([[0.0], grid, [grid[-1] * 1e4 + 1e4]])
+    mi = np.where(xv[:, None] <= grid[None, :], np.arange(x)[:, None],
+                  np.arange(1, k + 1)[None, :])
+    phi = np.sort(rng.uniform(0, 1, (k, x)), axis=1).astype(np.float32)
+    trans = rng.dirichlet(np.ones(k), size=k).astype(np.float32)
+    return phi, trans, np.float32(0.17), mi.T.astype(np.int32).copy()
+
+
+@pytest.mark.parametrize("k", [8, 24])
+def test_bellman_backup_plain_matches_jax(k, jx):
+    jnp, ops, ref = jx.jnp, jx.ops, jx.ref
+    phi, trans, cost, mi_t = _bellman_inputs(k, k)
+    out = bellman_backup_plain(torch.from_numpy(phi),
+                               torch.from_numpy(trans), float(cost),
+                               torch.from_numpy(mi_t)).numpy()
+    assert out.shape == (k, k + 2)
+    j = [jnp.asarray(a) for a in (phi, trans, cost, mi_t)]
+    np.testing.assert_allclose(out, np.asarray(ref.bellman_backup_ref(*j)),
+                               **TOL)
+    np.testing.assert_allclose(
+        out, np.asarray(ops.bellman_backup(*j, interpret=True)), **TOL)
+
+
+def test_new_wrappers_take_the_plain_version_on_cpu():
+    """On CPU tensors the flash and Bellman wrappers ARE the plain
+    versions and launch nothing."""
+    q, k, v, kw = _flash_inputs("gqa")
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    before = flash_attention.launches
+    torch.testing.assert_close(flash_attention(*args, **kw),
+                               flash_attention_plain(*args, **kw),
+                               rtol=0, atol=0)
+    assert flash_attention.launches == before
+    phi, trans, cost, mi_t = _bellman_inputs(8, 3)
+    bargs = (torch.from_numpy(phi), torch.from_numpy(trans), float(cost),
+             torch.from_numpy(mi_t))
+    before = bellman_backup.launches
+    torch.testing.assert_close(bellman_backup(*bargs),
+                               bellman_backup_plain(*bargs), rtol=0, atol=0)
+    assert bellman_backup.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_flash_and_bellman_match_plain():
+    """The flash kernel against its plain version on every case above
+    (atol = rtol = 1e-4) and the Bellman kernel at K = 8, 24 and 64
+    (atol = rtol = 1e-5), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for case in sorted(FLASH_CASES):
+        q, k, v, kw = _flash_inputs(case)
+        args = [torch.from_numpy(a).to(dev) for a in (q, k, v)]
+        n = flash_attention.launches
+        got = flash_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == n + 1
+        want = flash_attention_plain(*args, **kw)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for kk in (8, 24, 64):
+        phi, trans, cost, mi_t = _bellman_inputs(kk, kk)
+        bargs = (torch.from_numpy(phi).to(dev),
+                 torch.from_numpy(trans).to(dev),
+                 torch.tensor(cost, device=dev),
+                 torch.from_numpy(mi_t).to(dev))
+        n = bellman_backup.launches
+        got = bellman_backup(*bargs)
+        torch.cuda.synchronize()
+        assert bellman_backup.launches == n + 1
+        torch.testing.assert_close(got, bellman_backup_plain(*bargs),
+                                   atol=1e-5, rtol=1e-5)

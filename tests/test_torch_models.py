@@ -1,10 +1,14 @@
 """The port's early-exit decoder (repro_torch.models) against the JAX
-package's, on the smoke config with weights carried over by the bridge.
+package's, on the smoke config (and a windowed GQA config whose prompt
+outruns the ring) with weights carried over by the bridge.
 
 Tolerances: f32 tensors that never pass through the bf16 KV pool agree
 within atol = rtol = 1e-5; tensors downstream of the pool within 1e-3,
+and the bf16 ring/pool K/V within atol = rtol = 1e-2 (one bf16 ulp),
 because the two frameworks' f32 K/V can round to bf16 values one ulp
-apart.
+apart.  Greedy tokens and served nodes are equal; where a token ever
+differs, the assertion prints the step and that step's top-2 logit
+margin.
 """
 
 import jax
@@ -13,16 +17,25 @@ import numpy as np
 import pytest
 import torch
 
+from repro import strategy as jstrategy
 from repro.configs import get_config
+from repro.configs.common import dense_decoder
 from repro.models import attention as A
 from repro.models import model as M
 from repro.models.param import materialize
+from repro.serving.engine import Classifier as JClassifier
+from repro.serving.engine import Engine as JEngine
+from repro_torch import strategy as tstrategy
 from repro_torch.bridge import params_from_numpy
+from repro_torch.configs.common import dense_decoder as t_dense_decoder
 from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
+from repro_torch.serving.engine import Classifier as TClassifier
+from repro_torch.serving.engine import Engine as TEngine
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 POOL = dict(atol=1e-3, rtol=1e-3)
+BF16 = dict(atol=1e-2, rtol=1e-2)
 B, PS, LANE_PAGES, C = 3, 4, 4, 5
 
 
@@ -53,7 +66,9 @@ def test_prefill_matches(setup):
     lj, _, nlj, npj = M.prefill(params, cfg,
                                 {"tokens": jnp.asarray(toks, jnp.int32)},
                                 cache_len=16)
-    lt, nlt, npt = TM.prefill(tparams, cfg, {"tokens": torch.from_numpy(toks)})
+    lt, _, nlt, npt = TM.prefill(tparams, cfg,
+                                 {"tokens": torch.from_numpy(toks)},
+                                 cache_len=16)
     assert nlt.shape == (4, cfg.n_ramps + 1)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **F32)
     np.testing.assert_allclose(nlt.numpy(), np.asarray(nlj), **F32)
@@ -190,3 +205,177 @@ def test_paged_cache_specs_match(setup):
             assert ts["attn"][name][0] == js["attn"][name][0]
             assert str(ts["attn"][name][1]).split(".")[-1] == \
                 jnp.dtype(js["attn"][name][1]).name
+
+
+# --------------------------------------------------------------------------
+# whole-prompt prefill into ring caches, ring decode, Engine.generate
+# --------------------------------------------------------------------------
+
+WIN = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=32,
+           d_ff=128, vocab=256, n_segments=2, window=6)
+RING_CASES = {
+    # name: (prompt_len, cache_len); "window": the prompt outruns the
+    # 8-slot ring, so build_ring_cache wraps it
+    "smoke": (12, 16),
+    "window": (13, 8),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(RING_CASES))
+def ring_setup(request, setup):
+    """(cfg, jax params, port params, prompt_len, cache_len) for the
+    smoke config and a windowed GQA config."""
+    torch.set_num_threads(2)
+    prompt_len, cache_len = RING_CASES[request.param]
+    if request.param == "smoke":
+        cfg, params, tparams = setup
+    else:
+        cfg = dense_decoder("win-gqa", **WIN)
+        assert repr(t_dense_decoder("win-gqa", **WIN)) == repr(cfg)
+        params = materialize(M.model_defs(cfg), jax.random.PRNGKey(3))
+        tparams = params_from_numpy(jax.tree.map(np.asarray, params))
+    return cfg, params, tparams, prompt_len, cache_len
+
+
+def _check_ring(tcaches, jcaches):
+    for tc, jc in zip(tcaches, jcaches):
+        np.testing.assert_array_equal(tc["attn"]["pos"].numpy(),
+                                      np.asarray(jc["attn"]["pos"]))
+        for name in ("k", "v"):
+            np.testing.assert_allclose(
+                tc["attn"][name].float().numpy(),
+                np.asarray(jc["attn"][name], np.float32), **BF16)
+
+
+@pytest.mark.parametrize("use_flash", [False, True],
+                         ids=["sdpa", "flash"])
+def test_prefill_ring_caches_match(ring_setup, use_flash):
+    """Port prefill (einsum path, or the flash route, which runs the
+    kernel's plain version on the CPU) against the JAX package's own
+    CPU path, prefill(use_flash=False)."""
+    cfg, params, tparams, prompt_len, cache_len = ring_setup
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (3, prompt_len))
+    lj, cj, nlj, npj = M.prefill(params, cfg,
+                                 {"tokens": jnp.asarray(toks, jnp.int32)},
+                                 cache_len)
+    lt, ct, nlt, npt = TM.prefill(tparams, cfg,
+                                  {"tokens": torch.from_numpy(toks)},
+                                  cache_len, use_flash=use_flash)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **F32)
+    np.testing.assert_allclose(nlt.numpy(), np.asarray(nlj), **F32)
+    np.testing.assert_array_equal(npt.numpy(), np.asarray(npj))
+    _check_ring(ct, cj)
+    jspecs = M.cache_specs(cfg, 3, cache_len)
+    for tc, js in zip(ct, jspecs):
+        for name in ("k", "v", "pos"):
+            assert tuple(tc["attn"][name].shape) == js["attn"][name][0]
+    if prompt_len > cache_len:      # the ring wrapped: slot p % C holds p
+        pos = ct[0]["attn"]["pos"][0, 0].numpy()
+        assert pos.min() == prompt_len - cache_len
+        np.testing.assert_array_equal(pos % cache_len, np.arange(cache_len))
+
+
+def _first_divergence(tt, jt, tl, jl):
+    """Message naming the first step whose greedy tokens differ, with
+    that step's top-2 logit margin in each package."""
+    step = int(np.flatnonzero((tt != jt).any(axis=0))[0])
+
+    def margin(logits):
+        top = np.sort(logits, axis=-1)[:, -2:]
+        return (top[:, 1] - top[:, 0]).round(6).tolist()
+    return (f"tokens first differ at step {step}: port {tt[:, step]} vs "
+            f"reference {jt[:, step]}; top-2 margins port "
+            f"{margin(tl[step])}, reference {margin(jl[step])}")
+
+
+def test_ring_decode_step_matches(ring_setup):
+    """Greedy full-depth decode on the ring caches, 6 tokens: logits
+    within 1e-3, tokens equal, ring caches within a bf16 ulp."""
+    cfg, params, tparams, prompt_len, cache_len = ring_setup
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (3, prompt_len))
+    lj, cj, _, pj = M.prefill(params, cfg,
+                              {"tokens": jnp.asarray(toks, jnp.int32)},
+                              cache_len)
+    lt, ct, _, pt = TM.prefill(tparams, cfg,
+                               {"tokens": torch.from_numpy(toks)},
+                               cache_len)
+    jt, tt, jl, tl = [], [], [], []
+    tok_j = jnp.argmax(lj, axis=-1).astype(jnp.int32)
+    tok_t = torch.argmax(lt, dim=-1).to(torch.int32)
+    with torch.no_grad():
+        for _ in range(6):
+            lj, cj, nj = M.decode_step(params, cfg, {"tokens": tok_j}, cj,
+                                       pj)
+            lt, ct, nt = TM.decode_step(tparams, cfg, {"tokens": tok_t}, ct,
+                                        pt)
+            np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **POOL)
+            np.testing.assert_allclose(nt.numpy(), np.asarray(nj), **POOL)
+            jl.append(np.asarray(lj))
+            tl.append(lt.numpy())
+            tok_j = jnp.argmax(lj, axis=-1).astype(jnp.int32)
+            tok_t = torch.argmax(lt, dim=-1).to(torch.int32)
+            jt.append(np.asarray(tok_j))
+            tt.append(tok_t.numpy())
+            pj, pt = pj + 1, pt + 1
+    jt, tt = np.stack(jt, 1), np.stack(tt, 1)
+    assert (tt == jt).all(), _first_divergence(tt, jt, tl, jl)
+    _check_ring(ct, cj)
+
+
+def _engines(cfg, params, tparams, name, cache_len):
+    """The same strategy in both packages, from the same numpy loss
+    traces (so the solved tables are equal, as test_torch_strategy
+    shows)."""
+    rng = np.random.default_rng(6)
+    n = cfg.n_ramps + 1
+    losses = np.clip(rng.uniform(0.05, 0.95, (400, 1))
+                     * np.linspace(1.0, 0.5, n)[None, :]
+                     + rng.normal(scale=0.05, size=(400, n)), 1e-3,
+                     1.0).astype(np.float32)
+    costs = 0.5 * np.full((n,), 1.0 / n)
+    js = jstrategy.make(name, jstrategy.Cascade.from_traces(
+        losses, costs, k=8, lam=0.5))
+    ts = tstrategy.make(name, tstrategy.Cascade.from_traces(
+        losses, costs, k=8, lam=0.5))
+    return (JEngine(params, cfg, js, cache_len, jit=False),
+            TEngine(tparams, cfg, ts, cache_len))
+
+
+@pytest.mark.parametrize("name", ["recall_index", "always_last"])
+def test_engine_generate_matches(ring_setup, name):
+    """`Engine.generate` (prefill, then the early-exit token step on the
+    ring caches): tokens, served nodes and segment counters equal."""
+    cfg, params, tparams, prompt_len, cache_len = ring_setup
+    je, te = _engines(cfg, params, tparams, name, cache_len)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (4, prompt_len))
+    js = je.generate({"tokens": jnp.asarray(toks, jnp.int32)}, 5)
+    with torch.no_grad():
+        ts = te.generate({"tokens": torch.from_numpy(toks)}, 5)
+    if not (ts.tokens == js.tokens).all():
+        step = int(np.flatnonzero((ts.tokens != js.tokens).any(0))[0])
+        raise AssertionError(
+            f"tokens first differ at step {step}: port "
+            f"{ts.tokens[:, step]} vs reference {js.tokens[:, step]}")
+    np.testing.assert_array_equal(ts.served_nodes, js.served_nodes)
+    assert (ts.segments_run_batch, ts.segments_run_policy,
+            ts.segments_full) == (js.segments_run_batch,
+                                  js.segments_run_policy, js.segments_full)
+
+
+@pytest.mark.parametrize("name", ["recall_index", "always_last"])
+def test_classifier_matches(ring_setup, name):
+    """`Classifier.classify` (segment-wise over the prefill, exiting at
+    the strategy's node): labels, served nodes and counters equal."""
+    cfg, params, tparams, prompt_len, cache_len = ring_setup
+    je, te = _engines(cfg, params, tparams, name, cache_len)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab, (5, prompt_len))
+    jr = JClassifier(params, cfg, je.strategy).classify(
+        {"tokens": jnp.asarray(toks, jnp.int32)})
+    with torch.no_grad():
+        tr = TClassifier(tparams, cfg, te.strategy).classify(
+            {"tokens": torch.from_numpy(toks)})
+    for key in ("labels", "served_node"):
+        np.testing.assert_array_equal(tr[key], np.asarray(jr[key]))
+    for key in ("segments_run_batch", "segments_run_policy",
+                "segments_full"):
+        assert tr[key] == jr[key], key

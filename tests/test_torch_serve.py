@@ -7,11 +7,16 @@ against the JAX package's, end to end on the smoke config.
     the CPU), once on its gather path: per request, tokens and served
     nodes are EQUAL, and so are the chunked-prefill stats and the
     segment counters.
+  * The same for stop-the-world admission, on the ring caches (with and
+    without the flash route, whose plain version runs on the CPU) and
+    on the paged pool (pool stats equal too).
   * The same seed gives the same workload in both packages.
   * The port's serve report renders the reference's lines from the same
     stats.
-  * The launcher runs end to end on the CPU when asked to, and refuses
-    to run without CUDA otherwise.
+  * The launcher runs end to end on the CPU when asked to — the
+    one-shot batch path by default, ``--server`` on ring caches by
+    default, ``--flash --dp-kernel`` on both — and refuses to run
+    without CUDA otherwise.
   * Nothing under src/repro_torch/, nor chip_smoke.py, imports jax or
     the JAX package.
 """
@@ -121,9 +126,9 @@ def test_port_serves_what_the_reference_serves(setup, reference_run,
     bank, sid_of = trt.build_bank(requests, trt.cascade_factory(tcasc),
                                   ("recall_index", None))
     stepper = trt.EngineStepper(tparams, cfg, bank, n_lanes=2, cache_len=32,
-                                prompt_len=PROMPT_LEN, page_size=8,
-                                prefill_chunk=5, prefill_budget=8,
-                                paged_kernel=kernel)
+                                prompt_len=PROMPT_LEN, kv="paged",
+                                page_size=8, prefill_chunk=5,
+                                prefill_budget=8, paged_kernel=kernel)
     with torch.no_grad():
         tm, tnodes = _serve_logged(trt, stepper, sid_of, requests)
     for req in jreqs:
@@ -135,6 +140,59 @@ def test_port_serves_what_the_reference_serves(setup, reference_run,
     assert jstats["tokens_skipped"] > 0           # prefix hits exercised
     assert (tm.steps, tm.seg_batch, tm.seg_policy, tm.lane_steps) == \
         (jm.steps, jm.seg_batch, jm.seg_policy, jm.lane_steps)
+
+
+@pytest.fixture(scope="module")
+def stw_reference(setup):
+    """The JAX package's stop-the-world serves, one per KV mode (built
+    on first use)."""
+    cfg, params, casc, _, _ = setup
+    runs = {}
+
+    def get(kv):
+        if kv not in runs:
+            requests = _requests(JRequest, cfg)
+            bank, sid_of = jrt.build_bank(
+                requests, jrt.cascade_factory(casc), ("recall_index", None))
+            stepper = jrt.EngineStepper(params, cfg, bank, n_lanes=2,
+                                        cache_len=32, prompt_len=PROMPT_LEN,
+                                        kv=kv, page_size=8)
+            metrics, nodes = _serve_logged(jrt, stepper, sid_of, requests)
+            runs[kv] = (requests, metrics, nodes,
+                        None if stepper.pool is None
+                        else stepper.pool.stats())
+        return runs[kv]
+
+    return get
+
+
+@pytest.mark.parametrize("kv,flash", [("ring", False), ("ring", True),
+                                      ("paged", False)],
+                         ids=["ring", "ring-flash", "paged"])
+def test_stop_the_world_serves_what_the_reference_serves(
+        setup, stw_reference, kv, flash):
+    cfg, _, _, tparams, tcasc = setup
+    jreqs, jm, jnodes, jpool = stw_reference(kv)
+    requests = _requests(TRequest, cfg)
+    bank, sid_of = trt.build_bank(requests, trt.cascade_factory(tcasc),
+                                  ("recall_index", None))
+    stepper = trt.EngineStepper(tparams, cfg, bank, n_lanes=2, cache_len=32,
+                                prompt_len=PROMPT_LEN, kv=kv, page_size=8,
+                                use_flash=flash)
+    with torch.no_grad():
+        tm, tnodes = _serve_logged(trt, stepper, sid_of, requests)
+    for req in jreqs:
+        assert tm.records[req.rid].tokens == jm.records[req.rid].tokens, \
+            f"request {req.rid}"
+        assert tnodes[req.rid] == jnodes[req.rid], f"request {req.rid}"
+        assert tm.records[req.rid].n_tokens == req.max_tokens
+    assert (tm.steps, tm.seg_batch, tm.seg_policy, tm.lane_steps) == \
+        (jm.steps, jm.seg_batch, jm.seg_policy, jm.lane_steps)
+    if kv == "paged":
+        assert stepper.pool.stats() == jpool
+        assert jpool["prefix_hit_rate"] > 0       # prefix hits exercised
+    else:
+        assert stepper.pool is None
 
 
 def test_report_renders_the_reference_lines(setup, reference_run):
@@ -181,6 +239,55 @@ def test_launcher_serves_smoke_on_cpu(capsys):
     assert f"completed {len(run.requests)}/{len(run.requests)}" in out
 
 
+def test_launcher_defaults_follow_the_reference():
+    """--kv ring, no --prefill-chunk, --batch 8 and --lanes = --batch,
+    as the reference launcher's defaults."""
+    args = tserve.parse_args([])
+    assert (args.kv, args.prefill_chunk, args.batch, args.lanes,
+            args.server, args.flash, args.dp_kernel) == \
+        ("ring", None, 8, 8, False, False, False)
+    assert tserve.parse_args(["--batch", "3"]).lanes == 3
+    assert tserve.parse_args(["--batch", "3", "--lanes", "5"]).lanes == 5
+
+
+def test_launcher_one_shot_flash_dp_kernel_on_cpu(capsys):
+    """No --server: the one-shot batch path prints the reference's three
+    lines; --flash and --dp-kernel run the kernels' plain versions on
+    the CPU (no launch is counted)."""
+    torch.set_num_threads(2)
+    from repro_torch.kernels import bellman_backup, flash_attention
+    before = (flash_attention.launches, bellman_backup.launches)
+    run = tserve.main(["--smoke", "--device", "cpu", "--flash",
+                       "--dp-kernel", "--kv", "paged", "--batch", "3",
+                       "--tokens", "4", "--prompt-len", "10",
+                       "--cache-len", "16"])
+    out = capsys.readouterr().out.splitlines()
+    assert "note: --kv paged applies to --server traffic mode" in out[-4]
+    assert out[-3].startswith("generated 3x4 tokens in ")
+    assert out[-2].startswith("segments saved: batch ")
+    assert out[-1].startswith("served-node histogram: [")
+    assert run.stats.tokens.shape == run.stats.served_nodes.shape == (3, 4)
+    assert ((0 <= run.stats.tokens) & (run.stats.tokens < 512)).all()
+    assert run.prompts.shape == (3, 10)
+    assert (flash_attention.launches, bellman_backup.launches) == before
+
+
+def test_launcher_serves_ring_by_default_on_cpu(capsys):
+    torch.set_num_threads(2)
+    run = tserve.main(["--smoke", "--device", "cpu", "--server", "--flash",
+                       "--dp-kernel", "--lanes", "2", "--rate", "6",
+                       "--duration", "0.5", "--tokens", "4",
+                       "--prompt-len", "10"])
+    assert run is not None and run.requests
+    assert run.stepper.kv == "ring" and run.stepper.pool is None
+    assert run.stepper.use_flash
+    for req in run.requests:
+        assert run.metrics.records[req.rid].n_tokens == req.max_tokens
+    out = capsys.readouterr().out
+    assert ", kv ring, " in out and "flash on" in out
+    assert f"completed {len(run.requests)}/{len(run.requests)}" in out
+
+
 def test_launcher_refuses_to_run_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA is not available"):
@@ -195,6 +302,9 @@ def _port_files():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 20 and files[-1].exists()
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for mod in ("flash_attention", "bellman_backup"):     # the new kernels
+        assert f"src/repro_torch/kernels/{mod}.py" in names
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -3,7 +3,10 @@ repro_torch.strategy) against the JAX package's, on the same numpy
 losses: support grid and edges equal, stop tables equal, cont / sigma /
 value within 1e-5, and RecallIndexStrategy observe/serve decisions
 equal — including at the final node, where the JAX package relies on a
-clamped out-of-range gather and the port clamps explicitly.
+clamped out-of-range gather and the port clamps explicitly.  The line
+solve through the Bellman-backup kernel (its plain version on the CPU)
+is held against the JAX solve through the Pallas kernel in interpret
+mode, with the same tolerances.
 """
 
 import jax
@@ -64,6 +67,24 @@ def test_support_chain_and_tables_match(cascades):
     np.testing.assert_allclose(tt.sigma.numpy(), np.asarray(jt.sigma),
                                **TOL)
     np.testing.assert_allclose(float(tt.value), float(jt.value), **TOL)
+
+
+def test_solve_line_kernel_route_matches(cascades):
+    """solve_line(use_kernel=True) in both packages on the same fitted
+    chain: stop tables equal, cont / phi / sigma / value within 1e-5."""
+    _, jc, tc = cascades
+    from repro.core.line_dp import solve_line as jsolve
+    from repro_torch.core.line_dp import solve_line as tsolve
+    jt = jsolve(jc.chain, jc.costs, jc.support, use_kernel=True)
+    tt = tsolve(tc.chain, tc.costs, tc.support, use_kernel=True)
+    np.testing.assert_array_equal(tt.stop.numpy(), np.asarray(jt.stop))
+    for f in ("cont", "phi", "sigma"):
+        np.testing.assert_allclose(getattr(tt, f).numpy(),
+                                   np.asarray(getattr(jt, f)), **TOL)
+    np.testing.assert_allclose(float(tt.value), float(jt.value), **TOL)
+    # and the kernel route agrees with the port's own plain route
+    np.testing.assert_array_equal(tt.stop.numpy(),
+                                  tc.line_tables.stop.numpy())
 
 
 @pytest.mark.parametrize("name", ["recall_index", "always_last"])
