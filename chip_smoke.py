@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
   1. prints the card (nvidia-smi name and power limit), the torch and
      CUDA versions, and builds every CUDA kernel of the serve paths from
      the sources in the checkout (one nvcc per source, in parallel):
-     paged_attention, paged_prefill, flash_attention, bellman_backup;
+     paged_attention, paged_prefill, flash_attention, bellman_backup,
+     ssd_chunk;
   2. holds each kernel against its plain PyTorch version on the card:
      the paged pair at the chunked serve's shapes (8 lanes, 12 heads,
      head_dim 64, 16-token pages, 8 pages a lane, 16-token chunks),
@@ -18,7 +19,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      12, 12, 64), a GQA case with a window and a ragged length, and
      head_dim 32 and 96 cases, atol = rtol = 1e-4 (f32 sums in another
      order); bellman_backup at K = 24 and 64 on row-stochastic
-     transitions, atol = rtol = 1e-5;
+     transitions, atol = rtol = 1e-5; ssd_chunk at the mamba2-130m
+     calibration prefill's shape (512, 1, 256, 24, 64, 128), a ring
+     admission's (1, 1, 256, ...), four chunks (2, 4, 256, ...), all
+     with dt and da drawn as the model makes them (softplus, a = -e, so
+     exp overflows above the diagonal) and B/C broadcast over the heads
+     with stride 0, and a small (2, 3, 32, 4, 32, 16) case with per-head
+     B/C, atol = rtol = 2e-4, every output finite;
   3. checks the full-width model on small inputs: a prefill chunk and a
      decode token through the paged kernels, through the page gather on
      the card and through the page gather on the CPU agree within
@@ -29,23 +36,32 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      solve of the serve's own calibration (512 x 64 numpy-seeded
      prompts, k 24, lambda 0.5) through the Bellman kernel and through
      the plain backup gives equal stop tables and cont / phi / sigma /
-     value within rtol 1e-5;
+     value within rtol 1e-5; full-width mamba2-130m prefills two
+     300-token prompts (two chunks, the second ragged) through the
+     ssd_chunk kernel, through the einsum path on the card and on the
+     CPU: logits, node losses and SSM state within 1e-3, the bf16 conv
+     state within one bf16 ulp beyond the 1e-3 of the rows it rounds;
+     then one decode token from each path's state within 1e-3;
   4. times each kernel and its plain version with CUDA events — device
      time from CUDA graph replay, and the time of an eager call, host
      included — on the chunked serve's shapes (paged pair), the
      calibration prefill's shape (flash_attention, beside one call of
      ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick the
-     port never calls) and K = 24 (bellman_backup), and computes each
-     kernel's bound from its inputs;
-  5. serves paper-ee-100m at full width through
-     ``repro_torch.launch.serve.main`` four times — chunked paged under
-     recall_index and under always_last (the paged pair's path), the
-     ring server with --flash --dp-kernel under recall_index (the new
-     pair's path), and the one-shot batch with --flash --dp-kernel —
-     with every kernel's launch counter set to 0 just before each serve
-     and read just after; every request must complete with its full
-     token count, and each path's kernels must launch (and the paged
-     pair must not on the ring and one-shot paths);
+     port never calls; ssd_chunk, which no PyTorch call computes), and
+     K = 24 (bellman_backup), computes each kernel's bound from its
+     inputs, and times both calibration prefills (paper-ee-100m with
+     and without --flash, mamba2-130m with and without --ssd-kernel);
+  5. serves at full width through ``repro_torch.launch.serve.main``
+     six times — paper-ee-100m chunked paged under recall_index and
+     under always_last (the paged pair's path), the ring server with
+     --flash --dp-kernel under recall_index (flash and Bellman's path),
+     the one-shot batch with --flash --dp-kernel; mamba2-130m's ring
+     server with --ssd-kernel --dp-kernel under recall_index (ssd_chunk's
+     path) and its one-shot batch with --ssd-kernel — with every
+     kernel's launch counter set to 0 just before each serve and read
+     just after; every request must complete with its full token count,
+     each path's kernels must launch, and the kernels of other paths
+     must not;
   6. prints a ``kernels`` JSON line (``launches`` is each kernel's
      count on its own main path; ``launches_by_path`` holds every
      serve's), the card line, and last ``{"ok": true, "device": {...}}``.
@@ -79,7 +95,8 @@ from repro_torch.kernels import (bellman_backup,              # noqa: E402
                                  bellman_backup_plain, build,
                                  flash_attention, flash_attention_plain,
                                  paged_attention, paged_attention_plain,
-                                 paged_prefill, paged_prefill_plain)
+                                 paged_prefill, paged_prefill_plain,
+                                 ssd_chunk, ssd_chunk_plain)
 from repro_torch.launch import serve                          # noqa: E402
 from repro_torch.models import attention as A                 # noqa: E402
 from repro_torch.models import model as M                     # noqa: E402
@@ -91,39 +108,50 @@ TOL_KERNEL = 1e-4
 TOL_DP = 1e-5
 TOL_MODEL = 1e-3
 TOL_BF16 = 1e-2
+TOL_SSD = 2e-4
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_S = 67e12           # H100 SXM f32 outside the tensor cores
 # the serve path's shapes (full-width paper-ee-100m)
 B, H, HKV, HD, PS, MAXP, C = 8, 12, 12, 64, 16, 8, 16
-TRAFFIC = ["--arch", "paper-ee-100m", "--lanes", str(B), "--rate", "8",
-           "--duration", "2", "--tokens", "16", "--prompt-len", "32",
-           "--lam", "0.5", "--device", "cuda"]
+LOAD = ["--lanes", str(B), "--rate", "8", "--duration", "2", "--tokens",
+        "16", "--prompt-len", "32", "--lam", "0.5", "--device", "cuda"]
+TRAFFIC = ["--arch", "paper-ee-100m"] + LOAD
 SERVE_ARGS = TRAFFIC + ["--server", "--kv", "paged", "--page-size", str(PS),
                         "--prefill-chunk", str(C), "--paged-kernel"]
+ONE_SHOT = ["--batch", "8", "--tokens", "16", "--prompt-len", "32",
+            "--cache-len", "128", "--lam", "0.5", "--device", "cuda"]
 # every serve the script drives: (name, argv, kernels that must launch,
 # kernels that must not)
 PAGED, NEW = ("paged_attention", "paged_prefill"), ("flash_attention",
                                                      "bellman_backup")
+ATTN = PAGED + ("flash_attention",)
 SERVES = [
     ("chunked_recall_index", SERVE_ARGS + ["--policy", "recall_index"],
-     PAGED, ()),
+     PAGED, ("ssd_chunk",)),
     ("chunked_always_last", SERVE_ARGS + ["--policy", "always_last"],
-     PAGED, ()),
+     PAGED, ("ssd_chunk",)),
     ("ring_recall_index", TRAFFIC + ["--server", "--kv", "ring", "--flash",
                                      "--dp-kernel", "--policy",
-                                     "recall_index"], NEW, PAGED),
-    ("one_shot", ["--arch", "paper-ee-100m", "--flash", "--dp-kernel",
-                  "--batch", "8", "--tokens", "16", "--prompt-len", "32",
-                  "--cache-len", "128", "--lam", "0.5", "--device", "cuda"],
-     NEW, PAGED),
+                                     "recall_index"], NEW,
+     PAGED + ("ssd_chunk",)),
+    ("one_shot", ["--arch", "paper-ee-100m", "--flash", "--dp-kernel"]
+     + ONE_SHOT, NEW, PAGED + ("ssd_chunk",)),
+    ("mamba_ring_recall_index",
+     ["--arch", "mamba2-130m"] + LOAD + ["--server", "--kv", "ring",
+                                         "--ssd-kernel", "--dp-kernel",
+                                         "--policy", "recall_index"],
+     ("ssd_chunk", "bellman_backup"), ATTN),
+    ("mamba_one_shot", ["--arch", "mamba2-130m", "--ssd-kernel"] + ONE_SHOT,
+     ("ssd_chunk",), ATTN),
 ]
 MAIN_PATH = {"paged_attention": "chunked_recall_index",
              "paged_prefill": "chunked_recall_index",
              "flash_attention": "ring_recall_index",
-             "bellman_backup": "ring_recall_index"}
+             "bellman_backup": "ring_recall_index",
+             "ssd_chunk": "mamba_ring_recall_index"}
 KERNELS = {"paged_attention": paged_attention, "paged_prefill": paged_prefill,
            "flash_attention": flash_attention,
-           "bellman_backup": bellman_backup}
+           "bellman_backup": bellman_backup, "ssd_chunk": ssd_chunk}
 SOURCES = {
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:87"),
@@ -132,7 +160,9 @@ SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:87"),
     "bellman_backup": ("src/repro_torch/csrc/bellman_backup.cu",
-                       "src/repro/kernels/bellman_backup.py:38")}
+                       "src/repro/kernels/bellman_backup.py:38"),
+    "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk.py:60")}
 
 
 def log(msg: str) -> None:
@@ -349,6 +379,53 @@ def bellman_bound(args, kw):
     return nbytes, 2 * k * k * x
 
 
+# ssd chunk: (b, c, q, h, p, n, stride-0 B/C) — the mamba2-130m
+# calibration prefill's shape first (the timed case)
+SSD_CASES = [("calibration", (512, 1, 256, 24, 64, 128, True)),
+             ("ring-admission", (1, 1, 256, 24, 64, 128, True)),
+             ("four-chunks", (2, 4, 256, 24, 64, 128, True)),
+             ("small-per-head-bc", (2, 3, 32, 4, 32, 16, False))]
+
+
+def ssd_case(seed, b, c, q, h, p, n, broadcast):
+    """Inputs drawn as the model makes them: dt = softplus(.), da = -e *
+    dt (a_log = 1: exp(seg_i - seg_j) overflows above the diagonal);
+    with ``broadcast`` B and C are one group expanded over the heads
+    with stride 0, as `models.ssm` passes them."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).to(DEV)
+
+    dt = F.softplus(rnd(b, c, q, h))
+    hb = 1 if broadcast else h
+    bb, cc = rnd(b, c, q, hb, n), rnd(b, c, q, hb, n)
+    if broadcast:
+        bb, cc = bb.expand(b, c, q, h, n), cc.expand(b, c, q, h, n)
+    return (rnd(b, c, q, h, p), dt, -np.e * dt, bb, cc), {}
+
+
+def _stored(t):
+    """Elements a tensor holds in memory (a stride-0 axis counts once)."""
+    return int(np.prod([s for s, st in zip(t.shape, t.stride()) if st]))
+
+
+def ssd_bound(args, kw):
+    """Bytes and flops one SSD-chunk call needs: every stored input
+    element read once (B/C broadcast over the heads count once), y and
+    the states written once; per (b, c, h) 2N + 2P flops for each of the
+    Q(Q+1)/2 visible (i >= j) pairs and 2QPN for the state (the count
+    `flash_bound` uses: visible pairs only)."""
+    xh, dt, da, bb, cc = args
+    b, c, q, h, p = xh.shape
+    n = bb.shape[-1]
+    nbytes = 4 * (sum(_stored(t) for t in args) + xh.numel()
+                  + b * c * h * p * n)
+    pairs = q * (q + 1) // 2
+    return nbytes, b * c * h * (pairs * (2 * n + 2 * p) + 2 * q * p * n)
+
+
 def bound_ms(nbytes, flops):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -431,24 +508,33 @@ def phase_kernel_checks():
                TOL_KERNEL) for i, (case, shape) in enumerate(FLASH_CASES)]
     cases += [("bellman_backup", f"K={k}", bellman_case(k, k), TOL_DP)
               for k in (24, 64)]
+    cases += [("ssd_chunk", case, (lambda i=i, shape=shape:
+                                   ssd_case(30 + i, *shape)), TOL_SSD)
+              for i, (case, shape) in enumerate(SSD_CASES)]
     plains = {"paged_attention": paged_attention_plain,
               "paged_prefill": paged_prefill_plain,
               "flash_attention": flash_attention_plain,
-              "bellman_backup": bellman_backup_plain}
-    for name, case, (args, kw), tol in cases:
+              "bellman_backup": bellman_backup_plain,
+              "ssd_chunk": ssd_chunk_plain}
+    for name, case, inputs, tol in cases:
+        args, kw = inputs() if callable(inputs) else inputs
         got = KERNELS[name](*args, **kw)
         torch.cuda.synchronize()
         want = plains[name](*args, **kw)
-        err = float((got - want).abs().max())
-        ok = bool(torch.isfinite(got).all()) and torch.allclose(
-            got, want, atol=tol, rtol=tol)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ok = all(bool(torch.isfinite(g).all())
+                 and torch.allclose(g, w, atol=tol, rtol=tol)
+                 for g, w in zip(got, want))
         log(f"check {name} [{case}] vs plain: max_abs_err {err:.3e} "
-            f"(atol=rtol={tol}) {'ok' if ok else 'FAIL'}")
+            f"(atol=rtol={tol}, outputs finite) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{name} [{case}] disagrees with its plain "
                              f"version: max_abs_err {err}")
         errs[name] = max(errs[name], err)
-        del got, want
+        del got, want, args
+        torch.cuda.empty_cache()
     # masked rows/lanes come back exactly zero
     args, kw = decode_case(0)
     if paged_attention(*args, **kw)[6].abs().max() != 0:
@@ -485,7 +571,7 @@ def phase_model_check(params, params_cpu, cfg):
         def t(a, dtype=torch.int32, dev=dev):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
         caches = []
-        for spec in M.paged_cache_specs(cfg, n_pages, PS):
+        for spec in M.paged_cache_specs(cfg, 2, n_pages, PS):
             caches.append({"attn": {
                 k: (torch.full(s, -1, dtype=d, device=dev) if k == "pos"
                     else torch.zeros(s, dtype=d, device=dev))
@@ -586,6 +672,73 @@ def phase_flash_model_check(params, params_cpu, cfg):
         raise SystemExit(f"flash model check shapes {shapes}")
 
 
+def _within_bf16(a, b):
+    """bf16 tensors ``a`` within one bf16 ulp of ``b`` beyond the
+    atol = rtol = TOL_MODEL of the f32 values they round (a bf16 value
+    in [2**e, 2**(e+1)) has an ulp of 2**(e-7))."""
+    a, b = a.float(), b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        b.abs().clamp_min(2.0 ** -126))) - 7)
+    return bool(((a - b).abs()
+                 <= TOL_MODEL + TOL_MODEL * b.abs() + ulp).all())
+
+
+def phase_ssm_model_check(params, params_cpu, cfg):
+    """Full-width mamba2-130m: two 300-token prompts (two 256-row chunks,
+    the second ragged) prefilled through the ssd_chunk kernel, through
+    the einsum path on the card and on the CPU; then one decode token
+    (a fixed token, not the argmax) from each path's state."""
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (2, 300))
+    n_layers = sum(seg.n_layers for seg in cfg.segments)
+    outs = {}
+    for name, prm, dev, kern in (("kernel", params, DEV, True),
+                                 ("einsum", params, DEV, False),
+                                 ("cpu", params_cpu, torch.device("cpu"),
+                                  False)):
+        n0 = ssd_chunk.launches
+        with torch.no_grad():
+            logits, caches, losses, pos = M.prefill(
+                prm, cfg, {"tokens": torch.as_tensor(toks, device=dev)},
+                300, use_ssd_kernel=kern)
+            # copies: the decode below writes the state in place
+            state = [{k: t.to("cpu", copy=True) for k, t in c["ssm"].items()}
+                     for c in caches]
+            dl, _, dn = M.decode_step(
+                prm, cfg, {"tokens": torch.tensor([7, 11], device=dev)},
+                caches, pos)
+        if ssd_chunk.launches - n0 != (n_layers if kern else 0):
+            raise SystemExit(f"the {name} prefill launched ssd_chunk "
+                             f"{ssd_chunk.launches - n0} times")
+        outs[name] = ([logits.float().cpu(), losses.cpu(), dl.float().cpu(),
+                       dn.cpu()], state)
+    for a, b in (("kernel", "einsum"), ("kernel", "cpu"), ("einsum", "cpu")):
+        (ta, sa), (tb, sb) = outs[a], outs[b]
+        errs = [float((x - y).abs().max()) for x, y in zip(ta, tb)]
+        ok = all(torch.allclose(x, y, atol=TOL_MODEL, rtol=TOL_MODEL)
+                 and bool(torch.isfinite(x).all()) for x, y in zip(ta, tb))
+        ssm_err = max(float((x["ssm"] - y["ssm"]).abs().max())
+                      for x, y in zip(sa, sb))
+        conv_err = max(float((x["conv"].float() - y["conv"].float())
+                             .abs().max()) for x, y in zip(sa, sb))
+        ok &= all(torch.allclose(x["ssm"], y["ssm"], atol=TOL_MODEL,
+                                 rtol=TOL_MODEL)
+                  and bool(torch.isfinite(x["ssm"]).all())
+                  and _within_bf16(x["conv"], y["conv"])
+                  for x, y in zip(sa, sb))
+        log(f"model check [mamba2 prefill + decode, {a} vs {b}]: logits "
+            f"{errs[0]:.3e}, node losses {errs[1]:.3e}, ssm state "
+            f"{ssm_err:.3e} (atol=rtol={TOL_MODEL}); conv state "
+            f"{conv_err:.3e} (one bf16 ulp + {TOL_MODEL}); decode logits "
+            f"{errs[2]:.3e}, node losses {errs[3]:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"mamba2 model check failed: {a} vs {b}")
+    shapes = [tuple(t.shape) for t in outs["kernel"][0]]
+    n = cfg.n_ramps + 1
+    if shapes != [(2, cfg.vocab), (2, n), (2, cfg.vocab), (2, n)]:
+        raise SystemExit(f"mamba2 model check shapes {shapes}")
+
+
 def phase_dp_check(params, cfg):
     """The serve's own calibration (the launcher's numpy prompts from
     seed 0, k 24, lambda 0.5), its chain solved through the Bellman
@@ -615,30 +768,31 @@ def phase_dp_check(params, cfg):
                          "disagrees with the plain solve")
 
 
-def phase_calibration_timing(params, cfg):
+def phase_calibration_timing(params, cfg, flag):
     """The calibration prefill (the serve's 512 x 64 prompts, at the
-    calibration's ring length) with and without --flash, in turns
-    (einsum, flash, flash, einsum), host clock around a synchronized
-    call."""
+    calibration's ring length) with and without the kernel route
+    ``flag`` (``use_flash`` or ``use_ssd_kernel``), in turns (plain,
+    kernel, kernel, plain), host clock around a synchronized call."""
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (serve.CALIB_PROMPTS, serve.CALIB_LEN)), device=DEV)
 
-    def run(flash):
+    def run(on):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
             M.prefill(params, cfg, {"tokens": tokens}, serve.CALIB_LEN + 8,
-                      use_flash=flash)
+                      **{flag: on})
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 
     run(False), run(True)                        # warm up both paths
     times = {False: [run(False)], True: [run(True), run(True)]}
     times[False].append(run(False))
-    log(f"time calibration prefill ({serve.CALIB_PROMPTS} x "
-        f"{serve.CALIB_LEN}, full depth, ring caches built): einsum "
-        f"attention {times[False][0]:.2f} / {times[False][1]:.2f} ms, "
-        f"flash {times[True][0]:.2f} / {times[True][1]:.2f} ms")
+    log(f"time calibration prefill {cfg.name} ({serve.CALIB_PROMPTS} x "
+        f"{serve.CALIB_LEN}, full depth, decode caches built): without "
+        f"{flag} {times[False][0]:.2f} / {times[False][1]:.2f} ms, with "
+        f"{flag} {times[True][0]:.2f} / {times[True][1]:.2f} ms")
+    torch.cuda.empty_cache()
 
 
 def phase_timing():
@@ -653,18 +807,25 @@ def phase_timing():
             ("flash_attention", flash_attention, flash_attention_plain,
              (flash_args, flash_kw), flash_bound),
             ("bellman_backup", bellman_backup, bellman_backup_plain,
-             bellman_case(24, 24), bellman_bound)):
+             bellman_case(24, 24), bellman_bound),
+            ("ssd_chunk", ssd_chunk, ssd_chunk_plain,
+             ssd_case(30, *SSD_CASES[0][1]), ssd_bound)):
         def run_kern():
             return kern(*args, **kw)
 
         def run_plain():
             return plain(*args, **kw)
 
-        # in turns: plain, kernel, kernel, plain
-        plain_g = [graph_ms(run_plain)]
-        kern_g = [graph_ms(run_kern), graph_ms(run_kern)]
-        plain_g.append(graph_ms(run_plain))
-        kern_e, plain_e = time_ms(run_kern), time_ms(run_plain, iters=50)
+        # in turns: plain, kernel, kernel, plain; the SSD chunk at the
+        # calibration shape takes milliseconds (its plain version tens),
+        # so fewer calls a graph
+        g = dict(calls=4, replays=3) if name == "ssd_chunk" else {}
+        plain_g = [graph_ms(run_plain, **g)]
+        kern_g = [graph_ms(run_kern, **g), graph_ms(run_kern, **g)]
+        plain_g.append(graph_ms(run_plain, **g))
+        torch.cuda.empty_cache()
+        kern_e = time_ms(run_kern, iters=20 if g else 200)
+        plain_e = time_ms(run_plain, iters=10 if g else 50, warm=2)
         nbytes, flops = bound(args, kw)
         b_ms, b_by = bound_ms(nbytes, flops)
         lib = None
@@ -686,6 +847,8 @@ def phase_timing():
                 f"ms (device, graph replay; max_abs_err vs plain "
                 f"{lib_err:.3e})")
             del qt, kt, vt
+        del args
+        torch.cuda.empty_cache()
         rows[name] = dict(ms=min(kern_g), plain_ms=min(plain_g),
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                           eager_ms=kern_e, plain_eager_ms=plain_e)
@@ -738,7 +901,7 @@ def _check_serve_run(name, argv, run, n_nodes, vocab):
 def phase_serve(name, argv, must, must_not):
     """One full-width serve; every kernel's launch counter is zeroed
     just before and read just after."""
-    cfg = get_config("paper-ee-100m")
+    cfg = get_config(serve.parse_args(argv).arch)
     torch.cuda.reset_peak_memory_stats()
     for kern in KERNELS.values():
         kern.launches = 0
@@ -782,7 +945,14 @@ def main() -> None:
     phase_model_check(params, params_cpu, cfg)
     phase_flash_model_check(params, params_cpu, cfg)
     phase_dp_check(params, cfg)
-    phase_calibration_timing(params, cfg)
+    phase_calibration_timing(params, cfg, "use_flash")
+    del params, params_cpu
+    cfg = get_config("mamba2-130m")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = materialize(M.model_defs(cfg), gen, DEV)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    phase_ssm_model_check(params, params_cpu, cfg)
+    phase_calibration_timing(params, cfg, "use_ssd_kernel")
     del params, params_cpu
     times = phase_timing()
     # each serve's own counts; each kernel's main path is MAIN_PATH's

@@ -1,11 +1,12 @@
 """Architecture registry of the port: the paper's own early-exit
-workload, selectable via ``--arch``."""
+workload and the SSM family's full-width model, selectable via
+``--arch``."""
 
 from __future__ import annotations
 
-from repro_torch.configs import paper_ee
+from repro_torch.configs import mamba2_130m, paper_ee
 
-REGISTRY = {paper_ee.ARCH_ID: paper_ee}
+REGISTRY = {paper_ee.ARCH_ID: paper_ee, mamba2_130m.ARCH_ID: mamba2_130m}
 
 
 def get_config(arch: str, smoke: bool = False):

@@ -11,7 +11,10 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
 from repro_torch.kernels.paged_prefill import (paged_prefill,
                                                paged_prefill_plain)
+from repro_torch.kernels.ssd_chunk import (prefix_sum, ssd_chunk,
+                                           ssd_chunk_plain)
 
 __all__ = ["bellman_backup", "bellman_backup_plain", "flash_attention",
            "flash_attention_plain", "paged_attention",
-           "paged_attention_plain", "paged_prefill", "paged_prefill_plain"]
+           "paged_attention_plain", "paged_prefill", "paged_prefill_plain",
+           "prefix_sum", "ssd_chunk", "ssd_chunk_plain"]

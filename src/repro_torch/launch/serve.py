@@ -13,13 +13,18 @@ stop-the-world or chunked (``--prefill-chunk``) admission:
       --server --kv paged --prefill-chunk 16 --paged-kernel \
       --policy recall_index --lanes 8 --rate 8 --duration 2 --tokens 16
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --server --ssd-kernel --dp-kernel --lanes 8 --rate 8 --duration 2
+
 It runs on the card (``--device cuda``, the default) and refuses to go
 on when CUDA is missing; ``--device cpu`` runs the same path with the
 kernels' plain PyTorch versions.  ``--paged-kernel`` sends every paged
 decode and every prefill chunk through the CUDA kernels, ``--flash``
 every whole-prompt prefill (calibration, stop-the-world admission, the
-one-shot batch) through the flash-attention kernel, and ``--dp-kernel``
-the calibration's line solve through the Bellman-backup kernel.
+one-shot batch) through the flash-attention kernel, ``--ssd-kernel``
+the SSD chunks of those prefills (SSM models) through the ssd-chunk
+kernel, and ``--dp-kernel`` the calibration's line solve through the
+Bellman-backup kernel.
 """
 
 from __future__ import annotations
@@ -119,6 +124,12 @@ def parse_args(argv=None):
                          "stop-the-world admission, the one-shot batch) "
                          "through the flash-attention kernel: the port's "
                          "handle on the reference's prefill(use_flash=True)")
+    ap.add_argument("--ssd-kernel", action="store_true",
+                    help="run the SSD chunks of every whole-prompt prefill "
+                         "(calibration, stop-the-world admission, the "
+                         "one-shot batch) of an SSM model through the "
+                         "ssd-chunk kernel: the port's handle on the "
+                         "reference's prefill(use_ssd_kernel=True)")
     ap.add_argument("--dp-kernel", action="store_true",
                     help="run the calibration's line solve through the "
                          "Bellman-backup kernel: the port's handle on the "
@@ -135,7 +146,8 @@ def _serve_batch(args, cfg, params, casc, device) -> BatchRun:
     """The one-shot path: one fixed batch of numpy-seeded prompts,
     prefilled together and decoded to ``--tokens`` on ring caches."""
     engine = Engine(params, cfg, strategy.make(args.policy, casc),
-                    cache_len=args.cache_len, use_flash=args.flash)
+                    cache_len=args.cache_len, use_flash=args.flash,
+                    use_ssd_kernel=args.ssd_kernel)
     prompts = np.random.default_rng(args.seed + 1).integers(
         0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
     t0 = time.time()
@@ -179,7 +191,8 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
                                paged_kernel=args.paged_kernel,
                                prefill_chunk=args.prefill_chunk,
                                prefill_budget=args.prefill_budget,
-                               use_flash=args.flash)
+                               use_flash=args.flash,
+                               use_ssd_kernel=args.ssd_kernel)
     server = rt.Server(stepper, rt.LaneScheduler(args.lanes), sid_of)
     kv_desc = args.kv if args.kv == "ring" else (
         f"paged ({stepper.pool.n_pages} pages x {args.page_size} tokens)")
@@ -190,7 +203,8 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
           f"(rate {args.rate}/s x {args.duration}s) on {args.lanes} lanes, "
           f"policy {name}, kv {kv_desc}, device {device}, paged kernels "
           f"{'on' if args.paged_kernel else 'off'}, flash "
-          f"{'on' if args.flash else 'off'}, "
+          f"{'on' if args.flash else 'off'}, ssd kernel "
+          f"{'on' if args.ssd_kernel else 'off'}, "
           f"SLO ttft<={SLO_S * 1e3:.0f}ms ...")
     with torch.no_grad():
         metrics = server.serve(requests)
@@ -210,7 +224,7 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
         extra = {"policy": name, "rate": args.rate, "lanes": args.lanes,
                  "kv": args.kv, "prefill_chunk": args.prefill_chunk,
                  "device": str(device), "paged_kernel": args.paged_kernel,
-                 "flash": args.flash}
+                 "flash": args.flash, "ssd_kernel": args.ssd_kernel}
         if pool_stats is not None:
             extra["kv_pool"] = pool_stats
         if args.prefill_chunk:
@@ -237,6 +251,7 @@ def main(argv=None) -> ServeRun | BatchRun | None:
             0, cfg.vocab, (CALIB_PROMPTS, CALIB_LEN))
         casc = strategy.Cascade.calibrate(params, cfg, tokens, args.lam,
                                           k=CALIB_K, use_flash=args.flash,
+                                          use_ssd_kernel=args.ssd_kernel,
                                           use_kernel=args.dp_kernel)
         tables = casc.line_tables
         print(f"calibrated T-Tamer tables: n={tables.n} K={tables.k} "

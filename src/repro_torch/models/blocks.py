@@ -1,11 +1,12 @@
-"""Pre-norm residual blocks: an attention mixer with a dense MLP, plus
-ring-cache construction after a whole-prompt prefill."""
+"""Pre-norm residual blocks: an attention mixer with a dense MLP, or an
+SSD (Mamba2) mixer with no MLP, plus ring-cache construction after a
+whole-prompt prefill."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, mlp as mlp_lib
+from repro_torch.models import attention, mlp as mlp_lib, ssm as ssm_lib
 from repro_torch.models.common import rms_norm, rms_norm_def
 from repro_torch.models.config import BlockConfig
 
@@ -14,52 +15,89 @@ __all__ = ["block_defs", "block_forward", "block_decode",
 
 
 def _check(cfg: BlockConfig) -> None:
-    if cfg.mixer != "attn" or cfg.mlp != "dense":
+    if (cfg.mixer, cfg.mlp) not in (("attn", "dense"), ("ssm", "none")):
         raise NotImplementedError(
-            f"the port has attention blocks with a dense MLP only, not "
-            f"mixer {cfg.mixer!r} / mlp {cfg.mlp!r}")
+            f"the port has attention blocks with a dense MLP and SSM "
+            f"blocks with none, not mixer {cfg.mixer!r} / mlp {cfg.mlp!r}")
 
 
 def block_defs(cfg: BlockConfig, d_model: int) -> dict:
     _check(cfg)
-    return {"norm1": rms_norm_def(d_model),
-            "attn": attention.attn_defs(cfg.attn, d_model),
-            "norm2": rms_norm_def(d_model),
-            "mlp": mlp_lib.mlp_defs(d_model, cfg.d_ff, cfg.act)}
+    defs: dict = {"norm1": rms_norm_def(d_model)}
+    if cfg.mixer == "attn":
+        defs["attn"] = attention.attn_defs(cfg.attn, d_model)
+    else:
+        defs["ssm"] = ssm_lib.ssm_defs(cfg.ssm, d_model)
+    if cfg.mlp == "dense":
+        defs["norm2"] = rms_norm_def(d_model)
+        defs["mlp"] = mlp_lib.mlp_defs(d_model, cfg.d_ff, cfg.act)
+    return defs
 
 
 def cache_defs(cfg: BlockConfig, d_model: int, batch: int,
                cache_len: int) -> dict:
-    """(shape, dtype) spec tree for one block's KV cache."""
+    """(shape, dtype) spec tree for one block's decode cache: the KV
+    cache of an attention block, the conv/SSM state of an SSM block."""
     _check(cfg)
-    return {"attn": attention.init_cache_defs(cfg.attn, batch, cache_len)}
+    if cfg.mixer == "attn":
+        return {"attn": attention.init_cache_defs(cfg.attn, batch,
+                                                  cache_len)}
+    return {"ssm": ssm_lib.ssm_state_defs(cfg.ssm, d_model, batch)}
 
 
 def _mlp(p, x, cfg: BlockConfig, eps):
+    if cfg.mlp == "none":
+        return x
     return x + mlp_lib.mlp_forward(p["mlp"], rms_norm(p["norm2"], x, eps),
                                    cfg.act)
 
 
 def block_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                   cfg: BlockConfig, eps: float = 1e-5,
-                  use_flash: bool = False):
+                  use_flash: bool = False, use_ssd_kernel: bool = False):
     """Full-sequence pass (prefill).  Returns (y, cache_entry) with
-    cache_entry ``{"attn_kv": {"k", "v"}}``; ``use_flash`` runs the
-    attention through the flash-attention kernel."""
-    mix, kv = attention.attn_forward(p["attn"], rms_norm(p["norm1"], x, eps),
-                                     positions, cfg.attn, eps, use_flash)
-    return _mlp(p, x + mix, cfg, eps), {"attn_kv": kv}
+    cache_entry ``{"attn_kv": {"k", "v"}}`` or ``{"ssm": {"conv",
+    "ssm"}}``; ``use_flash`` runs the attention through the
+    flash-attention kernel, ``use_ssd_kernel`` the SSD chunks through
+    the ssd-chunk kernel."""
+    xn = rms_norm(p["norm1"], x, eps)
+    if cfg.mixer == "attn":
+        mix, kv = attention.attn_forward(p["attn"], xn, positions, cfg.attn,
+                                         eps, use_flash)
+        entry = {"attn_kv": kv}
+    else:
+        mix, st = ssm_lib.ssm_forward(p["ssm"], xn, cfg.ssm, eps,
+                                      use_ssd_kernel)
+        entry = {"ssm": st}
+    return _mlp(p, x + mix, cfg, eps), entry
 
 
 def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                  cfg: BlockConfig, eps: float = 1e-5, paged=None,
                  write_mask=None):
-    """One-token step against the ring cache or, with ``paged``, the
-    paged pool (either updated in place).  x (B,1,D); returns (y,
-    cache)."""
-    mix, cache["attn"] = attention.attn_decode(
-        p["attn"], rms_norm(p["norm1"], x, eps), cache["attn"], pos,
-        cfg.attn, eps, paged=paged, write_mask=write_mask)
+    """One-token step, the cache updated in place.  x (B,1,D); returns
+    (y, cache).
+
+    Attention: against the ring cache or, with ``paged``, the paged pool
+    (``write_mask`` redirects masked lanes' writes to the garbage page;
+    on the ring the engine puts inactive lanes' slots back).  SSM: the
+    new conv/SSM state is written into the lane-indexed state; with
+    ``write_mask`` only the masked-in lanes' rows change, the others
+    keep their bits (``torch.where`` into the cache)."""
+    xn = rms_norm(p["norm1"], x, eps)
+    if cfg.mixer == "attn":
+        mix, cache["attn"] = attention.attn_decode(
+            p["attn"], xn, cache["attn"], pos, cfg.attn, eps, paged=paged,
+            write_mask=write_mask)
+    else:
+        state = cache["ssm"]
+        mix, new = ssm_lib.ssm_decode(p["ssm"], xn, state, cfg.ssm, eps)
+        for name, leaf in state.items():
+            upd = new[name].to(leaf.dtype)
+            if write_mask is not None:
+                keep = write_mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
+                upd = torch.where(keep, upd, leaf)
+            leaf.copy_(upd)
     return _mlp(p, x + mix, cfg, eps), cache
 
 
@@ -67,7 +105,13 @@ def block_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
                         cfg: BlockConfig, eps: float, table: torch.Tensor,
                         chunk) -> tuple[torch.Tensor, dict]:
     """One prefill CHUNK through a block against the paged pool
-    (updated in place).  x (B, C, D); returns (y, cache)."""
+    (updated in place).  x (B, C, D); returns (y, cache).  Only
+    attention mixers are chunkable: SSM state is sequential over the
+    whole prompt, so SSM models admit by whole-prompt prefill."""
+    if cfg.mixer != "attn":
+        raise NotImplementedError(
+            f"chunked prefill supports attention blocks only, not "
+            f"{cfg.mixer!r}")
     mix, cache["attn"] = attention.attn_prefill_chunk(
         p["attn"], rms_norm(p["norm1"], x, eps), cache["attn"], cfg.attn,
         eps, table, chunk)
@@ -76,29 +120,34 @@ def block_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
 
 def build_ring_cache(cache_entry: dict, positions: torch.Tensor,
                      cache_len: int) -> dict:
-    """Convert prefill outputs into the fixed-size ring decode cache.
+    """Convert prefill outputs into the fixed-size decode cache.
 
-    Takes the last ``cache_len`` positions and scatters them at slot
-    ``pos % cache_len`` — for full prefixes this is the identity layout,
-    for windowed attention (a prompt longer than the ring) it reproduces
-    the steady-state ring.  K/V are stored in bf16, empty slots at
-    position -1."""
-    kv = cache_entry["attn_kv"]
-    pos_tail = positions[:, -cache_len:]
-    slots = (pos_tail % cache_len).long()                    # (B, C')
-    b = pos_tail.shape[0]
-    bidx = torch.arange(b, device=positions.device)[:, None]
+    Attention: takes the last ``cache_len`` positions and scatters them
+    at slot ``pos % cache_len`` — for full prefixes this is the identity
+    layout, for windowed attention (a prompt longer than the ring) it
+    reproduces the steady-state ring.  K/V are stored in bf16, empty
+    slots at position -1.  SSM state passes through."""
+    out: dict = {}
+    if "attn_kv" in cache_entry:
+        kv = cache_entry["attn_kv"]
+        pos_tail = positions[:, -cache_len:]
+        slots = (pos_tail % cache_len).long()                # (B, C')
+        b = pos_tail.shape[0]
+        bidx = torch.arange(b, device=positions.device)[:, None]
 
-    def scatter(src):
-        tail = src[:, -cache_len:]
-        buf = torch.zeros((b, cache_len) + tail.shape[2:],
-                          dtype=torch.bfloat16, device=src.device)
-        buf[bidx, slots] = tail.to(torch.bfloat16)
-        return buf
+        def scatter(src):
+            tail = src[:, -cache_len:]
+            buf = torch.zeros((b, cache_len) + tail.shape[2:],
+                              dtype=torch.bfloat16, device=src.device)
+            buf[bidx, slots] = tail.to(torch.bfloat16)
+            return buf
 
-    entry = {name: scatter(t) for name, t in kv.items()}
-    pos_buf = torch.full((b, cache_len), -1, dtype=torch.int32,
-                         device=positions.device)
-    pos_buf[bidx, slots] = pos_tail.to(torch.int32)
-    entry["pos"] = pos_buf
-    return {"attn": entry}
+        entry = {name: scatter(t) for name, t in kv.items()}
+        pos_buf = torch.full((b, cache_len), -1, dtype=torch.int32,
+                             device=positions.device)
+        pos_buf[bidx, slots] = pos_tail.to(torch.int32)
+        entry["pos"] = pos_buf
+        out["attn"] = entry
+    if "ssm" in cache_entry:
+        out["ssm"] = cache_entry["ssm"]
+    return out

@@ -5,20 +5,21 @@ Public API (functions over a nested-dict params tree):
   * ``ramp_readout(...)``          — per-node norm, tied unembedding and
                                      the loss proxy 1 - max softmax.
   * ``prefill(...)``               — full pass over whole prompts: last
-                                     logits, ring KV caches, per-node
-                                     losses (calibration and every
+                                     logits, ring KV caches or SSM
+                                     state, per-node losses
+                                     (calibration and every
                                      stop-the-world admission).
   * ``decode_step(...)``           — one full-depth token on the ring
-                                     caches.
+                                     caches / SSM state.
   * ``decode_segment(...)``        — one segment for one token against
                                      the ring caches or the paged pool
                                      (the serving engine's unit of
                                      work).
   * ``prefill_chunk_segment(...)`` — one segment for one prefill chunk.
-  * ``cache_specs(...)``           — the ring caches' (shape, dtype)
-                                     spec tree.
+  * ``cache_specs(...)``           — the decode caches' (shape,
+                                     dtype) spec tree.
   * ``paged_cache_specs(...)``     — the paged pool's (shape, dtype)
-                                     spec tree.
+                                     spec tree, SSM state per lane.
 
 Layers are stacked per segment as in the JAX package; a Python loop
 over the stack takes the place of its ``lax.scan``, so decode always
@@ -110,13 +111,15 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int, *,
-            use_flash: bool = False):
+            use_flash: bool = False, use_ssd_kernel: bool = False):
     """Serving prefill over whole prompts: returns (last_logits (B,V),
     caches, node_losses (B, n_nodes), next_pos (B,)).  ``caches`` holds
-    per segment the ring caches `cache_specs` describes, stacked over
-    the segment's layers; n_nodes = ramps + final (the final head is the
-    last node).  ``use_flash`` runs every layer's attention through the
-    flash-attention kernel."""
+    per segment the decode caches `cache_specs` describes (ring KV
+    caches, SSM state), stacked over the segment's layers; n_nodes =
+    ramps + final (the final head is the last node).  ``use_flash`` runs
+    every layer's attention through the flash-attention kernel,
+    ``use_ssd_kernel`` every SSM layer's chunks through the ssd-chunk
+    kernel."""
     x, positions = _embed_inputs(params, cfg, batch)
     node_losses, caches = [], []
     for si, seg in enumerate(cfg.segments):
@@ -125,7 +128,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int, *,
         for li in range(seg.n_layers):
             x, entry = blocks.block_forward(layer(p_seg, li), x, positions,
                                             seg.block, cfg.norm_eps,
-                                            use_flash)
+                                            use_flash, use_ssd_kernel)
             rings.append(blocks.build_ring_cache(entry, positions,
                                                  cache_len))
         caches.append(_stack_layers(rings))
@@ -141,11 +144,13 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int, *,
 def decode_segment(params, cfg: ModelConfig, si: int, x: torch.Tensor,
                    cache_seg, pos: torch.Tensor, paged=None,
                    write_mask=None):
-    """Run segment ``si`` for one token against its ring caches or, with
-    ``paged``, the paged pool (written in place).  x (B,1,D) -> (x',
-    cache_seg, readout) where readout is None for ramp-less segments and
-    otherwise the `ramp_readout` pair (logits (B,V), loss proxy
-    (B,))."""
+    """Run segment ``si`` for one token against its decode caches (ring
+    KV or, with ``paged``, the paged pool; SSM state per lane), written
+    in place.  ``write_mask`` (B,) keeps the masked-out lanes' SSM state
+    and, on the paged pool, sends their K/V to the garbage page.  x
+    (B,1,D) -> (x', cache_seg, readout) where readout is None for
+    ramp-less segments and otherwise the `ramp_readout` pair (logits
+    (B,V), loss proxy (B,))."""
     seg = cfg.segments[si]
     p_seg = params["segments"][si]["blocks"]
     for li in range(seg.n_layers):
@@ -196,19 +201,32 @@ def _stack_specs(spec, n: int):
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> list:
-    """(shape, dtype) spec tree of the ring caches, per segment and
-    stacked over its layers: ``k, v (L, B, cache_len, Hkv, hd)``,
-    ``pos (L, B, cache_len)``."""
+    """(shape, dtype) spec tree of the decode caches, per segment and
+    stacked over its layers: ring ``k, v (L, B, cache_len, Hkv, hd)``,
+    ``pos (L, B, cache_len)`` for attention; ``conv (L, B, d_conv-1,
+    conv_dim)``, ``ssm (L, B, H, P, N)`` for SSM blocks."""
     return [_stack_specs(blocks.cache_defs(seg.block, cfg.d_model, batch,
                                            cache_len), seg.n_layers)
             for seg in cfg.segments]
 
 
-def paged_cache_specs(cfg: ModelConfig, n_pages: int,
+def paged_cache_specs(cfg: ModelConfig, n_lanes: int, n_pages: int,
                       page_size: int) -> list:
-    """(shape, dtype) spec tree of the paged pool, per segment and
-    stacked over its layers: ``k, v (L, P, page_size, Hkv, hd)``,
-    ``pos (L, P, page_size)``."""
-    return [_stack_specs(blocks.cache_defs(seg.block, cfg.d_model, n_pages,
-                                           page_size), seg.n_layers)
-            for seg in cfg.segments]
+    """(shape, dtype) spec tree of the paged decode cache, per segment
+    and stacked over its layers: attention leaves swap the lane axis for
+    the global page pool, ``k, v (L, P, page_size, Hkv, hd)``, ``pos (L,
+    P, page_size)``, while SSM state (no sequence axis to page) stays
+    lane-indexed, ``(L, n_lanes, ...)``.  Leaf names match
+    `cache_specs`."""
+    out = []
+    for seg in cfg.segments:
+        pooled = blocks.cache_defs(seg.block, cfg.d_model, n_pages,
+                                   page_size)
+        laned = blocks.cache_defs(seg.block, cfg.d_model, n_lanes, 1)
+        entry = {}
+        if "attn" in pooled:
+            entry["attn"] = pooled["attn"]
+        if "ssm" in laned:
+            entry["ssm"] = laned["ssm"]
+        out.append(_stack_specs(entry, seg.n_layers))
+    return out

@@ -17,8 +17,10 @@ Exited and unoccupied lanes never change their own cache: on the paged
 pool they write their K/V to the garbage page (the decode path
 redirects them); on the ring caches every lane writes its slot in
 place and `_mask_lane_writes` puts back the slots of the lanes that
-were not active.  So each lane's stream depends on its own request
-alone.
+were not active; an SSM layer writes ``torch.where(active, new, old)``
+into its lane-indexed conv/SSM state in both modes (the step passes the
+active mask down as ``write_mask``).  So each lane's stream depends on
+its own request alone.
 
 `Engine` serves one fixed batch (prefill, then greedy decode on the
 ring caches); `Classifier` serves the paper's classification setting
@@ -62,7 +64,9 @@ class GenerationStats:
 def _ring_slots(cache_seg: dict, pos: torch.Tensor) -> dict:
     """Copies of what every layer's ring cache holds at each lane's
     write slot ``pos % C``: the bits a decode of this segment is about
-    to overwrite."""
+    to overwrite (none for a segment without attention)."""
+    if "attn" not in cache_seg:
+        return {}
     attn = cache_seg["attn"]
     slot = (pos % attn["k"].shape[2]).long()
     bidx = torch.arange(pos.shape[0], device=pos.device)
@@ -74,7 +78,10 @@ def _mask_lane_writes(cache_seg: dict, saved: dict, pos: torch.Tensor,
     """Keep inactive lanes' ring-cache bits: put back, in place, the
     slots `_ring_slots` saved for the lanes that are not ``active``.
     (On the paged pool the decode already redirected masked lanes'
-    writes to the garbage page, so there is nothing to do there.)"""
+    writes to the garbage page, and SSM state is masked by the decode's
+    ``write_mask`` in both modes, so there is nothing to do for them.)"""
+    if not saved:
+        return
     keep = ~active
     if not bool(keep.any()):
         return
@@ -192,7 +199,8 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
                     else:
                         saved = _ring_slots(caches[si], pos)
                         x, _, ro = M.decode_segment(params, cfg, si, x,
-                                                    caches[si], pos)
+                                                    caches[si], pos,
+                                                    write_mask=active)
                         _mask_lane_writes(caches[si], saved, pos, active)
                     if ro is not None:
                         states, active, best = fold_readout(
@@ -228,21 +236,24 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
 
 class Engine:
     """Batched greedy-decode engine with per-token early exit, on the
-    ring caches.  ``use_flash`` runs the prefill's attention through the
-    flash-attention kernel."""
+    ring caches (SSM state for SSM layers).  ``use_flash`` runs the
+    prefill's attention through the flash-attention kernel,
+    ``use_ssd_kernel`` its SSD chunks through the ssd-chunk kernel."""
 
     def __init__(self, params, cfg: ModelConfig, strategy, cache_len: int,
-                 use_flash: bool = False):
+                 use_flash: bool = False, use_ssd_kernel: bool = False):
         self.params = params
         self.cfg = cfg
         self.strategy = _check_online(strategy)
         self.cache_len = cache_len
         self.use_flash = bool(use_flash)
+        self.use_ssd_kernel = bool(use_ssd_kernel)
         self._step = make_token_step(params, cfg, (self.strategy,))
 
     def prefill(self, batch: dict):
         return M.prefill(self.params, self.cfg, batch, self.cache_len,
-                         use_flash=self.use_flash)
+                         use_flash=self.use_flash,
+                         use_ssd_kernel=self.use_ssd_kernel)
 
     def generate(self, batch: dict, n_tokens: int) -> GenerationStats:
         cfg = self.cfg

@@ -12,17 +12,19 @@ Three layers:
     head-of-line, instead of being dropped).
 
   * `EngineStepper` — the device state of the REAL model: the ring
-    caches or the paged KV pool, current tokens, positions and the
-    carried strategy-bank states.  Stop-the-world admission prefills
-    the whole prompt at batch 1 and scatters it into the lane's ring
-    slot or its pages; chunked admission (paged only) allocates the
-    prompt's pages and registers a prefill cursor.  Each `step` first
-    executes the pool's host-planned page ops (fresh-page position
-    resets, copy-on-write splits), then runs decode for the decoding
-    lanes AND, when chunked, a planner-budgeted prefill chunk for the
-    admitting lanes through the shared `serving.engine.make_token_step`.
-    Caches are updated in place (``index_put_`` / indexed assignment),
-    where the JAX package builds new ones each step.
+    caches or the paged KV pool (SSM state per lane in either mode),
+    current tokens, positions and the carried strategy-bank states.
+    Stop-the-world admission prefills the whole prompt at batch 1 and
+    scatters it into the lane's ring slot or its pages, and its SSM
+    state into the lane's row; chunked admission (paged, attention
+    only) allocates the prompt's pages and registers a prefill cursor.
+    Each `step` first executes the pool's host-planned page ops
+    (fresh-page position resets, copy-on-write splits), then runs
+    decode for the decoding lanes AND, when chunked, a
+    planner-budgeted prefill chunk for the admitting lanes through the
+    shared `serving.engine.make_token_step`.  Caches are updated in
+    place (``index_put_`` / indexed assignment), where the JAX package
+    builds new ones each step.
 
   * `ChunkPlanner` — the per-step token budget for those chunks, split
     fairly across prompt-length buckets.
@@ -201,7 +203,7 @@ class EngineStepper:
                  paged_kernel: bool = False,
                  prefill_chunk: int | None = None,
                  prefill_budget: int | None = None,
-                 use_flash: bool = False):
+                 use_flash: bool = False, use_ssd_kernel: bool = False):
         if kv not in ("ring", "paged"):
             raise ValueError(f"unknown kv mode {kv!r} (ring|paged)")
         prefill_chunk = prefill_chunk or None      # 0 == disabled
@@ -214,7 +216,9 @@ class EngineStepper:
                         or seg.block.attn.mla is not None:
                     raise ValueError(
                         "chunked prefill supports GQA attention segments "
-                        f"only, not mixer {seg.block.mixer!r}")
+                        "only (SSM state is sequential over the prompt) "
+                        f"— drop --prefill-chunk for mixer "
+                        f"{seg.block.mixer!r}")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"]["table"].device
@@ -225,6 +229,7 @@ class EngineStepper:
         self.full_depth = len(cfg.segments)
         self.kv = kv
         self.use_flash = bool(use_flash)
+        self.use_ssd_kernel = bool(use_ssd_kernel)
         self.prefill_chunk = None if prefill_chunk is None \
             else int(prefill_chunk)
         self.planner = None if prefill_chunk is None else ChunkPlanner(
@@ -253,7 +258,8 @@ class EngineStepper:
         layer.  ``pages`` is garbage-padded (the sink's positions are -1
         by construction, so resetting it again changes nothing)."""
         for seg_c in self.caches:
-            seg_c["attn"]["pos"][:, pages.long()] = -1
+            if "attn" in seg_c:
+                seg_c["attn"]["pos"][:, pages.long()] = -1
 
     def _paged_prep(self, fresh, cow_src, cow_dst) -> None:
         """Pre-step page ops: COW page copies (src -> dst in every layer;
@@ -262,6 +268,8 @@ class EngineStepper:
         (0 -> 0), which copy the sink onto itself."""
         src, dst = cow_src.long(), cow_dst.long()
         for seg_c in self.caches:
+            if "attn" not in seg_c:
+                continue
             attn = seg_c["attn"]
             for leaf in attn.values():
                 leaf[:, dst] = leaf[:, src]
@@ -273,7 +281,8 @@ class EngineStepper:
         """(Re)build empty lane state: empty caches, fresh bank states."""
         if self.pool is not None:
             self.pool.reset()
-            specs = M.paged_cache_specs(self.cfg, self.pool.n_pages,
+            specs = M.paged_cache_specs(self.cfg, self.n_lanes,
+                                        self.pool.n_pages,
                                         self.pool.page_size)
         else:
             specs = M.cache_specs(self.cfg, self.n_lanes, self.cache_len)
@@ -310,27 +319,41 @@ class EngineStepper:
         prompt = self._dev(np.asarray(req.prompt, np.int32)[None, :])
         logits, pc, _, npos = M.prefill(self.params, self.cfg,
                                         {"tokens": prompt}, cache_len,
-                                        use_flash=self.use_flash)
+                                        use_flash=self.use_flash,
+                                        use_ssd_kernel=self.use_ssd_kernel)
         return pc, torch.argmax(logits, dim=-1).to(torch.int32), \
             npos.to(torch.int32)
 
-    def _scatter_ring(self, lane: int, pc) -> None:
-        """Copy a batch-1 prefill's ring caches into the lane's slot."""
-        for seg_c, one in zip(self.caches, pc):
-            for name, leaf in seg_c["attn"].items():
-                leaf[:, lane] = one["attn"][name][:, 0]
+    @staticmethod
+    def _scatter_lane(dst: dict, src: dict, lane: int) -> None:
+        """Copy the leaves of a batch-1 cache tree into row ``lane`` of
+        the lane-indexed tree ``dst`` (leaves ``(L, lanes, ...)``)."""
+        for name, leaf in dst.items():
+            leaf[:, lane] = src[name][:, 0].to(leaf.dtype)
 
-    def _scatter_pages(self, plan, pc) -> None:
+    def _scatter_ring(self, lane: int, pc) -> None:
+        """Copy a batch-1 prefill's ring caches and SSM state into the
+        lane's slot."""
+        for seg_c, one in zip(self.caches, pc):
+            for key, tree in seg_c.items():
+                self._scatter_lane(tree, one[key], lane)
+
+    def _scatter_pages(self, lane: int, plan, pc) -> None:
         """Scatter a batch-1 prefill (ring length == prompt length, so
         slot t holds position t) into the admitted lane's pages: gate
         the stale bytes of the freshly allocated pages, then write each
         token to its (page, slot) target; prefix-shared tokens go to the
-        garbage page at position -1."""
+        garbage page at position -1.  SSM state goes to the lane's
+        row."""
         dp = self._dev(plan.dest_page, torch.long)
         ds = self._dev(plan.dest_slot, torch.long)
         fresh = self._dev(plan.new_pages, torch.long)
         pos_vals = self._dev(plan.pos_vals)
         for seg_c, one in zip(self.caches, pc):
+            if "ssm" in seg_c:
+                self._scatter_lane(seg_c["ssm"], one["ssm"], lane)
+            if "attn" not in seg_c:
+                continue
             attn = seg_c["attn"]
             attn["pos"][:, fresh] = -1
             for name, leaf in attn.items():
@@ -359,7 +382,7 @@ class EngineStepper:
             else:
                 plan = self.pool.admit(lane, req.prompt, req.max_tokens)
                 pc, t0, npos = self._prefill_one(req, self.prompt_len)
-                self._scatter_pages(plan, pc)
+                self._scatter_pages(lane, plan, pc)
             self.tok[lane] = t0[0]
             self.pos[lane] = npos[0]
             self.states = tuple(init_lane(s, st, lane) for s, st

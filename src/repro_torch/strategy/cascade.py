@@ -60,13 +60,14 @@ class Cascade:
 
     @classmethod
     def calibrate(cls, params, cfg, tokens, lam: float, *, k: int = 24,
-                  use_flash: bool = False,
+                  use_flash: bool = False, use_ssd_kernel: bool = False,
                   use_kernel: bool = False) -> "Cascade":
         """Fit a cascade from a model's own ramp losses on the (T, seq)
         calibration prompts ``tokens`` (the serving launcher's
         calibration step); every node costs ``(1 - lam) / n``.
         ``use_flash`` runs the calibration prefill's attention through
-        the flash-attention kernel, ``use_kernel`` the line solve's
+        the flash-attention kernel, ``use_ssd_kernel`` its SSD chunks
+        through the ssd-chunk kernel, ``use_kernel`` the line solve's
         backups through the Bellman-backup kernel."""
         from repro_torch.models import model as M   # keep core import light
         device = params["embed"]["table"].device
@@ -74,7 +75,7 @@ class Cascade:
         with torch.no_grad():
             _, _, node_losses, _ = M.prefill(
                 params, cfg, {"tokens": tokens}, tokens.shape[1] + 8,
-                use_flash=use_flash)
+                use_flash=use_flash, use_ssd_kernel=use_ssd_kernel)
         raw = node_losses.cpu().numpy()
         n = raw.shape[1]
         costs = (1.0 - lam) * np.full((n,), 1.0 / n)

@@ -1,5 +1,7 @@
 """The port's kernels (repro_torch.kernels: paged decode, chunked
-prefill, flash attention, Bellman backup) against the JAX package:
+prefill, flash attention, Bellman backup; the ssd-chunk kernel's plain
+version is held against the JAX package in test_torch_ssm) against the
+JAX package:
 their plain PyTorch versions — what a CPU tensor runs — are held against
 `repro.kernels.ref` and against the Pallas kernels run in interpret
 mode, on the same numpy inputs.
@@ -9,10 +11,11 @@ in different orders).  The bf16 pools are built from the same f32 numpy
 arrays in both frameworks and must be bit-equal.
 
 The CUDA kernels themselves run only on the card: `test_cuda_kernels_
-match_plain` and `test_cuda_flash_and_bellman_match_plain` hold each
-against its plain version there (atol = rtol = 1e-4 for attention, whose
-f32 sums run in another order; 1e-5 for the backup) and skip on a
-machine without one.  The JAX package is imported by the fixture of the
+match_plain`, `test_cuda_flash_and_bellman_match_plain` and
+`test_cuda_ssd_chunk_matches_plain` hold each against its plain version
+there (atol = rtol = 1e-4 for attention, whose f32 sums run in another
+order; 1e-5 for the backup; 2e-4 for the SSD chunk, as the JAX
+package's own kernel test) and skip on a machine without one.  The JAX package is imported by the fixture of the
 tests that need it, so that test also runs where JAX is not installed
 (``pytest -m cuda tests/test_torch_kernels.py``).
 """
@@ -26,7 +29,8 @@ import torch
 from repro_torch.kernels import (bellman_backup, bellman_backup_plain,
                                  flash_attention, flash_attention_plain,
                                  paged_attention, paged_attention_plain,
-                                 paged_prefill, paged_prefill_plain)
+                                 paged_prefill, paged_prefill_plain,
+                                 ssd_chunk, ssd_chunk_plain)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -412,3 +416,44 @@ def test_cuda_flash_and_bellman_match_plain():
         assert bellman_backup.launches == n + 1
         torch.testing.assert_close(got, bellman_backup_plain(*bargs),
                                    atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# SSD chunk (Mamba2 prefill)
+# --------------------------------------------------------------------------
+
+def _ssd_inputs(b, c, q, h, p, n, seed, dev):
+    """Inputs drawn as the model makes them: dt = softplus(.), da = -e *
+    dt (a_log = 1), so exp(seg_i - seg_j) overflows above the diagonal;
+    B and C broadcast over the heads with stride 0 (one group)."""
+    rng = np.random.default_rng(seed)
+    dt = np.logaddexp(rng.normal(size=(b, c, q, h)), 0.0)
+    arrs = dict(xh=rng.normal(size=(b, c, q, h, p)), dt=dt, da=-np.e * dt,
+                bb=rng.normal(size=(b, c, q, 1, n)),
+                cc=rng.normal(size=(b, c, q, 1, n)))
+    t = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+         for k, v in arrs.items()}
+    shape = (b, c, q, h, n)
+    return (t["xh"], t["dt"], t["da"], t["bb"].expand(shape),
+            t["cc"].expand(shape))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_matches_plain():
+    """The SSD-chunk kernel against its plain version on the card, at a
+    small shape (Q 32, N 16, P 32, two chunks) and at a ring admission's
+    (one 256-row chunk, 24 heads, P 64, N 128), atol = rtol = 2e-4;
+    every output finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for shape in ((2, 2, 32, 3, 32, 16), (1, 1, 256, 24, 64, 128)):
+        args = _ssd_inputs(*shape, seed=shape[2], dev=dev)
+        n = ssd_chunk.launches
+        got = ssd_chunk(*args)
+        torch.cuda.synchronize()
+        assert ssd_chunk.launches == n + 1
+        want = ssd_chunk_plain(*args)
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-4)

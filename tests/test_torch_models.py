@@ -99,7 +99,7 @@ def _paged_setup(cfg):
         return (torch.full(shape, -1, dtype=dtype) if key == "pos"
                 else torch.zeros(shape, dtype=dtype))
 
-    tcaches = [tmat(s) for s in TM.paged_cache_specs(cfg, n_pages, PS)]
+    tcaches = [tmat(s) for s in TM.paged_cache_specs(cfg, B, n_pages, PS)]
     return table, jcaches, tcaches
 
 
@@ -196,15 +196,26 @@ def test_prefill_chunks_then_decode_match(setup, kernel):
                 np.asarray(jcaches[si]["attn"]["pos"]))
 
 
-def test_paged_cache_specs_match(setup):
-    cfg, _, _ = setup
-    jspecs = M.paged_cache_specs(cfg, 2, 9, PS)
-    tspecs = TM.paged_cache_specs(cfg, 9, PS)
-    for js, ts in zip(jspecs, tspecs):
-        for name in ("k", "v", "pos"):
-            assert ts["attn"][name][0] == js["attn"][name][0]
-            assert str(ts["attn"][name][1]).split(".")[-1] == \
-                jnp.dtype(js["attn"][name][1]).name
+def test_paged_cache_specs_match():
+    """The paged spec tree, (cfg, n_lanes, n_pages, page_size) as in the
+    reference: attention leaves page-pooled, SSM state lane-indexed."""
+    for arch in ("paper-ee-100m", "mamba2-130m"):
+        cfg = get_config(arch, smoke=True)
+        jspecs = M.paged_cache_specs(cfg, 2, 9, PS)
+        tspecs = TM.paged_cache_specs(cfg, 2, 9, PS)
+        assert len(tspecs) == len(jspecs) == len(cfg.segments)
+        for js, ts in zip(jspecs, tspecs):
+            assert set(ts) == set(js)
+            for key in ts:
+                assert set(ts[key]) == set(js[key])
+                for name in ts[key]:
+                    assert ts[key][name][0] == js[key][name][0]
+                    assert str(ts[key][name][1]).split(".")[-1] == \
+                        jnp.dtype(js[key][name][1]).name
+        if arch == "paper-ee-100m":
+            assert tspecs[0]["attn"]["k"][0][1] == 9      # the page pool
+        else:
+            assert tspecs[0]["ssm"]["ssm"][0][1] == 2     # one per lane
 
 
 # --------------------------------------------------------------------------

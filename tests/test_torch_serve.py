@@ -9,19 +9,23 @@ against the JAX package's, end to end on the smoke config.
     segment counters.
   * The same for stop-the-world admission, on the ring caches (with and
     without the flash route, whose plain version runs on the CPU) and
-    on the paged pool (pool stats equal too).
+    on the paged pool (pool stats equal too), for the attention smoke
+    model and for the SSM one (mamba2-130m; ring, ring through the
+    ssd-chunk route, paged).
   * The same seed gives the same workload in both packages.
   * The port's serve report renders the reference's lines from the same
     stats.
   * The launcher runs end to end on the CPU when asked to — the
     one-shot batch path by default, ``--server`` on ring caches by
-    default, ``--flash --dp-kernel`` on both — and refuses to run
-    without CUDA otherwise.
+    default, ``--flash --dp-kernel`` on both, ``--arch mamba2-130m
+    --ssd-kernel --dp-kernel`` on both — and refuses to run without
+    CUDA otherwise.
   * Nothing under src/repro_torch/, nor chip_smoke.py, imports jax or
     the JAX package.
 """
 
 import ast
+import json
 from pathlib import Path
 
 import jax
@@ -51,10 +55,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PROMPT_LEN = 12
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _setup(arch):
     torch.set_num_threads(2)
-    cfg = get_config("paper-ee-100m", smoke=True)
+    cfg = get_config(arch, smoke=True)
     params = materialize(M.model_defs(cfg), jax.random.PRNGKey(0))
     casc = jstrategy.Cascade.calibrate(params, cfg, jax.random.PRNGKey(1),
                                        lam=0.5, k=8, t=64, seq=16)
@@ -66,6 +69,16 @@ def setup():
         line_tables=line_tables_from_numpy(
             jax.tree.map(np.asarray, casc.solve_line())))
     return cfg, params, casc, tparams, tcasc
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("paper-ee-100m")
+
+
+@pytest.fixture(scope="module")
+def ssm_setup():
+    return _setup("mamba2-130m")
 
 
 def _requests(cls, cfg, n=6, seed=7):
@@ -143,14 +156,14 @@ def test_port_serves_what_the_reference_serves(setup, reference_run,
 
 
 @pytest.fixture(scope="module")
-def stw_reference(setup):
-    """The JAX package's stop-the-world serves, one per KV mode (built
-    on first use)."""
-    cfg, params, casc, _, _ = setup
+def stw_reference():
+    """The JAX package's stop-the-world serves, one per (model, KV mode)
+    (built on first use)."""
     runs = {}
 
-    def get(kv):
-        if kv not in runs:
+    def get(setup, kv):
+        cfg, params, casc, _, _ = setup
+        if (cfg.name, kv) not in runs:
             requests = _requests(JRequest, cfg)
             bank, sid_of = jrt.build_bank(
                 requests, jrt.cascade_factory(casc), ("recall_index", None))
@@ -158,27 +171,36 @@ def stw_reference(setup):
                                         cache_len=32, prompt_len=PROMPT_LEN,
                                         kv=kv, page_size=8)
             metrics, nodes = _serve_logged(jrt, stepper, sid_of, requests)
-            runs[kv] = (requests, metrics, nodes,
-                        None if stepper.pool is None
-                        else stepper.pool.stats())
-        return runs[kv]
+            runs[cfg.name, kv] = (requests, metrics, nodes,
+                                  None if stepper.pool is None
+                                  else stepper.pool.stats())
+        return runs[cfg.name, kv]
 
     return get
 
 
-@pytest.mark.parametrize("kv,flash", [("ring", False), ("ring", True),
-                                      ("paged", False)],
-                         ids=["ring", "ring-flash", "paged"])
+@pytest.mark.parametrize(
+    "model,kv,kernel",
+    [("attn", "ring", False), ("attn", "ring", True),
+     ("attn", "paged", False), ("ssm", "ring", False),
+     ("ssm", "ring", True), ("ssm", "paged", False)],
+    ids=["ring", "ring-flash", "paged", "ssm-ring", "ssm-ring-ssd",
+         "ssm-paged"])
 def test_stop_the_world_serves_what_the_reference_serves(
-        setup, stw_reference, kv, flash):
+        request, stw_reference, model, kv, kernel):
+    """``kernel``: the flash route (attention) or the ssd-chunk route
+    (SSM), whose plain versions run on the CPU."""
+    setup = request.getfixturevalue("setup" if model == "attn"
+                                    else "ssm_setup")
     cfg, _, _, tparams, tcasc = setup
-    jreqs, jm, jnodes, jpool = stw_reference(kv)
+    jreqs, jm, jnodes, jpool = stw_reference(setup, kv)
     requests = _requests(TRequest, cfg)
     bank, sid_of = trt.build_bank(requests, trt.cascade_factory(tcasc),
                                   ("recall_index", None))
     stepper = trt.EngineStepper(tparams, cfg, bank, n_lanes=2, cache_len=32,
                                 prompt_len=PROMPT_LEN, kv=kv, page_size=8,
-                                use_flash=flash)
+                                use_flash=kernel and model == "attn",
+                                use_ssd_kernel=kernel and model == "ssm")
     with torch.no_grad():
         tm, tnodes = _serve_logged(trt, stepper, sid_of, requests)
     for req in jreqs:
@@ -288,6 +310,40 @@ def test_launcher_serves_ring_by_default_on_cpu(capsys):
     assert f"completed {len(run.requests)}/{len(run.requests)}" in out
 
 
+@pytest.mark.parametrize("server", [False, True], ids=["one_shot", "server"])
+def test_launcher_serves_mamba_on_cpu(capsys, tmp_path, server):
+    """--arch mamba2-130m --ssd-kernel --dp-kernel: calibration, then the
+    one-shot batch or the ring server, the kernels' plain versions on
+    the CPU (no launch is counted)."""
+    torch.set_num_threads(2)
+    from repro_torch.kernels import bellman_backup, ssd_chunk
+    before = (ssd_chunk.launches, bellman_backup.launches)
+    argv = ["--arch", "mamba2-130m", "--smoke", "--device", "cpu",
+            "--ssd-kernel", "--dp-kernel", "--tokens", "4",
+            "--prompt-len", "10"]
+    if server:
+        argv += ["--server", "--lanes", "2", "--rate", "6", "--duration",
+                 "0.5", "--json", str(tmp_path / "metrics.json")]
+    else:
+        argv += ["--batch", "3", "--cache-len", "16"]
+    run = tserve.main(argv)
+    out = capsys.readouterr().out
+    assert "calibrated T-Tamer tables: n=2 K=24" in out
+    if server:
+        assert run is not None and run.requests
+        assert run.stepper.kv == "ring" and run.stepper.use_ssd_kernel
+        for req in run.requests:
+            assert run.metrics.records[req.rid].n_tokens == req.max_tokens
+        assert "ssd kernel on" in out
+        assert f"completed {len(run.requests)}/{len(run.requests)}" in out
+        extra = json.loads((tmp_path / "metrics.json").read_text())
+        assert extra["ssd_kernel"] is True
+    else:
+        assert run.stats.tokens.shape == (3, 4)
+        assert out.splitlines()[-3].startswith("generated 3x4 tokens in ")
+    assert (ssd_chunk.launches, bellman_backup.launches) == before
+
+
 def test_launcher_refuses_to_run_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA is not available"):
@@ -303,8 +359,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 20 and files[-1].exists()
     names = {str(f.relative_to(ROOT)) for f in files}
-    for mod in ("flash_attention", "bellman_backup"):     # the new kernels
-        assert f"src/repro_torch/kernels/{mod}.py" in names
+    for mod in ("kernels/flash_attention", "kernels/bellman_backup",
+                "kernels/ssd_chunk", "models/ssm", "configs/mamba2_130m"):
+        assert f"src/repro_torch/{mod}.py" in names
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
