@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      CUDA versions, and builds every CUDA kernel of the serve paths from
      the sources in the checkout (one nvcc per source, in parallel):
      paged_attention, paged_prefill, flash_attention, bellman_backup,
-     ssd_chunk;
+     ssd_chunk, ramp_exit;
   2. holds each kernel against its plain PyTorch version on the card:
      the paged pair at the chunked serve's shapes (8 lanes, 12 heads,
      head_dim 64, 16-token pages, 8 pages a lane, 16-token chunks),
@@ -25,7 +25,17 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      with dt and da drawn as the model makes them (softplus, a = -e, so
      exp overflows above the diagonal) and B/C broadcast over the heads
      with stride 0, and a small (2, 3, 32, 4, 32, 16) case with per-head
-     B/C, atol = rtol = 2e-4, every output finite;
+     B/C, atol = rtol = 2e-4, every output finite; ramp_exit at the
+     readout's (8, 50 257, K 24) with x_idx spread over 0..K+1, a
+     ragged (3, 50 257), mamba2's V of 50 280, the JAX test's (4, 1000,
+     16), (8, 4096, 32) and (3, 2048, 64), (512, 50 257, 24), a row
+     view of a wider tensor (its row stride), and one row with a
+     dominant logit (conf -> 1) beside one of equal logits (conf =
+     1/V): loss within atol = rtol = 1e-5 of the plain version, and
+     bin, new_x and stop EQUAL to the plain decision recomputed from
+     the kernel's own loss (a loss a few ulp from a support edge may
+     land in the neighbouring bin of the plain loss: such flips, and the
+     lanes within 2 ulp of an edge, are counted and printed);
   3. checks the full-width model on small inputs: a prefill chunk and a
      decode token through the paged kernels, through the page gather on
      the card and through the page gather on the CPU agree within
@@ -41,30 +51,43 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      ssd_chunk kernel, through the einsum path on the card and on the
      CPU: logits, node losses and SSM state within 1e-3, the bf16 conv
      state within one bf16 ulp beyond the 1e-3 of the rows it rounds;
-     then one decode token from each path's state within 1e-3;
+     then one decode token from each path's state within 1e-3; the
+     exit decision on the model (ramp_exit's path): from the same
+     calibration cascade, the readout logits of full-width
+     paper-ee-100m at each of its 6 nodes for 8 numpy-seeded lanes go
+     through ramp_exit with ``tables.stop[node + 1]`` and through the
+     port's RecallIndexStrategy.observe (plain, on the card): lam * ell
+     within 1e-5 of the kernel's loss, and the strategy fed the
+     kernel's loss (lam 1) keeps the kernel's bin, x index and stop
+     exactly;
   4. times each kernel and its plain version with CUDA events — device
      time from CUDA graph replay, and the time of an eager call, host
      included — on the chunked serve's shapes (paged pair), the
      calibration prefill's shape (flash_attention, beside one call of
      ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick the
      port never calls; ssd_chunk, which no PyTorch call computes), and
-     K = 24 (bellman_backup), computes each kernel's bound from its
-     inputs, and times both calibration prefills (paper-ee-100m with
+     K = 24 (bellman_backup), the readout's (8, 50 257, K 24)
+     (ramp_exit, which no PyTorch call computes), computes each
+     kernel's bound from its inputs, and times both calibration prefills (paper-ee-100m with
      and without --flash, mamba2-130m with and without --ssd-kernel);
   5. serves at full width through ``repro_torch.launch.serve.main``
-     six times — paper-ee-100m chunked paged under recall_index and
+     twelve times — paper-ee-100m chunked paged under recall_index and
      under always_last (the paged pair's path), the ring server with
      --flash --dp-kernel under recall_index (flash and Bellman's path),
      the one-shot batch with --flash --dp-kernel; mamba2-130m's ring
      server with --ssd-kernel --dp-kernel under recall_index (ssd_chunk's
-     path) and its one-shot batch with --ssd-kernel — with every
+     path) and its one-shot batch with --ssd-kernel; then paper-ee-100m
+     chunked paged for 1 s under each other online policy of the
+     registry: tree_index, skip_recall, norecall_threshold,
+     recall_threshold, norecall_patience and always_first — with every
      kernel's launch counter set to 0 just before each serve and read
      just after; every request must complete with its full token count,
      each path's kernels must launch, and the kernels of other paths
-     must not;
+     (ramp_exit in every serve: no serve calls it) must not;
   6. prints a ``kernels`` JSON line (``launches`` is each kernel's
-     count on its own main path; ``launches_by_path`` holds every
-     serve's), the card line, and last ``{"ok": true, "device": {...}}``.
+     count on its own main path — for ramp_exit the decision check;
+     ``launches_by_path`` holds every path's), the card line, and last
+     ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, when CUDA is not available, when
 the repository's sources are not beside it, or when any check fails.
@@ -96,12 +119,14 @@ from repro_torch.kernels import (bellman_backup,              # noqa: E402
                                  flash_attention, flash_attention_plain,
                                  paged_attention, paged_attention_plain,
                                  paged_prefill, paged_prefill_plain,
-                                 ssd_chunk, ssd_chunk_plain)
+                                 ramp_exit, ramp_exit_plain, ssd_chunk,
+                                 ssd_chunk_plain)
 from repro_torch.launch import serve                          # noqa: E402
 from repro_torch.models import attention as A                 # noqa: E402
+from repro_torch.models import blocks                         # noqa: E402
 from repro_torch.models import model as M                     # noqa: E402
 from repro_torch.models.param import materialize, tree_map    # noqa: E402
-from repro_torch.strategy import Cascade                      # noqa: E402
+from repro_torch.strategy import Cascade, RecallIndexStrategy  # noqa: E402
 
 DEV = torch.device("cuda")
 TOL_KERNEL = 1e-4
@@ -109,6 +134,7 @@ TOL_DP = 1e-5
 TOL_MODEL = 1e-3
 TOL_BF16 = 1e-2
 TOL_SSD = 2e-4
+TOL_EXIT = 1e-5              # the JAX package's own ramp_exit tolerance
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_S = 67e12           # H100 SXM f32 outside the tensor cores
 # the serve path's shapes (full-width paper-ee-100m)
@@ -125,33 +151,41 @@ ONE_SHOT = ["--batch", "8", "--tokens", "16", "--prompt-len", "32",
 PAGED, NEW = ("paged_attention", "paged_prefill"), ("flash_attention",
                                                      "bellman_backup")
 ATTN = PAGED + ("flash_attention",)
+EXIT = ("ramp_exit",)          # no serve calls it: its path is the check
+# the other online policies of the registry, each served chunked paged
+POLICIES = ("tree_index", "skip_recall", "norecall_threshold",
+            "recall_threshold", "norecall_patience", "always_first")
 SERVES = [
     ("chunked_recall_index", SERVE_ARGS + ["--policy", "recall_index"],
-     PAGED, ("ssd_chunk",)),
+     PAGED, ("ssd_chunk",) + EXIT),
     ("chunked_always_last", SERVE_ARGS + ["--policy", "always_last"],
-     PAGED, ("ssd_chunk",)),
+     PAGED, ("ssd_chunk",) + EXIT),
     ("ring_recall_index", TRAFFIC + ["--server", "--kv", "ring", "--flash",
                                      "--dp-kernel", "--policy",
                                      "recall_index"], NEW,
-     PAGED + ("ssd_chunk",)),
+     PAGED + ("ssd_chunk",) + EXIT),
     ("one_shot", ["--arch", "paper-ee-100m", "--flash", "--dp-kernel"]
-     + ONE_SHOT, NEW, PAGED + ("ssd_chunk",)),
+     + ONE_SHOT, NEW, PAGED + ("ssd_chunk",) + EXIT),
     ("mamba_ring_recall_index",
      ["--arch", "mamba2-130m"] + LOAD + ["--server", "--kv", "ring",
                                          "--ssd-kernel", "--dp-kernel",
                                          "--policy", "recall_index"],
-     ("ssd_chunk", "bellman_backup"), ATTN),
+     ("ssd_chunk", "bellman_backup"), ATTN + EXIT),
     ("mamba_one_shot", ["--arch", "mamba2-130m", "--ssd-kernel"] + ONE_SHOT,
-     ("ssd_chunk",), ATTN),
-]
+     ("ssd_chunk",), ATTN + EXIT),
+] + [(f"chunked_{p}", SERVE_ARGS + ["--policy", p, "--duration", "1"],
+      PAGED, NEW + ("ssd_chunk",) + EXIT) for p in POLICIES]
+DECISION = "decision_check"
 MAIN_PATH = {"paged_attention": "chunked_recall_index",
              "paged_prefill": "chunked_recall_index",
              "flash_attention": "ring_recall_index",
              "bellman_backup": "ring_recall_index",
-             "ssd_chunk": "mamba_ring_recall_index"}
+             "ssd_chunk": "mamba_ring_recall_index",
+             "ramp_exit": DECISION}
 KERNELS = {"paged_attention": paged_attention, "paged_prefill": paged_prefill,
            "flash_attention": flash_attention,
-           "bellman_backup": bellman_backup, "ssd_chunk": ssd_chunk}
+           "bellman_backup": bellman_backup, "ssd_chunk": ssd_chunk,
+           "ramp_exit": ramp_exit}
 SOURCES = {
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:87"),
@@ -162,7 +196,9 @@ SOURCES = {
     "bellman_backup": ("src/repro_torch/csrc/bellman_backup.cu",
                        "src/repro/kernels/bellman_backup.py:38"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
-                  "src/repro/kernels/ssd_chunk.py:60")}
+                  "src/repro/kernels/ssd_chunk.py:60"),
+    "ramp_exit": ("src/repro_torch/csrc/ramp_exit.cu",
+                  "src/repro/kernels/ramp_exit.py:70")}
 
 
 def log(msg: str) -> None:
@@ -426,6 +462,61 @@ def ssd_bound(args, kw):
     return nbytes, b * c * h * (pairs * (2 * n + 2 * p) + 2 * q * p * n)
 
 
+# exit decision: (b, v, k, bool table, variant) — the readout's shape
+# first (the timed case)
+EXIT_CASES = [("readout", (8, 50257, 24, True, "spread")),
+              ("ragged-b3", (3, 50257, 24, True, None)),
+              ("mamba2-v", (8, 50280, 24, True, None)),
+              ("jax-4x1000", (4, 1000, 16, False, None)),
+              ("jax-8x4096", (8, 4096, 32, False, None)),
+              ("jax-3x2048", (3, 2048, 64, False, None)),
+              ("b512", (512, 50257, 24, True, None)),
+              ("row-view", (8, 50257, 24, True, "view")),
+              ("extremes", (2, 50257, 24, True, "extremes"))]
+
+
+def exit_case(seed, b, v, k, as_bool, variant):
+    """Logits ~ N(0, 2) as the JAX test draws them, sorted edges in
+    (0, 1), a random stop table (bool as the line DP's, or int32 as the
+    JAX test's), lane state drawn at random; ``spread`` puts x_idx
+    evenly over 0..K+1, ``view`` passes the logits as a row view of a
+    wider tensor, ``extremes`` makes row 0 one dominant logit (conf 1)
+    and row 1 equal logits (conf 1/V)."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0, 2, (b, v)).astype(np.float32)
+    if variant == "extremes":
+        logits[0] = 0.0
+        logits[0, 123] = 60.0
+        logits[1] = 0.5
+    edges = np.sort(rng.uniform(0, 1, k - 1)).astype(np.float32)
+    table = rng.integers(0, 2, (k, k + 2))
+    s_bin = rng.integers(0, k, b).astype(np.int32)
+    x_idx = (np.linspace(0, k + 1, b).round() if variant == "spread"
+             else rng.integers(0, k + 2, b)).astype(np.int32)
+    t = torch.from_numpy(logits).to(DEV)
+    if variant == "view":
+        wide = torch.zeros((b, v + 7), device=DEV)
+        wide[:, 3:3 + v] = t
+        t = wide[:, 3:3 + v]
+    table = table.astype(bool) if as_bool else table.astype(np.int32)
+    return (t, torch.from_numpy(edges).to(DEV),
+            torch.from_numpy(table).to(DEV), torch.from_numpy(s_bin).to(DEV),
+            torch.from_numpy(x_idx).to(DEV)), dict(lam=0.6)
+
+
+def exit_bound(args, kw):
+    """Bytes and operations one exit decision needs: the logits, edges,
+    table and x_idx read once (the function does not need s_bin), loss,
+    bin, new_x and stop written once; 4 operations a logit (max,
+    subtract, exp, add) and one compare an edge and lane."""
+    logits, edges, table, s_bin, x_idx = args
+    b, v = logits.shape
+    nbytes = (b * v * logits.element_size() + 4 * edges.numel()
+              + table.numel() * table.element_size() + 4 * b
+              + (4 + 4 + 4 + 1) * b)
+    return nbytes, 4 * b * v + b * edges.numel()
+
+
 def bound_ms(nbytes, flops):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -544,6 +635,59 @@ def phase_kernel_checks():
     if out[args[5] < 0].abs().max() != 0:
         raise SystemExit("paged_prefill: padded rows are not zero")
     return errs
+
+
+def exit_decision(loss, edges, table, x_idx):
+    """The plain decision (bin, new_x, stop) from a given loss."""
+    b = torch.searchsorted(edges, loss).to(torch.int32)
+    nx = torch.minimum(x_idx, b + 1)
+    return b, nx, table[b.long(), nx.long()] > 0
+
+
+def near_edges(loss, edges, ulps=2):
+    """Lanes whose loss lies within ``ulps`` f32 ulp of a support edge."""
+    ulp = torch.nextafter(edges, torch.full_like(edges, float("inf"))) \
+        - edges
+    return ((loss[:, None] - edges[None, :]).abs()
+            <= ulps * ulp[None, :]).any(dim=1)
+
+
+def phase_exit_checks():
+    """ramp_exit against its plain version at every case of
+    `EXIT_CASES`: the loss within TOL_EXIT, the integers equal to the
+    plain decision recomputed from the kernel's own loss."""
+    worst = 0.0
+    for i, (case, shape) in enumerate(EXIT_CASES):
+        args, kw = exit_case(40 + i, *shape)
+        logits, edges, table, s_bin, x_idx = args
+        got = ramp_exit(*args, **kw)
+        torch.cuda.synchronize()
+        want = ramp_exit_plain(*args, **kw)
+        err = float((got[0] - want[0]).abs().max())
+        again = exit_decision(got[0], edges, table, x_idx)
+        ok = (bool(torch.isfinite(got[0]).all())
+              and torch.allclose(got[0], want[0], atol=TOL_EXIT,
+                                 rtol=TOL_EXIT)
+              and all(torch.equal(g, a) for g, a in zip(got[1:], again)))
+        flips = int((got[1] != want[1]).sum())
+        near = int((near_edges(got[0], edges)
+                    | near_edges(want[0], edges)).sum())
+        log(f"check ramp_exit [{case}] vs plain: loss max_abs_err "
+            f"{err:.3e} (atol=rtol={TOL_EXIT}); bin/new_x/stop equal to "
+            f"the plain decision from the kernel's loss; bins unlike the "
+            f"plain loss's {flips}/{len(want[1])}, lanes within 2 ulp of "
+            f"an edge {near} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"ramp_exit [{case}] disagrees with its plain "
+                             f"version: loss max_abs_err {err}")
+        if case == "extremes" and not (float(got[0][0]) == 0.0 and abs(
+                float(got[0][1]) - 0.6 * (1 - 1 / shape[1])) < TOL_EXIT):
+            raise SystemExit(f"ramp_exit [extremes]: losses "
+                             f"{got[0].tolist()}")
+        worst = max(worst, err)
+        del got, want, args
+    torch.cuda.empty_cache()
+    return worst
 
 
 def phase_model_check(params, params_cpu, cfg):
@@ -766,6 +910,86 @@ def phase_dp_check(params, cfg):
     if not ok:
         raise SystemExit("the line solve through the Bellman kernel "
                          "disagrees with the plain solve")
+    return casc
+
+
+def node_readouts(params, cfg, tokens):
+    """(logits, ell) of every node, the ramps' and the head's, at the
+    prompts' last position: what `M.prefill` reduces to node losses."""
+    x, positions = M._embed_inputs(params, cfg, {"tokens": tokens})
+    out = []
+    for si, seg in enumerate(cfg.segments):
+        p_seg = params["segments"][si]["blocks"]
+        for li in range(seg.n_layers):
+            x, _ = blocks.block_forward(M.layer(p_seg, li), x, positions,
+                                        seg.block, cfg.norm_eps, False,
+                                        False)
+        if seg.ramp:
+            out.append(M.ramp_readout(params, cfg, x[:, -1, :], segment=si))
+    out.append(M.ramp_readout(params, cfg, x[:, -1, :]))
+    return out
+
+
+def phase_decision_check(params, cfg, casc):
+    """ramp_exit's path: the exit decision of 8 numpy-seeded lanes at
+    each node of full-width paper-ee-100m, through the kernel with
+    ``tables.stop[node + 1]`` (the strategy's clamped row at the last
+    node) and through RecallIndexStrategy.observe (plain, on the card).
+    The kernel's loss is held to lam * ell within TOL_EXIT; a strategy
+    at lam 1 fed the kernel's loss must reach the kernel's bin, x index
+    and stop exactly.  Launch counters are zeroed just before and read
+    just after."""
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab, (B, 32)), device=DEV)
+    with torch.no_grad():
+        readouts = node_readouts(params, cfg, toks)
+        _, _, node_losses, _ = M.prefill(params, cfg, {"tokens": toks}, 40)
+    ells = torch.stack([ell for _, ell in readouts], dim=1)
+    if not torch.allclose(ells, node_losses, atol=TOL_EXIT, rtol=TOL_EXIT):
+        raise SystemExit("decision check: the readouts' ell differ from "
+                         "the prefill's node losses")
+    tables, support, n = casc.line_tables, casc.support, casc.n_nodes
+    strat = RecallIndexStrategy(tables, support, costs=casc.costs,
+                                lam=casc.lam)
+    fed = RecallIndexStrategy(tables, support, costs=casc.costs, lam=1.0)
+    st, st_fed = strat.init(B), fed.init(B)
+    s_bin, x_idx = st.s_bin.clone(), st.x_idx.clone()
+    active = torch.ones((B,), dtype=torch.bool, device=DEV)
+    for kern in KERNELS.values():
+        kern.launches = 0
+    worst, agree, near, ok = 0.0, 0, 0, True
+    for node, (logits, ell) in enumerate(readouts):
+        row = tables.stop[min(node + 1, n - 1)]
+        loss, bins, nx, stop = ramp_exit(logits, support.edges, row, s_bin,
+                                         x_idx, lam=casc.lam)
+        st, _ = strat.observe(st, node, ell, active)
+        st_fed, cont = fed.observe(st_fed, node, loss, active)
+        stop_fed = row[st_fed.s_bin.long(), st_fed.x_idx.long()]
+        want = casc.lam * ell.float()
+        worst = max(worst, float((loss - want).abs().max()))
+        ok &= torch.allclose(loss, want, atol=TOL_EXIT, rtol=TOL_EXIT)
+        ok &= (torch.equal(st_fed.s_bin, bins)
+               and torch.equal(st_fed.x_idx, nx)
+               and torch.equal(stop_fed, stop)
+               and (node + 1 == n or torch.equal(cont, ~stop)))
+        agree += int(((st.s_bin == bins) & (st.x_idx == nx)).sum())
+        near += int((near_edges(loss, support.edges)
+                     | near_edges(want, support.edges)).sum())
+        s_bin, x_idx = bins, nx
+    torch.cuda.synchronize()
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    log(f"decision check [ramp_exit vs RecallIndexStrategy, n={n} "
+        f"K={tables.k}, {B} lanes]: loss vs lam * ell max_abs_err "
+        f"{worst:.3e} (atol=rtol={TOL_EXIT}); bin, x index, stop equal to "
+        f"the strategy fed the kernel's loss at every node; the strategy "
+        f"on the model's ell kept the kernel's bin and x index in "
+        f"{agree}/{n * B} (lane, node), {near} within 2 ulp of an edge; "
+        f"launches {launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("ramp_exit disagrees with RecallIndexStrategy")
+    if launches["ramp_exit"] != n or sum(launches.values()) != n:
+        raise SystemExit(f"decision check launched {launches}")
+    return launches
 
 
 def phase_calibration_timing(params, cfg, flag):
@@ -809,7 +1033,9 @@ def phase_timing():
             ("bellman_backup", bellman_backup, bellman_backup_plain,
              bellman_case(24, 24), bellman_bound),
             ("ssd_chunk", ssd_chunk, ssd_chunk_plain,
-             ssd_case(30, *SSD_CASES[0][1]), ssd_bound)):
+             ssd_case(30, *SSD_CASES[0][1]), ssd_bound),
+            ("ramp_exit", ramp_exit, ramp_exit_plain,
+             exit_case(40, *EXIT_CASES[0][1]), exit_bound)):
         def run_kern():
             return kern(*args, **kw)
 
@@ -888,14 +1114,17 @@ def _check_serve_run(name, argv, run, n_nodes, vocab):
         if not all(0 <= tk < vocab for tk in rec.tokens):
             raise SystemExit(f"serve [{name}]: token out of range")
     s = run.metrics.summary(slo=1.0)
-    if not 0 <= s["mean_served_node"] <= n_nodes - 1:
-        raise SystemExit(f"serve [{name}]: served node out of range")
+    nodes = run.metrics.served_nodes
+    if not set(nodes) <= set(range(n_nodes)) \
+            or sum(nodes.values()) != s["tokens"]:
+        raise SystemExit(f"serve [{name}]: served nodes {dict(nodes)}")
     return (f"{s['completed']}/{s['requests']} requests, {s['tokens']} "
             f"tokens, {s['throughput_tok_s']:.1f} tok/s, TTFT p50 "
             f"{1e3 * s['ttft']['p50']:.1f} ms p99 "
             f"{1e3 * s['ttft']['p99']:.1f} ms, token latency p50 "
             f"{1e3 * s['token_latency']['p50']:.2f} ms, mean served node "
-            f"{s['mean_served_node']:.2f}")
+            f"{s['mean_served_node']:.2f}, served-node histogram "
+            f"{[nodes[i] for i in range(n_nodes)]}")
 
 
 def phase_serve(name, argv, must, must_not):
@@ -938,13 +1167,16 @@ def main() -> None:
     t_start = time.perf_counter()
     phase_build()
     errs = phase_kernel_checks()
+    errs["ramp_exit"] = phase_exit_checks()
     cfg = get_config("paper-ee-100m")
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = materialize(M.model_defs(cfg), gen, DEV)
     params_cpu = tree_map(lambda t: t.cpu(), params)
     phase_model_check(params, params_cpu, cfg)
     phase_flash_model_check(params, params_cpu, cfg)
-    phase_dp_check(params, cfg)
+    casc = phase_dp_check(params, cfg)
+    decision = phase_decision_check(params, cfg, casc)
+    del casc
     phase_calibration_timing(params, cfg, "use_flash")
     del params, params_cpu
     cfg = get_config("mamba2-130m")
@@ -955,9 +1187,10 @@ def main() -> None:
     phase_calibration_timing(params, cfg, "use_ssd_kernel")
     del params, params_cpu
     times = phase_timing()
-    # each serve's own counts; each kernel's main path is MAIN_PATH's
-    by_path = {name: phase_serve(name, argv, must, must_not)
-               for name, argv, must, must_not in SERVES}
+    # each path's own counts; each kernel's main path is MAIN_PATH's
+    by_path = {DECISION: decision}
+    by_path.update({name: phase_serve(name, argv, must, must_not)
+                    for name, argv, must, must_not in SERVES})
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1],
                     launches=by_path[MAIN_PATH[name]][name],

@@ -14,10 +14,12 @@ import torch
 
 from repro_torch.core.line_dp import LineTables
 from repro_torch.core.markov import MarkovChain
+from repro_torch.core.skip_dp import SkipTables
 from repro_torch.core.support import Support
 
 __all__ = ["to_tensor", "params_from_numpy", "support_from_numpy",
-           "chain_from_numpy", "line_tables_from_numpy"]
+           "chain_from_numpy", "line_tables_from_numpy",
+           "skip_tables_from_numpy"]
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -56,4 +58,12 @@ def line_tables_from_numpy(t, device="cpu") -> LineTables:
                       stop=to_tensor(t.stop, device).bool(),
                       phi=to_tensor(t.phi, device).float(),
                       sigma=to_tensor(t.sigma, device).float(),
+                      value=to_tensor(t.value, device).float())
+
+
+def skip_tables_from_numpy(t, device="cpu") -> SkipTables:
+    """An object with numpy ``value_tab``/``nxt``/``value`` ->
+    `SkipTables`."""
+    return SkipTables(value_tab=to_tensor(t.value_tab, device).float(),
+                      nxt=to_tensor(t.nxt, device).to(torch.int32),
                       value=to_tensor(t.value, device).float())

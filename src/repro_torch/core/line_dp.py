@@ -26,7 +26,8 @@ from repro_torch.core.markov import MarkovChain
 from repro_torch.core.support import Support
 from repro_torch.kernels.bellman_backup import bellman_backup
 
-__all__ = ["LineTables", "solve_line", "x_values", "INF_SENTINEL_MULT"]
+__all__ = ["LineTables", "solve_line", "suffix_tables", "x_values",
+           "INF_SENTINEL_MULT"]
 
 INF_SENTINEL_MULT = 1e4  # sentinel = grid[-1]*MULT + MULT (finite "+inf")
 
@@ -134,3 +135,24 @@ def solve_line(chain: MarkovChain, costs, support: Support, *,
     value = cont[0, 0, nx - 1]  # start: X = inf sentinel, s irrelevant
     return LineTables(cont=cont, stop=stop, phi=phi, sigma=sigma,
                       value=value)
+
+
+def suffix_tables(chain: MarkovChain, costs, support: Support, start: int,
+                  *, use_kernel: bool = False) -> LineTables:
+    """Tables for the line suffix [start..n): the multi-line and tree
+    indices compute a branch's index on its remaining nodes."""
+    if start == 0:
+        return solve_line(chain, costs, support, use_kernel=use_kernel)
+    sub = MarkovChain(p0=chain.p0 @ _chain_prod(chain, 0, start),
+                      trans=chain.trans[start:])
+    costs = torch.as_tensor(costs, dtype=torch.float32,
+                            device=support.grid.device)
+    return solve_line(sub, costs[start:], support, use_kernel=use_kernel)
+
+
+def _chain_prod(chain: MarkovChain, i: int, j: int) -> torch.Tensor:
+    """trans[i] @ ... @ trans[j-1] (the identity for i == j)."""
+    acc = torch.eye(chain.k, dtype=chain.p0.dtype, device=chain.p0.device)
+    for t in range(i, j):
+        acc = acc @ chain.trans[t]
+    return acc

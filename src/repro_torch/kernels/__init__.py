@@ -11,10 +11,12 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
 from repro_torch.kernels.paged_prefill import (paged_prefill,
                                                paged_prefill_plain)
+from repro_torch.kernels.ramp_exit import ramp_exit, ramp_exit_plain
 from repro_torch.kernels.ssd_chunk import (prefix_sum, ssd_chunk,
                                            ssd_chunk_plain)
 
 __all__ = ["bellman_backup", "bellman_backup_plain", "flash_attention",
            "flash_attention_plain", "paged_attention",
            "paged_attention_plain", "paged_prefill", "paged_prefill_plain",
-           "prefix_sum", "ssd_chunk", "ssd_chunk_plain"]
+           "prefix_sum", "ramp_exit", "ramp_exit_plain", "ssd_chunk",
+           "ssd_chunk_plain"]

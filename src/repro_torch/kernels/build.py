@@ -23,7 +23,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "build_all", "library"]
 
 SOURCES = ("paged_attention", "paged_prefill", "flash_attention",
-           "bellman_backup", "ssd_chunk")
+           "bellman_backup", "ssd_chunk", "ramp_exit")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"

@@ -16,6 +16,13 @@ stop-the-world or chunked (``--prefill-chunk``) admission:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --server --ssd-kernel --dp-kernel --lanes 8 --rate 8 --duration 2
 
+``--policy`` takes any online name of ``repro_torch.strategy.available()``
+(the JAX launcher's: ``recall_index``, ``tree_index``, ``skip_recall``,
+``norecall_threshold``, ``recall_threshold``, ``norecall_patience``,
+``always_first``, ``always_last``) and its aliases ``recall`` /
+``threshold`` / ``none``; ``--threshold`` and ``--patience`` tune the
+baselines.  The hindsight oracles are refused.
+
 It runs on the card (``--device cuda``, the default) and refuses to go
 on when CUDA is missing; ``--device cpu`` runs the same path with the
 kernels' plain PyTorch versions.  ``--paged-kernel`` sends every paged
@@ -45,10 +52,49 @@ from repro_torch.serving.engine import Engine, GenerationStats
 from repro_torch.serving.obs.report import ServeReport, segments_saved_line
 from repro_torch.serving.runtime.workload import WorkloadSpec, make_workload
 
-__all__ = ["main", "ServeRun", "BatchRun"]
+__all__ = ["main", "ServeRun", "BatchRun", "ALIASES", "ONLINE",
+           "build_strategy"]
 
 CALIB_PROMPTS, CALIB_LEN, CALIB_K = 512, 64, 24
 SLO_S = 1.0        # the TTFT limit that goodput counts against
+
+# the reference launcher's aliases
+ALIASES = {
+    "recall": "recall_index",
+    "threshold": "norecall_threshold",
+    "none": "always_last",
+}
+# hindsight-only strategies (online=False in the registry) cannot serve
+ONLINE = strategy.available(online_only=True)
+RAW_CONFIDENCE = ("norecall_threshold", "recall_threshold",
+                  "norecall_patience")
+
+
+def build_strategy(name: str, casc: strategy.Cascade, *, threshold: float,
+                   patience: int, lam: float | None = None):
+    """Registry dispatch with the per-family CLI knobs applied.
+
+    ``lam`` is the per-request override a request carries; the threshold
+    and patience family compares raw 1 - confidence (its lam is pinned
+    to 1.0), so a per-request lam there is refused rather than dropped.
+    ``skip_recall`` takes cumulative edge costs on one model (skipped
+    segments still run their backbone) and the cascade's ladder on
+    several.
+    """
+    if name in RAW_CONFIDENCE:
+        if lam is not None:
+            raise ValueError(
+                f"{name} serves raw confidences (lam fixed at 1.0); "
+                "per-request lam is not supported for this family — "
+                "tune --threshold/--patience instead")
+        if name == "norecall_patience":
+            return strategy.make(name, casc, patience=patience, lam=1.0)
+        return strategy.make(name, casc, threshold=threshold, lam=1.0)
+    kwargs = {} if lam is None else {"lam": lam}
+    if name == "skip_recall":
+        kwargs["mode"] = ("cascade" if casc.boundaries is not None
+                          else "cumulative")
+    return strategy.make(name, casc, **kwargs)
 
 
 @dataclasses.dataclass
@@ -82,8 +128,13 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="paper-ee-100m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--policy", default="recall_index",
-                    choices=strategy.available())
+                    choices=sorted(set(ONLINE) | set(ALIASES)))
     ap.add_argument("--lam", type=float, default=0.5)
+    ap.add_argument("--threshold", type=float, default=0.4,
+                    help="exit threshold on 1 - confidence for the "
+                         "threshold policies")
+    ap.add_argument("--patience", type=int, default=2,
+                    help="agreeing ramps before norecall_patience exits")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32)
@@ -142,12 +193,11 @@ def parse_args(argv=None):
     return args
 
 
-def _serve_batch(args, cfg, params, casc, device) -> BatchRun:
+def _serve_batch(args, cfg, params, strat, device) -> BatchRun:
     """The one-shot path: one fixed batch of numpy-seeded prompts,
     prefilled together and decoded to ``--tokens`` on ring caches."""
-    engine = Engine(params, cfg, strategy.make(args.policy, casc),
-                    cache_len=args.cache_len, use_flash=args.flash,
-                    use_ssd_kernel=args.ssd_kernel)
+    engine = Engine(params, cfg, strat, cache_len=args.cache_len,
+                    use_flash=args.flash, use_ssd_kernel=args.ssd_kernel)
     prompts = np.random.default_rng(args.seed + 1).integers(
         0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
     t0 = time.time()
@@ -171,7 +221,7 @@ def _serve_batch(args, cfg, params, casc, device) -> BatchRun:
 def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
     """The ``--server`` path: a seeded open-loop workload through the
     continuous-batching runtime."""
-    name = args.policy
+    name = ALIASES.get(args.policy, args.policy)
     lo = max(1, min(4, args.tokens))
     spec = WorkloadSpec(rate=args.rate, duration=args.duration,
                         prompt_len=args.prompt_len, vocab=cfg.vocab,
@@ -181,8 +231,12 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
     if not requests:
         print("workload produced no arrivals; raise --rate or --duration")
         return None
-    bank, sid_of = rt.build_bank(requests, rt.cascade_factory(casc),
-                                 (name, None))
+
+    def make_strategy(sname, lam):
+        return build_strategy(sname, casc, threshold=args.threshold,
+                              patience=args.patience, lam=lam)
+
+    bank, sid_of = rt.build_bank(requests, make_strategy, (name, None))
     stepper = rt.EngineStepper(params, cfg, bank, n_lanes=args.lanes,
                                cache_len=args.cache_len,
                                prompt_len=args.prompt_len, kv=args.kv,
@@ -243,22 +297,28 @@ def main(argv=None) -> ServeRun | BatchRun | None:
     params = materialize(M.model_defs(cfg), gen, device)
     print("no checkpoint given — serving random init (demo mode)")
 
-    name = args.policy
+    name = ALIASES.get(args.policy, args.policy)
     if strategy.needs_tables(name):
         # table-backed strategies calibrate on the model's own losses,
-        # over prompts drawn with numpy from --seed
+        # over prompts drawn with numpy from --seed; the line or skip
+        # solve runs when the strategy is built
         tokens = np.random.default_rng(args.seed).integers(
             0, cfg.vocab, (CALIB_PROMPTS, CALIB_LEN))
         casc = strategy.Cascade.calibrate(params, cfg, tokens, args.lam,
-                                          k=CALIB_K, use_flash=args.flash,
+                                          k=CALIB_K, solve=False,
+                                          use_flash=args.flash,
                                           use_ssd_kernel=args.ssd_kernel,
                                           use_kernel=args.dp_kernel)
+    else:
+        # topology/costs-only strategies skip the calibration prefill
+        casc = strategy.Cascade.uniform(cfg.n_ramps + 1, lam=args.lam,
+                                        device=device)
+    strat = build_strategy(name, casc, threshold=args.threshold,
+                           patience=args.patience)
+    if casc.line_tables is not None:
         tables = casc.line_tables
         print(f"calibrated T-Tamer tables: n={tables.n} K={tables.k} "
               f"online-optimal value {float(tables.value):.4f}")
-    else:
-        casc = strategy.Cascade.uniform(cfg.n_ramps + 1, lam=args.lam,
-                                        device=device)
     print(f"strategy: {name} (registry: {', '.join(strategy.available())})")
 
     if args.server:
@@ -266,7 +326,7 @@ def main(argv=None) -> ServeRun | BatchRun | None:
     if args.kv != "ring":
         print("note: --kv paged applies to --server traffic mode; "
               "the one-shot batch path always uses ring caches")
-    return _serve_batch(args, cfg, params, casc, device)
+    return _serve_batch(args, cfg, params, strat, device)
 
 
 if __name__ == "__main__":

@@ -48,7 +48,16 @@ def _check_online(strategy):
     if not getattr(strategy, "online", True):
         raise ValueError(
             f"{type(strategy).__name__} needs hindsight (online=False) and "
-            "cannot drive the serving engine")
+            "cannot drive the serving engine; use strategy.evaluate on "
+            "offline traces instead")
+    # the engine's aux channel carries predicted labels, not support
+    # bins: a table strategy built without a Support would read them as
+    # bins, so refuse it rather than serve garbage
+    if hasattr(strategy, "support") and strategy.support is None:
+        raise ValueError(
+            f"{type(strategy).__name__} was built without a Support and "
+            "reads bins from the aux channel; the engine supplies "
+            "predictions there — construct it with the cascade's Support")
     return strategy
 
 

@@ -15,13 +15,12 @@ from repro_torch.serving.runtime.request import Request, RequestQueue
 from repro_torch.serving.runtime.scheduler import (ChunkPlanner,
                                                    EngineStepper,
                                                    LaneScheduler)
-from repro_torch.serving.runtime.server import (Server, build_bank,
-                                                cascade_factory)
+from repro_torch.serving.runtime.server import Server, build_bank
 from repro_torch.serving.runtime.workload import (available_workloads,
                                                   make_workload)
 
 __all__ = [
     "Request", "RequestQueue", "LaneScheduler", "ChunkPlanner",
     "EngineStepper", "Server", "RuntimeMetrics", "build_bank",
-    "cascade_factory", "make_workload", "available_workloads",
+    "make_workload", "available_workloads",
 ]

@@ -142,6 +142,7 @@ class RuntimeMetrics:
         self.seg_batch = 0                  # launched segment count
         self.seg_policy = 0                 # per-lane probed count
         self.lane_steps = 0                 # occupied lane-tokens
+        self.served_nodes = collections.Counter()   # node -> tokens
         self.t_start: float = 0.0
         self.t_end: float = 0.0
         self.window: float | None = None
@@ -198,6 +199,7 @@ class RuntimeMetrics:
         rec._last_token = now
         rec.n_tokens += 1
         rec.served_depth_sum += int(served_node)
+        self.served_nodes[int(served_node)] += 1
         if self._win_tok is not None:
             self._win_tok.push(now, (rid, int(served_node)))
         if token is not None:

@@ -23,7 +23,7 @@ from repro_torch.serving.runtime.metrics import RuntimeMetrics
 from repro_torch.serving.runtime.request import RequestQueue
 from repro_torch.serving.runtime.scheduler import LaneScheduler
 
-__all__ = ["Server", "build_bank", "cascade_factory"]
+__all__ = ["Server", "build_bank"]
 
 
 def build_bank(requests, make_strategy, default: tuple):
@@ -33,7 +33,9 @@ def build_bank(requests, make_strategy, default: tuple):
     Returns ``(strategies, sid_of)`` — the tuple the token step runs
     over and the lane->member resolver the scheduler stamps on each
     admission.  ``make_strategy(name, lam)`` builds one member;
-    ``default`` fills a request's missing fields.
+    ``default`` fills a request's missing fields (the launcher's
+    factory is `repro_torch.launch.serve.build_strategy` with its
+    knobs).
     """
     def key_of(req):
         return (req.strategy or default[0],
@@ -49,20 +51,6 @@ def build_bank(requests, make_strategy, default: tuple):
     strategies = tuple(make_strategy(name, lam) for name, lam in keys)
     index = {k: i for i, k in enumerate(keys)}
     return strategies, lambda req: index[key_of(req)]
-
-
-def cascade_factory(cascade):
-    """The standard ``make_strategy`` for `build_bank`: registry dispatch
-    against one calibrated cascade, ``lam=None`` meaning the cascade's
-    own lambda."""
-    from repro_torch import strategy as _strategy
-
-    def mk(name, lam):
-        if lam is None:
-            return _strategy.make(name, cascade)
-        return _strategy.make(name, cascade, lam=lam)
-
-    return mk
 
 
 class Server:

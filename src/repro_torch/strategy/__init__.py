@@ -8,12 +8,25 @@ evaluation and the serving engine.
 """
 
 from repro_torch.strategy.base import (PolicyResult, State, Strategy,
-                                       evaluate, init_lane, reset_lanes)
+                                       dynamic_arrays, evaluate, init_lane,
+                                       reset_lanes, with_arrays)
 from repro_torch.strategy.cascade import Cascade
-from repro_torch.strategy.line import FixedNodeStrategy, RecallIndexStrategy
+from repro_torch.strategy.line import (FixedNodeStrategy, PatienceStrategy,
+                                       RecallIndexStrategy,
+                                       ThresholdStrategy, TreeIndexStrategy)
+from repro_torch.strategy.oracle import OracleStrategy
 from repro_torch.strategy.registry import (available, make, needs_tables,
-                                           register)
+                                           register, reserve_bank,
+                                           slot_signature)
+from repro_torch.strategy.skip import SkipRecallStrategy
 
-__all__ = ["Strategy", "State", "PolicyResult", "evaluate", "reset_lanes",
-           "init_lane", "Cascade", "make", "available", "needs_tables",
-           "register", "RecallIndexStrategy", "FixedNodeStrategy"]
+__all__ = [
+    "Strategy", "State", "PolicyResult", "evaluate", "reset_lanes",
+    "init_lane", "dynamic_arrays", "with_arrays",
+    "Cascade",
+    "make", "available", "needs_tables", "register",
+    "reserve_bank", "slot_signature",
+    "RecallIndexStrategy", "TreeIndexStrategy", "ThresholdStrategy",
+    "PatienceStrategy", "FixedNodeStrategy", "OracleStrategy",
+    "SkipRecallStrategy",
+]

@@ -11,20 +11,30 @@ per-lane tensors, and its three methods are pure:
   * ``serve(state) -> served_node``     — which node's output each lane
         returns if it stops now (with recall this is the argmin node).
 
-``node`` is a Python int.  Every state carries ``explore_cost`` (f32 per
-lane) and ``n_probed`` (i32 per lane), which ``evaluate`` reads back
-together with ``serve``.
+``node`` is a Python int.  ``aux`` is an optional int32 per-lane side
+channel: predicted labels for patience-style strategies (the engine
+supplies the argmax of each readout's logits there), or precomputed
+support bins for table strategies built without a ``Support`` (offline
+evaluation against pre-quantized traces).  Every state carries
+``explore_cost`` (f32 per lane) and ``n_probed`` (i32 per lane), which
+``evaluate`` reads back together with ``serve``.
+
+A strategy's ``swap_attrs`` names the tensors that parameterize its
+decisions (solved tables, supports, thresholds, costs): `dynamic_arrays`
+reads them and `with_arrays` swaps same-shaped ones in, the contract a
+strategy bank's slot keeps across a republish.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Protocol, Tuple, runtime_checkable
 
 import torch
 
 __all__ = ["State", "PolicyResult", "Strategy", "evaluate", "reset_lanes",
-           "init_lane"]
+           "init_lane", "dynamic_arrays", "with_arrays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +64,9 @@ class PolicyResult:
     def total(self) -> torch.Tensor:
         return self.served_loss + self.explore_cost
 
+    def mean_total(self) -> torch.Tensor:
+        return torch.mean(self.total)
+
 
 @runtime_checkable
 class Strategy(Protocol):
@@ -74,6 +87,24 @@ class Strategy(Protocol):
 
     def serve(self, state) -> torch.Tensor:
         ...
+
+
+def dynamic_arrays(strategy: Strategy) -> dict:
+    """The strategy's swappable decision parameters, keyed by attribute
+    name (``{}`` for strategies without ``swap_attrs``: the oracles)."""
+    return {name: getattr(strategy, name)
+            for name in getattr(strategy, "swap_attrs", ())}
+
+
+def with_arrays(strategy: Strategy, arrays: dict) -> Strategy:
+    """Shallow clone of ``strategy`` with its dynamic arrays replaced;
+    static structure (lam, node count, patience) stays as it was."""
+    if not arrays:
+        return strategy
+    clone = copy.copy(strategy)
+    for name, value in arrays.items():
+        setattr(clone, name, value)
+    return clone
 
 
 def reset_lanes(strategy: Strategy, state: State, mask) -> State:
@@ -108,13 +139,13 @@ def evaluate(strategy: Strategy, losses, aux=None) -> PolicyResult:
     ``served_loss`` is in the strategy's scaled units
     (``lam * losses[served]``).
     """
-    losses = torch.as_tensor(losses, dtype=torch.float32,
-                             device=strategy.costs.device)
+    losses = torch.as_tensor(losses, dtype=torch.float32)
     t, n = losses.shape
     if n != strategy.n_nodes:
         raise ValueError(f"traces have {n} nodes, strategy expects "
                          f"{strategy.n_nodes}")
     state = strategy.init(t)
+    losses = losses.to(state.n_probed.device)
     active = torch.ones((t,), dtype=torch.bool, device=losses.device)
     if aux is not None:
         aux = torch.as_tensor(aux, device=losses.device).to(torch.int32)

@@ -1,5 +1,7 @@
 """The port's kernels (repro_torch.kernels: paged decode, chunked
-prefill, flash attention, Bellman backup; the ssd-chunk kernel's plain
+prefill, flash attention, Bellman backup, the exit decision
+(ramp_exit: loss within atol = rtol = 1e-5, the JAX test's own
+tolerance, bins, new x and stop equal); the ssd-chunk kernel's plain
 version is held against the JAX package in test_torch_ssm) against the
 JAX package:
 their plain PyTorch versions — what a CPU tensor runs — are held against
@@ -12,7 +14,8 @@ arrays in both frameworks and must be bit-equal.
 
 The CUDA kernels themselves run only on the card: `test_cuda_kernels_
 match_plain`, `test_cuda_flash_and_bellman_match_plain` and
-`test_cuda_ssd_chunk_matches_plain` hold each against its plain version
+`test_cuda_ssd_chunk_matches_plain` and `test_cuda_ramp_exit_matches_
+plain` hold each against its plain version
 there (atol = rtol = 1e-4 for attention, whose f32 sums run in another
 order; 1e-5 for the backup; 2e-4 for the SSD chunk, as the JAX
 package's own kernel test) and skip on a machine without one.  The JAX package is imported by the fixture of the
@@ -30,7 +33,8 @@ from repro_torch.kernels import (bellman_backup, bellman_backup_plain,
                                  flash_attention, flash_attention_plain,
                                  paged_attention, paged_attention_plain,
                                  paged_prefill, paged_prefill_plain,
-                                 ssd_chunk, ssd_chunk_plain)
+                                 ramp_exit, ramp_exit_plain, ssd_chunk,
+                                 ssd_chunk_plain)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -457,3 +461,88 @@ def test_cuda_ssd_chunk_matches_plain():
         for g, w in zip(got, want):
             assert torch.isfinite(g).all()
             torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# ramp exit (the fused exit decision)
+# --------------------------------------------------------------------------
+
+# the JAX test's three shapes, then the paper-ee-100m readout's
+EXIT_SHAPES = [(4, 1000, 16), (8, 4096, 32), (3, 2048, 64), (8, 50257, 24)]
+
+
+def _exit_inputs(b, v, k):
+    """The JAX test's draws: logits ~ N(0, 2), sorted edges in (0, 1), a
+    0/1 int32 stop table, lane state over its whole range."""
+    rng = np.random.default_rng(b * v)
+    return (rng.normal(0, 2, (b, v)).astype(np.float32),
+            np.sort(rng.uniform(0, 1, k - 1)).astype(np.float32),
+            rng.integers(0, 2, (k, k + 2)).astype(np.int32),
+            rng.integers(0, k, b).astype(np.int32),
+            rng.integers(0, k + 2, b).astype(np.int32))
+
+
+def _exit_equal(got, want):
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want[0]),
+                               **TOL)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("b,v,k", EXIT_SHAPES)
+@pytest.mark.parametrize("against", ["ref", "interpret"])
+def test_ramp_exit_plain_matches_reference(jx, b, v, k, against):
+    """The plain version (what a CPU tensor runs) against
+    ``repro.kernels.ref.ramp_exit_ref`` and against the Pallas kernel in
+    interpret mode (``ops.ramp_exit``, which pads V and B), lam 0.6."""
+    arrs = _exit_inputs(b, v, k)
+    j = [jx.jnp.asarray(a) for a in arrs]
+    if against == "ref":
+        want = jx.ref.ramp_exit_ref(*j, 0.6)
+    else:
+        want = jx.ops.ramp_exit(*j, lam=0.6, interpret=True)
+    before = ramp_exit.launches
+    got = ramp_exit(*(torch.from_numpy(a) for a in arrs), lam=0.6)
+    assert ramp_exit.launches == before         # CPU: the plain version
+    _exit_equal([t.numpy() for t in got], want)
+    assert got[3].dtype == torch.bool
+
+
+def test_ramp_exit_takes_the_line_dp_bool_table_and_row_views():
+    """A bool table (as `LineTables.stop` holds it) decides as its 0/1
+    integer copy does, a row view of a wider tensor as its contiguous
+    copy, and s_bin does not enter the decision."""
+    logits, edges, table, s_bin, x_idx = (torch.from_numpy(a) for a in
+                                          _exit_inputs(8, 4096, 32))
+    want = ramp_exit_plain(logits, edges, table, s_bin, x_idx, lam=0.6)
+    wide = torch.zeros((8, 4096 + 5))
+    wide[:, 2:2 + 4096] = logits
+    got = ramp_exit(wide[:, 2:2 + 4096], edges, table.bool(), s_bin + 1,
+                    x_idx, lam=0.6)
+    _exit_equal([t.numpy() for t in got], [t.numpy() for t in want])
+
+
+@pytest.mark.cuda
+def test_cuda_ramp_exit_matches_plain():
+    """The exit-decision kernel against its plain version on the card at
+    every shape above, with an int32 and a bool table: loss within atol
+    = rtol = 1e-5, and bin, new x and stop equal to the plain decision
+    recomputed from the kernel's own loss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for shape in EXIT_SHAPES:
+        logits, edges, table, s_bin, x_idx = (
+            torch.from_numpy(a).to(dev) for a in _exit_inputs(*shape))
+        for tab in (table, table.bool()):
+            n = ramp_exit.launches
+            got = ramp_exit(logits, edges, tab, s_bin, x_idx, lam=0.6)
+            torch.cuda.synchronize()
+            assert ramp_exit.launches == n + 1
+            want = ramp_exit_plain(logits, edges, tab, s_bin, x_idx,
+                                   lam=0.6)
+            torch.testing.assert_close(got[0], want[0], **TOL)
+            b = torch.searchsorted(edges, got[0]).to(torch.int32)
+            nx = torch.minimum(x_idx, b + 1)
+            assert torch.equal(got[1], b) and torch.equal(got[2], nx)
+            assert torch.equal(got[3], tab[b.long(), nx.long()] > 0)

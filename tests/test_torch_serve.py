@@ -12,19 +12,26 @@ against the JAX package's, end to end on the smoke config.
     on the paged pool (pool stats equal too), for the attention smoke
     model and for the SSM one (mamba2-130m; ring, ring through the
     ssd-chunk route, paged).
+  * Both of those under every other online policy of the registry
+    (tree_index, skip_recall, norecall_threshold, recall_threshold,
+    norecall_patience, always_first, always_last), each built by the
+    launchers' own ``build_strategy`` with the same knobs from the same
+    bridged tables.
   * The same seed gives the same workload in both packages.
   * The port's serve report renders the reference's lines from the same
     stats.
   * The launcher runs end to end on the CPU when asked to — the
     one-shot batch path by default, ``--server`` on ring caches by
     default, ``--flash --dp-kernel`` on both, ``--arch mamba2-130m
-    --ssd-kernel --dp-kernel`` on both — and refuses to run without
-    CUDA otherwise.
+    --ssd-kernel --dp-kernel`` on both, the reference's aliases and
+    knobs — and refuses to run without CUDA otherwise; its ``--policy``
+    choices are the reference launcher's, hindsight oracles refused.
   * Nothing under src/repro_torch/, nor chip_smoke.py, imports jax or
     the JAX package.
 """
 
 import ast
+import collections
 import json
 from pathlib import Path
 
@@ -35,6 +42,7 @@ import torch
 
 from repro import strategy as jstrategy
 from repro.configs import get_config
+from repro.launch import serve as jserve
 from repro.models import model as M
 from repro.models.param import materialize
 from repro.serving import runtime as jrt
@@ -43,8 +51,8 @@ from repro.serving.runtime.request import Request as JRequest
 from repro.serving.runtime.workload import WorkloadSpec as JSpec
 from repro_torch import strategy as tstrategy
 from repro_torch.bridge import (chain_from_numpy, line_tables_from_numpy,
-                                params_from_numpy, support_from_numpy,
-                                to_tensor)
+                                params_from_numpy, skip_tables_from_numpy,
+                                support_from_numpy, to_tensor)
 from repro_torch.launch import serve as tserve
 from repro_torch.serving import runtime as trt
 from repro_torch.serving.obs.report import ServeReport as TReport
@@ -53,6 +61,12 @@ from repro_torch.serving.runtime.workload import WorkloadSpec as TSpec
 
 ROOT = Path(__file__).resolve().parents[1]
 PROMPT_LEN = 12
+# the online policies besides recall_index, served under the launchers'
+# default knobs
+POLICIES = ("tree_index", "skip_recall", "norecall_threshold",
+            "recall_threshold", "norecall_patience", "always_first",
+            "always_last")
+KNOBS = dict(threshold=0.4, patience=2)
 
 
 def _setup(arch):
@@ -67,8 +81,19 @@ def _setup(arch):
         chain=chain_from_numpy(jax.tree.map(np.asarray, casc.chain)),
         costs=to_tensor(np.asarray(casc.costs)), lam=casc.lam,
         line_tables=line_tables_from_numpy(
-            jax.tree.map(np.asarray, casc.solve_line())))
+            jax.tree.map(np.asarray, casc.solve_line())),
+        skip_tables=skip_tables_from_numpy(
+            jax.tree.map(np.asarray, casc.solve_skip("cumulative"))),
+        edge_costs=np.asarray(casc.edge_costs), skip_mode="cumulative")
     return cfg, params, casc, tparams, tcasc
+
+
+def _factory(serve_mod, casc):
+    """A launcher's bank factory: its ``build_strategy`` with the
+    default knobs."""
+    def mk(name, lam):
+        return serve_mod.build_strategy(name, casc, lam=lam, **KNOBS)
+    return mk
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +106,7 @@ def ssm_setup():
     return _setup("mamba2-130m")
 
 
-def _requests(cls, cfg, n=6, seed=7):
+def _requests(cls, cfg, n=6, seed=7, policy="recall_index"):
     """Every other request repeats one base prompt (prefix-cache hits);
     all arrive at t = 0, so admission depends only on lane turnover."""
     rng = np.random.default_rng(seed)
@@ -91,7 +116,7 @@ def _requests(cls, cfg, n=6, seed=7):
         prompt = base.copy() if rid % 2 == 0 else rng.integers(
             0, cfg.vocab, PROMPT_LEN, dtype=np.int32)
         out.append(cls(rid=rid, prompt=prompt, max_tokens=2 + rid % 3,
-                       arrival=0.0, strategy="recall_index"))
+                       arrival=0.0, strategy=policy))
     return out
 
 
@@ -116,28 +141,46 @@ def _serve_logged(rt, stepper, sid_of, requests):
 
 
 @pytest.fixture(scope="module")
-def reference_run(setup):
-    cfg, params, casc, _, _ = setup
-    requests = _requests(JRequest, cfg)
-    bank, sid_of = jrt.build_bank(requests, jrt.cascade_factory(casc),
-                                  ("recall_index", None))
-    stepper = jrt.EngineStepper(params, cfg, bank, n_lanes=2, cache_len=32,
-                                prompt_len=PROMPT_LEN, kv="paged",
-                                page_size=8, prefill_chunk=5,
-                                prefill_budget=8)
-    metrics, nodes = _serve_logged(jrt, stepper, sid_of, requests)
-    return (requests, metrics, nodes, dict(stepper.chunk_stats),
-            stepper.pool.stats())
+def chunked_reference(setup):
+    """The JAX package's chunked paged serves, one per policy (built on
+    first use)."""
+    runs = {}
+
+    def get(policy):
+        if policy not in runs:
+            cfg, params, casc, _, _ = setup
+            requests = _requests(JRequest, cfg, policy=policy)
+            bank, sid_of = jrt.build_bank(requests, _factory(jserve, casc),
+                                          (policy, None))
+            stepper = jrt.EngineStepper(params, cfg, bank, n_lanes=2,
+                                        cache_len=32, prompt_len=PROMPT_LEN,
+                                        kv="paged", page_size=8,
+                                        prefill_chunk=5, prefill_budget=8)
+            metrics, nodes = _serve_logged(jrt, stepper, sid_of, requests)
+            runs[policy] = (requests, metrics, nodes,
+                            dict(stepper.chunk_stats), stepper.pool.stats())
+        return runs[policy]
+
+    return get
 
 
-@pytest.mark.parametrize("kernel", [True, False], ids=["kernel", "gather"])
-def test_port_serves_what_the_reference_serves(setup, reference_run,
-                                               kernel):
+@pytest.fixture(scope="module")
+def reference_run(chunked_reference):
+    return chunked_reference("recall_index")
+
+
+@pytest.mark.parametrize(
+    "kernel,policy",
+    [(True, "recall_index"), (False, "recall_index")]
+    + [(True, p) for p in POLICIES],
+    ids=["kernel", "gather"] + [f"kernel-{p}" for p in POLICIES])
+def test_port_serves_what_the_reference_serves(setup, chunked_reference,
+                                               kernel, policy):
     cfg, _, _, tparams, tcasc = setup
-    jreqs, jm, jnodes, jstats, _ = reference_run
-    requests = _requests(TRequest, cfg)
-    bank, sid_of = trt.build_bank(requests, trt.cascade_factory(tcasc),
-                                  ("recall_index", None))
+    jreqs, jm, jnodes, jstats, _ = chunked_reference(policy)
+    requests = _requests(TRequest, cfg, policy=policy)
+    bank, sid_of = trt.build_bank(requests, _factory(tserve, tcasc),
+                                  (policy, None))
     stepper = trt.EngineStepper(tparams, cfg, bank, n_lanes=2, cache_len=32,
                                 prompt_len=PROMPT_LEN, kv="paged",
                                 page_size=8, prefill_chunk=5,
@@ -151,52 +194,59 @@ def test_port_serves_what_the_reference_serves(setup, reference_run,
         assert tm.records[req.rid].n_tokens == req.max_tokens
     assert stepper.chunk_stats == jstats
     assert jstats["tokens_skipped"] > 0           # prefix hits exercised
+    # the metrics' served-node counts are the reference's nodes
+    assert tm.served_nodes == collections.Counter(
+        n for nodes in jnodes.values() for n in nodes)
     assert (tm.steps, tm.seg_batch, tm.seg_policy, tm.lane_steps) == \
         (jm.steps, jm.seg_batch, jm.seg_policy, jm.lane_steps)
 
 
 @pytest.fixture(scope="module")
 def stw_reference():
-    """The JAX package's stop-the-world serves, one per (model, KV mode)
-    (built on first use)."""
+    """The JAX package's stop-the-world serves, one per (model, KV mode,
+    policy) (built on first use)."""
     runs = {}
 
-    def get(setup, kv):
+    def get(setup, kv, policy):
         cfg, params, casc, _, _ = setup
-        if (cfg.name, kv) not in runs:
-            requests = _requests(JRequest, cfg)
+        if (cfg.name, kv, policy) not in runs:
+            requests = _requests(JRequest, cfg, policy=policy)
             bank, sid_of = jrt.build_bank(
-                requests, jrt.cascade_factory(casc), ("recall_index", None))
+                requests, _factory(jserve, casc), (policy, None))
             stepper = jrt.EngineStepper(params, cfg, bank, n_lanes=2,
                                         cache_len=32, prompt_len=PROMPT_LEN,
                                         kv=kv, page_size=8)
             metrics, nodes = _serve_logged(jrt, stepper, sid_of, requests)
-            runs[cfg.name, kv] = (requests, metrics, nodes,
-                                  None if stepper.pool is None
-                                  else stepper.pool.stats())
-        return runs[cfg.name, kv]
+            runs[cfg.name, kv, policy] = (requests, metrics, nodes,
+                                          None if stepper.pool is None
+                                          else stepper.pool.stats())
+        return runs[cfg.name, kv, policy]
 
     return get
 
 
 @pytest.mark.parametrize(
-    "model,kv,kernel",
-    [("attn", "ring", False), ("attn", "ring", True),
-     ("attn", "paged", False), ("ssm", "ring", False),
-     ("ssm", "ring", True), ("ssm", "paged", False)],
+    "model,kv,kernel,policy",
+    [("attn", "ring", False, "recall_index"),
+     ("attn", "ring", True, "recall_index"),
+     ("attn", "paged", False, "recall_index"),
+     ("ssm", "ring", False, "recall_index"),
+     ("ssm", "ring", True, "recall_index"),
+     ("ssm", "paged", False, "recall_index")]
+    + [("attn", "ring", False, p) for p in POLICIES],
     ids=["ring", "ring-flash", "paged", "ssm-ring", "ssm-ring-ssd",
-         "ssm-paged"])
+         "ssm-paged"] + [f"ring-{p}" for p in POLICIES])
 def test_stop_the_world_serves_what_the_reference_serves(
-        request, stw_reference, model, kv, kernel):
+        request, stw_reference, model, kv, kernel, policy):
     """``kernel``: the flash route (attention) or the ssd-chunk route
     (SSM), whose plain versions run on the CPU."""
     setup = request.getfixturevalue("setup" if model == "attn"
                                     else "ssm_setup")
     cfg, _, _, tparams, tcasc = setup
-    jreqs, jm, jnodes, jpool = stw_reference(setup, kv)
-    requests = _requests(TRequest, cfg)
-    bank, sid_of = trt.build_bank(requests, trt.cascade_factory(tcasc),
-                                  ("recall_index", None))
+    jreqs, jm, jnodes, jpool = stw_reference(setup, kv, policy)
+    requests = _requests(TRequest, cfg, policy=policy)
+    bank, sid_of = trt.build_bank(requests, _factory(tserve, tcasc),
+                                  (policy, None))
     stepper = trt.EngineStepper(tparams, cfg, bank, n_lanes=2, cache_len=32,
                                 prompt_len=PROMPT_LEN, kv=kv, page_size=8,
                                 use_flash=kernel and model == "attn",
@@ -344,6 +394,73 @@ def test_launcher_serves_mamba_on_cpu(capsys, tmp_path, server):
     assert (ssd_chunk.launches, bellman_backup.launches) == before
 
 
+def test_launcher_policy_choices_are_the_reference():
+    """The port's --policy choices, aliases and online list are the JAX
+    launcher's; every choice parses, the hindsight oracles do not."""
+    assert tserve.ALIASES == jserve.ALIASES
+    assert tserve.ONLINE == jserve.ONLINE
+    choices = sorted(set(jserve.ONLINE) | set(jserve.ALIASES))
+    for name in choices:
+        assert tserve.parse_args(["--policy", name]).policy == name
+    for name in ("oracle", "oracle_norecall"):
+        with pytest.raises(SystemExit):
+            tserve.parse_args(["--policy", name])
+    args = tserve.parse_args([])
+    assert (args.threshold, args.patience) == (0.4, 2)
+
+
+def test_build_strategy_follows_the_reference(setup):
+    """The threshold and patience family pins lam = 1.0 and refuses a
+    per-request lam; skip_recall takes cumulative edge costs on one
+    model; the others take the per-request lam."""
+    _, _, casc, _, tcasc = setup
+    for name in ("norecall_threshold", "recall_threshold",
+                 "norecall_patience"):
+        for mod, c in ((jserve, casc), (tserve, tcasc)):
+            strat = mod.build_strategy(name, c, threshold=0.25, patience=3)
+            assert strat.lam == 1.0
+            with pytest.raises(ValueError, match="per-request lam"):
+                mod.build_strategy(name, c, threshold=0.25, patience=3,
+                                   lam=0.7)
+        t = tserve.build_strategy(name, tcasc, threshold=0.25, patience=3)
+        if name == "norecall_patience":
+            assert t.patience == 3
+        else:
+            assert float(t.thresholds[0]) == pytest.approx(0.25)
+    s = tserve.build_strategy("skip_recall", tcasc, threshold=0.4,
+                              patience=2, lam=0.7)
+    assert tcasc.skip_mode == "cumulative" and s.lam == 0.7
+    assert tserve.build_strategy("tree_index", tcasc, threshold=0.4,
+                                 patience=2).lam == tcasc.lam
+
+
+@pytest.mark.parametrize("policy", ["threshold", "skip_recall"])
+def test_launcher_takes_aliases_and_new_policies_on_cpu(capsys, policy):
+    """--policy threshold (the alias of norecall_threshold) on the
+    one-shot path and skip_recall on the ring server run end to end;
+    skip_recall calibrates but solves no line tables."""
+    torch.set_num_threads(2)
+    argv = ["--smoke", "--device", "cpu", "--policy", policy,
+            "--tokens", "4", "--prompt-len", "10"]
+    if policy == "skip_recall":
+        argv += ["--server", "--lanes", "2", "--rate", "6",
+                 "--duration", "0.5"]
+    else:
+        argv += ["--batch", "3", "--cache-len", "16", "--threshold", "0.9"]
+    run = tserve.main(argv)
+    out = capsys.readouterr().out
+    if policy == "threshold":
+        assert "strategy: norecall_threshold (registry: " in out
+        assert run.stats.tokens.shape == (3, 4)
+    else:
+        assert "strategy: skip_recall (registry: " in out
+        assert "calibrated T-Tamer tables" not in out
+        assert run.cascade.skip_mode == "cumulative"
+        assert run.cascade.line_tables is None
+        for req in run.requests:
+            assert run.metrics.records[req.rid].n_tokens == req.max_tokens
+
+
 def test_launcher_refuses_to_run_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA is not available"):
@@ -360,7 +477,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 20 and files[-1].exists()
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("kernels/flash_attention", "kernels/bellman_backup",
-                "kernels/ssd_chunk", "models/ssm", "configs/mamba2_130m"):
+                "kernels/ssd_chunk", "models/ssm", "configs/mamba2_130m",
+                "kernels/ramp_exit", "core/skip_dp", "core/tree_dp",
+                "core/traces", "core/brute_force", "core/impossibility",
+                "core/pareto", "strategy/oracle", "strategy/skip"):
         assert f"src/repro_torch/{mod}.py" in names
     bad = []
     for path in files:
