@@ -8,7 +8,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      CUDA versions, and builds every CUDA kernel of the serve paths from
      the sources in the checkout (one nvcc per source, in parallel):
      paged_attention, paged_prefill, flash_attention, bellman_backup,
-     ssd_chunk, ramp_exit;
+     ssd_chunk, ramp_exit; prints what ptxas reports for each
+     (registers, static shared memory, spills) and, for flash_attention
+     and ssd_chunk, what the runtime reports at their timed shapes
+     (registers, shared memory a block, blocks an SM, local memory);
   2. holds each kernel against its plain PyTorch version on the card:
      the paged pair at the chunked serve's shapes (8 lanes, 12 heads,
      head_dim 64, 16-token pages, 8 pages a lane, 16-token chunks),
@@ -16,16 +19,20 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      chunks, a GQA case with a window and the serve's own history
      lengths, atol = rtol = 1e-4; flash_attention at the calibration
      prefill's shape (512, 64, 12, 12, 64), a ring admission's (1, 32,
-     12, 12, 64), a GQA case with a window and a ragged length, and
-     head_dim 32 and 96 cases, atol = rtol = 1e-4 (f32 sums in another
+     12, 12, 64), a GQA case with a window and a ragged length, head_dim
+     32 and 96 cases, and S in {1, 63, 65, 129} at each head_dim (GQA,
+     a window past one tile), atol = rtol = 1e-4 (f32 sums in another
      order); bellman_backup at K = 24 and 64 on row-stochastic
-     transitions, atol = rtol = 1e-5; ssd_chunk at the mamba2-130m
-     calibration prefill's shape (512, 1, 256, 24, 64, 128), a ring
-     admission's (1, 1, 256, ...), four chunks (2, 4, 256, ...), all
-     with dt and da drawn as the model makes them (softplus, a = -e, so
-     exp overflows above the diagonal) and B/C broadcast over the heads
-     with stride 0, and a small (2, 3, 32, 4, 32, 16) case with per-head
-     B/C, atol = rtol = 2e-4, every output finite; ramp_exit at the
+     transitions, atol = rtol = 1e-5; ssd_chunk at what the mamba2-130m
+     calibration passes ((512, 1, 256, 24, 64, 128) with 64 valid rows,
+     zeros after, q_valid 64), the same shape as a random full chunk, a
+     ring admission's (1, 1, 256, ...) with q_valid 32, four chunks (2,
+     4, 256, ...) with a ragged last one (q_valid 37), q_valid 1, 200 and
+     256, all with dt and da drawn as the model makes them (softplus,
+     a = -e, so exp overflows above the diagonal) and B/C broadcast over
+     the heads with stride 0, and a small (2, 3, 32, 4, 32, 16) case
+     with per-head B/C, atol = rtol = 2e-4, every output finite and the
+     y rows past q_valid exactly 0; ramp_exit at the
      readout's (8, 50 257, K 24) with x_idx spread over 0..K+1, a
      ragged (3, 50 257), mamba2's V of 50 280, the JAX test's (4, 1000,
      16), (8, 4096, 32) and (3, 2048, 64), (512, 50 257, 24), a row
@@ -63,13 +70,18 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
   4. times each kernel and its plain version with CUDA events — device
      time from CUDA graph replay, and the time of an eager call, host
      included — on the chunked serve's shapes (paged pair), the
-     calibration prefill's shape (flash_attention, beside one call of
+     calibration prefill's and a ring admission's shapes
+     (flash_attention, each beside one call of
      ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick the
-     port never calls; ssd_chunk, which no PyTorch call computes), and
-     K = 24 (bellman_backup), the readout's (8, 50 257, K 24)
-     (ramp_exit, which no PyTorch call computes), computes each
-     kernel's bound from its inputs, and times both calibration prefills (paper-ee-100m with
-     and without --flash, mamba2-130m with and without --ssd-kernel);
+     port never calls), the calibration's real call and a random full
+     chunk (ssd_chunk, which no PyTorch call computes), K = 24
+     (bellman_backup), the readout's (8, 50 257, K 24) (ramp_exit,
+     which no PyTorch call computes); computes each case's bound from
+     its inputs (for ssd_chunk only the rows below q_valid, and its
+     products at 3 x their flops at the TF32 tensor-core rate, the f32
+     figure beside), and times both calibration prefills (paper-ee-100m
+     with and without --flash, mamba2-130m with and without
+     --ssd-kernel);
   5. serves at full width through ``repro_torch.launch.serve.main``
      twelve times — paper-ee-100m chunked paged under recall_index and
      under always_last (the paged pair's path), the ring server with
@@ -86,8 +98,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      (ramp_exit in every serve: no serve calls it) must not;
   6. prints a ``kernels`` JSON line (``launches`` is each kernel's
      count on its own main path — for ramp_exit the decision check;
-     ``launches_by_path`` holds every path's), the card line, and last
-     ``{"ok": true, "device": {...}}``.
+     ``launches_by_path`` holds every path's; the times are the first
+     timed case's, ``timed_cases`` holds every case of a kernel timed at
+     more than one, ``resources`` what the runtime reported), the card
+     line, and last ``{"ok": true, "device": {...}}``.
 
 It exits nonzero, printing no result, when CUDA is not available, when
 the repository's sources are not beside it, or when any check fails.
@@ -95,6 +109,7 @@ the repository's sources are not beside it, or when any check fails.
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -137,6 +152,7 @@ TOL_SSD = 2e-4
 TOL_EXIT = 1e-5              # the JAX package's own ramp_exit tolerance
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_S = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_FLOP_S = 494.7e12       # H100 SXM TF32 tensor cores, dense
 # the serve path's shapes (full-width paper-ee-100m)
 B, H, HKV, HD, PS, MAXP, C = 8, 12, 12, 64, 16, 8, 16
 LOAD = ["--lanes", str(B), "--rate", "8", "--duration", "2", "--tokens",
@@ -186,6 +202,15 @@ KERNELS = {"paged_attention": paged_attention, "paged_prefill": paged_prefill,
            "flash_attention": flash_attention,
            "bellman_backup": bellman_backup, "ssd_chunk": ssd_chunk,
            "ramp_exit": ramp_exit}
+PLAINS = {"paged_attention": paged_attention_plain,
+          "paged_prefill": paged_prefill_plain,
+          "flash_attention": flash_attention_plain,
+          "bellman_backup": bellman_backup_plain,
+          "ssd_chunk": ssd_chunk_plain, "ramp_exit": ramp_exit_plain}
+# the wrappers' modules (the package attributes of these names are the
+# wrapper functions)
+FLASH_MOD = importlib.import_module("repro_torch.kernels.flash_attention")
+SSD_MOD = importlib.import_module("repro_torch.kernels.ssd_chunk")
 SOURCES = {
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:87"),
@@ -356,12 +381,17 @@ def prefill_bound(args, kw):
 
 
 # flash attention: (b, s, h, hkv, hd, window) — the calibration
-# prefill's shape first (the timed case), then a ring admission's
+# prefill's shape first and a ring admission's (the timed cases), then
+# a GQA case with a window and lengths at the 64-row tile's edges at
+# every head dim
 FLASH_CASES = [("calibration", (512, 64, 12, 12, 64, None)),
                ("ring-admission", (1, 32, 12, 12, 64, None)),
                ("gqa-window-ragged", (2, 200, 8, 2, 128, 48)),
                ("hd32", (4, 100, 4, 2, 32, None)),
-               ("hd96", (2, 130, 6, 3, 96, 40))]
+               ("hd96", (2, 130, 6, 3, 96, 40))] + [
+    (f"s{s}-hd{hd}", (2, s, 4, 2, hd, 24 if s > 64 else None))
+    for s in (1, 63, 65, 129) for hd in (32, 64, 96, 128)]
+FLASH_TIMED = ("calibration", "ring-admission")
 
 
 def flash_case(seed, b, s, h, hkv, hd, window):
@@ -415,19 +445,29 @@ def bellman_bound(args, kw):
     return nbytes, 2 * k * k * x
 
 
-# ssd chunk: (b, c, q, h, p, n, stride-0 B/C) — the mamba2-130m
-# calibration prefill's shape first (the timed case)
-SSD_CASES = [("calibration", (512, 1, 256, 24, 64, 128, True)),
-             ("ring-admission", (1, 1, 256, 24, 64, 128, True)),
-             ("four-chunks", (2, 4, 256, 24, 64, 128, True)),
-             ("small-per-head-bc", (2, 3, 32, 4, 32, 16, False))]
+# ssd chunk: (b, c, q, h, p, n, stride-0 B/C, q_valid) — first what the
+# mamba2-130m calibration passes (64-token prompts: 64 valid rows of a
+# 256-row chunk, zeros after) and a random full chunk (the timed
+# cases), then a ring admission (32-token prompts), four chunks with a
+# ragged last one, the q_valid edges and a small per-head case
+SSD_CASES = [("calibration", (512, 1, 256, 24, 64, 128, True, 64)),
+             ("full-chunk", (512, 1, 256, 24, 64, 128, True, None)),
+             ("ring-admission", (1, 1, 256, 24, 64, 128, True, 32)),
+             ("four-chunks", (2, 4, 256, 24, 64, 128, True, 37)),
+             ("q_valid-1", (2, 1, 256, 24, 64, 128, True, 1)),
+             ("q_valid-200", (2, 1, 256, 24, 64, 128, True, 200)),
+             ("q_valid-256", (2, 1, 256, 24, 64, 128, True, 256)),
+             ("small-per-head-bc", (2, 3, 32, 4, 32, 16, False, None))]
+SSD_TIMED = ("calibration", "full-chunk")
 
 
-def ssd_case(seed, b, c, q, h, p, n, broadcast):
+def ssd_case(seed, b, c, q, h, p, n, broadcast, q_valid):
     """Inputs drawn as the model makes them: dt = softplus(.), da = -e *
     dt (a_log = 1: exp(seg_i - seg_j) overflows above the diagonal);
     with ``broadcast`` B and C are one group expanded over the heads
-    with stride 0, as `models.ssm` passes them."""
+    with stride 0, as `models.ssm` passes them; with ``q_valid`` the
+    rows of the last chunk from it on are zero in every input, as
+    `models.ssm` pads a prompt, and the call passes q_valid."""
     rng = np.random.default_rng(seed)
 
     def rnd(*shape):
@@ -436,10 +476,13 @@ def ssd_case(seed, b, c, q, h, p, n, broadcast):
 
     dt = F.softplus(rnd(b, c, q, h))
     hb = 1 if broadcast else h
-    bb, cc = rnd(b, c, q, hb, n), rnd(b, c, q, hb, n)
+    x, bb, cc = rnd(b, c, q, h, p), rnd(b, c, q, hb, n), rnd(b, c, q, hb, n)
+    if q_valid is not None:
+        for t in (dt, x, bb, cc):
+            t[:, -1, q_valid:] = 0.0
     if broadcast:
         bb, cc = bb.expand(b, c, q, h, n), cc.expand(b, c, q, h, n)
-    return (rnd(b, c, q, h, p), dt, -np.e * dt, bb, cc), {}
+    return (x, dt, -np.e * dt, bb, cc), dict(q_valid=q_valid)
 
 
 def _stored(t):
@@ -448,18 +491,22 @@ def _stored(t):
 
 
 def ssd_bound(args, kw):
-    """Bytes and flops one SSD-chunk call needs: every stored input
-    element read once (B/C broadcast over the heads count once), y and
-    the states written once; per (b, c, h) 2N + 2P flops for each of the
-    Q(Q+1)/2 visible (i >= j) pairs and 2QPN for the state (the count
-    `flash_bound` uses: visible pairs only)."""
+    """Bytes and flops one SSD-chunk call needs, counting only the rows
+    below q_valid in the last chunk (the rest are the caller's zeros,
+    which the function does not need): each of their stored input
+    elements read once (B/C broadcast over the heads count once), all
+    of y and the states written once; per (b, c, h) 2N + 2P flops for
+    each visible (i >= j) pair of those rows and 2PN for each of them
+    in the state (the count `flash_bound` uses: visible pairs only)."""
     xh, dt, da, bb, cc = args
     b, c, q, h, p = xh.shape
     n = bb.shape[-1]
-    nbytes = 4 * (sum(_stored(t) for t in args) + xh.numel()
-                  + b * c * h * p * n)
-    pairs = q * (q + 1) // 2
-    return nbytes, b * c * h * (pairs * (2 * n + 2 * p) + 2 * q * p * n)
+    qv = kw.get("q_valid") or q
+    rows = (c - 1) * q + qv                      # of the c * q stored
+    nbytes = 4 * (sum(_stored(t) for t in args) * rows // (c * q)
+                  + xh.numel() + b * c * h * p * n)
+    pairs = (c - 1) * q * (q + 1) // 2 + qv * (qv + 1) // 2
+    return nbytes, b * h * (pairs * (2 * n + 2 * p) + 2 * rows * p * n)
 
 
 # exit decision: (b, v, k, bool table, variant) — the readout's shape
@@ -517,8 +564,10 @@ def exit_bound(args, kw):
     return nbytes, 4 * b * v + b * edges.numel()
 
 
-def bound_ms(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+def bound_ms(nbytes, flops, rate=F32_FLOP_S):
+    """The larger of the bytes over the memory rate and the operations
+    over ``rate`` (f32 outside the tensor cores unless given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -570,15 +619,34 @@ def graph_ms(fn, calls=20, replays=10):
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    """Build every kernel; print what ptxas reports for each (registers,
+    static shared memory, spills) and, for the two kernels with dynamic
+    shared memory sized by the call, what the runtime reports at their
+    timed shapes.  Returns the latter."""
     t0 = time.perf_counter()
     built = build.build_all()
     wall = time.perf_counter() - t0
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
-                if "registers" in ln]
+                if "registers" in ln or "spill" in ln]
         log(f"build {name}: {info['seconds']:.1f} s "
             f"({'; '.join(regs) or 'cached'})")
     log(f"kernel build wall time: {wall:.1f} s (all sources in parallel)")
+    res = {}
+    for name, info in (
+            ("flash_attention", {
+                case: FLASH_MOD.kernel_info(shape[4], shape[1])
+                for case, shape in FLASH_CASES if case in FLASH_TIMED}),
+            ("ssd_chunk", {
+                case: SSD_MOD.kernel_info(shape[2], shape[4], shape[5])
+                for case, shape in SSD_CASES if case in SSD_TIMED})):
+        res[name] = info
+        for case, r in info.items():
+            log(f"resources {name} [{case}]: {r['registers']} registers "
+                f"a thread, {r['smem_bytes']} bytes of shared memory a "
+                f"block, {r['blocks_per_sm']} blocks an SM, "
+                f"{r['local_bytes']} bytes of local memory a thread")
+    return res
 
 
 def phase_kernel_checks():
@@ -602,24 +670,28 @@ def phase_kernel_checks():
     cases += [("ssd_chunk", case, (lambda i=i, shape=shape:
                                    ssd_case(30 + i, *shape)), TOL_SSD)
               for i, (case, shape) in enumerate(SSD_CASES)]
-    plains = {"paged_attention": paged_attention_plain,
-              "paged_prefill": paged_prefill_plain,
-              "flash_attention": flash_attention_plain,
-              "bellman_backup": bellman_backup_plain,
-              "ssd_chunk": ssd_chunk_plain}
     for name, case, inputs, tol in cases:
         args, kw = inputs() if callable(inputs) else inputs
         got = KERNELS[name](*args, **kw)
         torch.cuda.synchronize()
-        want = plains[name](*args, **kw)
+        want = PLAINS[name](*args, **kw)
         if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        # the largest |g - w| / (atol + rtol |w|): allclose holds below 1
+        share = max(float(((g - w).abs() / (tol + tol * w.abs())).max())
+                    for g, w in zip(got, want))
         ok = all(bool(torch.isfinite(g).all())
                  and torch.allclose(g, w, atol=tol, rtol=tol)
                  for g, w in zip(got, want))
-        log(f"check {name} [{case}] vs plain: max_abs_err {err:.3e} "
-            f"(atol=rtol={tol}, outputs finite) {'ok' if ok else 'FAIL'}")
+        qv = kw.get("q_valid") if name == "ssd_chunk" else None
+        if qv is not None:          # the skipped y rows: exact zeros
+            ok &= bool((got[0][:, -1, qv:] == 0).all())
+        log(f"check {name} [{case}] vs plain: max_abs_err {err:.3e}, "
+            f"{share:.3f} of the tolerance at worst "
+            f"(atol=rtol={tol}, outputs finite"
+            + ("" if qv is None else f", y rows {qv}.. of the last chunk "
+               "exactly 0") + f") {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{name} [{case}] disagrees with its plain "
                              f"version: max_abs_err {err}")
@@ -1019,32 +1091,44 @@ def phase_calibration_timing(params, cfg, flag):
     torch.cuda.empty_cache()
 
 
+# the timed cases: (kernel, case, inputs, bound); a kernel's first case
+# is its main one (the ``kernels`` line's numbers), the others are in
+# its ``timed_cases``
+TIMED = [("paged_attention", "serve", lambda: decode_case(4, lens=SERVE_LENS),
+          decode_bound),
+         ("paged_prefill", "serve",
+          lambda: prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS),
+          prefill_bound)]
+TIMED += [("flash_attention", case, lambda i=i, shape=shape:
+           flash_case(10 + i, *shape), flash_bound)
+          for i, (case, shape) in enumerate(FLASH_CASES) if case in FLASH_TIMED]
+TIMED += [("bellman_backup", "K=24", lambda: bellman_case(24, 24),
+           bellman_bound)]
+TIMED += [("ssd_chunk", case, lambda i=i, shape=shape:
+           ssd_case(30 + i, *shape), ssd_bound)
+          for i, (case, shape) in enumerate(SSD_CASES) if case in SSD_TIMED]
+TIMED += [("ramp_exit", "readout", lambda: exit_case(40, *EXIT_CASES[0][1]),
+           exit_bound)]
+
+
 def phase_timing():
+    """Each timed case: the kernel and its plain version by CUDA graph
+    replay in turns (plain, kernel, kernel, plain) and as eager calls,
+    the bound from the case's inputs and, for flash, the library call.
+    Returns {kernel: {case: numbers}}."""
     rows = {}
-    flash_args, flash_kw = flash_case(10, *FLASH_CASES[0][1])
-    for name, kern, plain, (args, kw), bound in (
-            ("paged_attention", paged_attention, paged_attention_plain,
-             decode_case(4, lens=SERVE_LENS), decode_bound),
-            ("paged_prefill", paged_prefill, paged_prefill_plain,
-             prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS),
-             prefill_bound),
-            ("flash_attention", flash_attention, flash_attention_plain,
-             (flash_args, flash_kw), flash_bound),
-            ("bellman_backup", bellman_backup, bellman_backup_plain,
-             bellman_case(24, 24), bellman_bound),
-            ("ssd_chunk", ssd_chunk, ssd_chunk_plain,
-             ssd_case(30, *SSD_CASES[0][1]), ssd_bound),
-            ("ramp_exit", ramp_exit, ramp_exit_plain,
-             exit_case(40, *EXIT_CASES[0][1]), exit_bound)):
+    for name, case, inputs, bound in TIMED:
+        args, kw = inputs()
+        kern, plain = KERNELS[name], PLAINS[name]
+
         def run_kern():
             return kern(*args, **kw)
 
         def run_plain():
             return plain(*args, **kw)
 
-        # in turns: plain, kernel, kernel, plain; the SSD chunk at the
-        # calibration shape takes milliseconds (its plain version tens),
-        # so fewer calls a graph
+        # the SSD chunk at the calibration shape takes milliseconds (its
+        # plain version tens), so fewer calls a graph
         g = dict(calls=4, replays=3) if name == "ssd_chunk" else {}
         plain_g = [graph_ms(run_plain, **g)]
         kern_g = [graph_ms(run_kern, **g), graph_ms(run_kern, **g)]
@@ -1053,7 +1137,16 @@ def phase_timing():
         kern_e = time_ms(run_kern, iters=20 if g else 200)
         plain_e = time_ms(run_plain, iters=10 if g else 50, warm=2)
         nbytes, flops = bound(args, kw)
-        b_ms, b_by = bound_ms(nbytes, flops)
+        ops = f"{flops} flops"
+        if name == "ssd_chunk":
+            # its three products run in 3xTF32 on the tensor cores: three
+            # TF32 products a product
+            b_ms, b_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_S)
+            ops = (f"3 x {flops} flops at {TF32_FLOP_S / 1e12} TFLOP/s; the "
+                   f"f32 figure at {F32_FLOP_S / 1e12:.0f} TFLOP/s: "
+                   f"{bound_ms(nbytes, flops)[0]:.6f} ms")
+        else:
+            b_ms, b_by = bound_ms(nbytes, flops)
         lib = None
         if name == "flash_attention":
             # the yardstick: one PyTorch call computing the same function
@@ -1068,21 +1161,22 @@ def phase_timing():
             lib = min(graph_ms(run_lib), graph_ms(run_lib))
             lib_err = float((run_lib().transpose(1, 2) - run_plain())
                             .abs().max())
-            log(f"time {name}: library call "
+            log(f"time {name} [{case}]: library call "
                 f"F.scaled_dot_product_attention(is_causal=True) {lib:.5f} "
                 f"ms (device, graph replay; max_abs_err vs plain "
                 f"{lib_err:.3e})")
             del qt, kt, vt
         del args
         torch.cuda.empty_cache()
-        rows[name] = dict(ms=min(kern_g), plain_ms=min(plain_g),
-                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                          eager_ms=kern_e, plain_eager_ms=plain_e)
-        log(f"time {name} (device, CUDA graph replay): kernel "
+        rows.setdefault(name, {})[case] = dict(
+            ms=min(kern_g), plain_ms=min(plain_g), bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib, eager_ms=kern_e,
+            plain_eager_ms=plain_e)
+        log(f"time {name} [{case}] (device, CUDA graph replay): kernel "
             f"{kern_g[0]:.5f} / {kern_g[1]:.5f} ms, plain {plain_g[0]:.5f} "
             f"/ {plain_g[1]:.5f} ms; eager call (host included): kernel "
             f"{kern_e:.5f} ms, plain {plain_e:.5f} ms; bound {b_ms:.6f} ms "
-            f"by {b_by} ({nbytes} bytes, {flops} flops)")
+            f"by {b_by} ({nbytes} bytes, {ops})")
     return rows
 
 
@@ -1165,7 +1259,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_build()
+    resources = phase_build()
     errs = phase_kernel_checks()
     errs["ramp_exit"] = phase_exit_checks()
     cfg = get_config("paper-ee-100m")
@@ -1191,18 +1285,21 @@ def main() -> None:
     by_path = {DECISION: decision}
     by_path.update({name: phase_serve(name, argv, must, must_not)
                     for name, argv, must, must_not in SERVES})
-    kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
-                    replaces=SOURCES[name][1],
-                    launches=by_path[MAIN_PATH[name]][name],
-                    launches_by_path={p: n[name] for p, n in by_path.items()},
-                    max_abs_err=errs[name], ms=times[name]["ms"],
-                    plain_ms=times[name]["plain_ms"],
-                    bound_ms=times[name]["bound_ms"],
-                    bound_by=times[name]["bound_by"],
-                    library_ms=times[name]["library_ms"],
-                    eager_ms=times[name]["eager_ms"],
-                    plain_eager_ms=times[name]["plain_eager_ms"], ok=True)
-               for name in KERNELS]
+    kernels = []
+    for name in KERNELS:
+        cases = times[name]
+        main_case = next(iter(cases))
+        row = dict(name=name, route="cuda", source=SOURCES[name][0],
+                   replaces=SOURCES[name][1],
+                   launches=by_path[MAIN_PATH[name]][name],
+                   launches_by_path={p: n[name] for p, n in by_path.items()},
+                   max_abs_err=errs[name], timed_case=main_case,
+                   **cases[main_case], ok=True)
+        if len(cases) > 1:
+            row["timed_cases"] = cases
+        if name in resources:
+            row["resources"] = resources[name]
+        kernels.append(row)
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

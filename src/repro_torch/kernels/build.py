@@ -20,7 +20,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library"]
+__all__ = ["SOURCES", "build_all", "library", "check_rows_aligned"]
 
 SOURCES = ("paged_attention", "paged_prefill", "flash_attention",
            "bellman_backup", "ssd_chunk", "ramp_exit")
@@ -102,3 +102,18 @@ def library(name: str) -> ctypes.CDLL:
                 _loaded.setdefault(n, ctypes.CDLL(str(info["path"])))
             lib = _loaded[name]
         return lib
+
+
+def check_rows_aligned(kernel: str, **tensors) -> None:
+    """Raise unless every row of each tensor starts on 16 bytes, for a
+    kernel that copies rows in 16-byte pieces: the base pointer 16-byte
+    aligned and every stride but the last a multiple of 4 elements (a
+    stride of an axis of length 1 is never used).  The wrappers raise;
+    they never copy to make a tensor so."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(st % 4 for st, n in zip(
+                t.stride()[:-1], t.shape[:-1]) if n > 1):
+            raise ValueError(
+                f"{kernel}: {name} must start on 16 bytes and have strides "
+                f"that are multiples of 4 elements (data_ptr % 16 = "
+                f"{t.data_ptr() % 16}, strides {tuple(t.stride())})")

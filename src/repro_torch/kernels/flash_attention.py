@@ -12,7 +12,11 @@ here take the model layout `models.attention.attn_forward` computes:
 
 Unlike the TPU wrapper (``repro.kernels.ops.flash_attention``), nothing
 is transposed or padded: the kernel reads q, k and v in place through
-their strides and masks the ragged tail of S itself.
+their strides and masks the ragged tail of S itself.  It copies rows in
+16-byte pieces, so each of q, k and v must start on 16 bytes and have
+(batch, seq, head) strides that are multiples of 4 elements (a stride
+of an axis of length 1 is never used); the wrapper raises otherwise
+and never copies to make them so.
 
 `flash_attention` runs the plain version for CPU tensors and the kernel
 for CUDA tensors — there is no fallback between them.
@@ -27,7 +31,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
+           "kernel_info"]
 
 HEAD_DIMS = (32, 64, 96, 128)      # the kernel's template instances
 
@@ -84,6 +89,7 @@ def _check(q, k, v):
     devs = {t.device for t in (q, k, v)}
     if len(devs) != 1:
         raise ValueError(f"flash_attention tensors span devices {devs}")
+    build.check_rows_aligned("flash_attention", q=q, k=k, v=v)
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
@@ -114,3 +120,16 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
 
 
 flash_attention.launches = 0
+
+
+def kernel_info(hd: int, s: int) -> dict:
+    """The kernel's resources at head dim ``hd`` and length ``s``, as the
+    CUDA runtime reports them: registers a thread, shared memory a block
+    (bytes), blocks an SM holds, local (spill) bytes a thread."""
+    out = (ctypes.c_int * 4)()
+    rc = build.library("flash_attention").repro_flash_attention_info(
+        ctypes.c_int(hd), ctypes.c_int(s), out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention info failed: CUDA error {rc}")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "local_bytes"), out))

@@ -89,7 +89,8 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~mask, -torch.inf)
 
 
-def ssd_chunked(xh, dt, a, bb, cc, chunk: int, *, use_kernel: bool = False):
+def ssd_chunked(xh, dt, a, bb, cc, chunk: int, *, use_kernel: bool = False,
+                q_valid: int | None = None):
     """Chunked SSD core.
 
     Args:
@@ -103,6 +104,10 @@ def ssd_chunked(xh, dt, a, bb, cc, chunk: int, *, use_kernel: bool = False):
         (its plain version on CPU tensors); off, the einsum path of the
         JAX package's own ``ssd_chunked``, kept apart from the kernel's
         plain version so that it witnesses the kernel on the card.
+      q_valid: rows of the last chunk that are not padding (None: all);
+        the rows after them must have x = B = C = dt = 0, and the kernel
+        route skips them (`kernels.ssd_chunk`).  The einsum path
+        computes them (they add exactly nothing).
 
     Returns: y (B, S, H, P), final_state (B, H, P, N).
     """
@@ -118,7 +123,7 @@ def ssd_chunked(xh, dt, a, bb, cc, chunk: int, *, use_kernel: bool = False):
     da = dt_ * a[None, None, None, :]                    # (B,nc,Q,H)
 
     if use_kernel:
-        y_diag, states = ssd_chunk(xh_, dt_, da, bb_, cc_)
+        y_diag, states = ssd_chunk(xh_, dt_, da, bb_, cc_, q_valid=q_valid)
     else:
         seg = _segsum(da.transpose(-1, -2))              # (B,nc,H,Q,Q)
         l = torch.exp(seg)
@@ -170,6 +175,7 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: SSMConfig,
 
     # pad S to a multiple of the chunk after the softplus: padded rows
     # have x = B = C = 0 and dt = 0, so they add nothing, decay nothing
+    # (the kernel route skips them: q_valid = chunk - pad)
     pad = (-s) % cfg.chunk
     if pad:
         xbc = F.pad(xbc, (0, 0, 0, pad))
@@ -178,7 +184,8 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: SSMConfig,
     xs, bb, cc = torch.split(xbc, [di, gn, gn], dim=-1)
     xh = xs.reshape(b, sp, h, cfg.head_dim)
     y, final = ssd_chunked(xh, dt, a, _heads(bb, cfg, h), _heads(cc, cfg, h),
-                           cfg.chunk, use_kernel=use_kernel)
+                           cfg.chunk, use_kernel=use_kernel,
+                           q_valid=cfg.chunk - pad if pad else None)
     y = y[:, :s] + xh[:, :s] * p["d_skip"][None, None, :, None]
     y = y.reshape(b, s, di)
     y = rms_norm({"scale": p["norm"]}, y * F.silu(z), eps)

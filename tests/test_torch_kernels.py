@@ -23,6 +23,7 @@ tests that need it, so that test also runs where JAX is not installed
 (``pytest -m cuda tests/test_torch_kernels.py``).
 """
 
+import importlib
 import types
 
 import numpy as np
@@ -309,12 +310,27 @@ FLASH_CASES = {
     "window": (1, 40, 4, 2, 32, 8),
     "gqa_window_tiles": (1, 150, 4, 1, 96, 48),   # several 64-row tiles
     "hd128": (1, 70, 2, 2, 128, None),
+    # lengths at and around the 64-row tile, one per head dim
+    "s1_hd32": (2, 1, 4, 2, 32, None),
+    "s63_hd64": (1, 63, 4, 4, 64, None),
+    "s65_hd96": (1, 65, 4, 2, 96, 20),
+    "s129_hd128": (1, 129, 2, 1, 128, None),
 }
+
+# the card-only test's extra cases: every length of FLASH_CASES' tile
+# edges at every head dim, GQA, half of them with a window
+FLASH_EDGES = {f"s{s}_hd{hd}": (1, s, 4, 2, hd, 24 if (s + hd) % 2 else None)
+               for s in (1, 63, 65, 129) for hd in (32, 64, 96, 128)}
 
 
 def _flash_inputs(case):
-    b, s, h, hkv, hd, window = FLASH_CASES[case]
-    rng = np.random.default_rng(20 + sorted(FLASH_CASES).index(case))
+    if case in FLASH_CASES:
+        b, s, h, hkv, hd, window = FLASH_CASES[case]
+        seed = 20 + sorted(FLASH_CASES).index(case)
+    else:
+        b, s, h, hkv, hd, window = FLASH_EDGES[case]
+        seed = 40 + sorted(FLASH_EDGES).index(case)
+    rng = np.random.default_rng(seed)
     q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
     k = rng.normal(size=(b, s, hkv, hd)).astype(np.float32)
     v = rng.normal(size=(b, s, hkv, hd)).astype(np.float32)
@@ -391,15 +407,49 @@ def test_new_wrappers_take_the_plain_version_on_cpu():
     assert bellman_backup.launches == before
 
 
+def _flash_mod():
+    """The module (the package attribute of that name is the wrapper)."""
+    return importlib.import_module("repro_torch.kernels.flash_attention")
+
+
+@pytest.mark.parametrize("bad", ["q_offset", "k_seq_stride", "v_head_stride"])
+def test_flash_wrapper_refuses_unaligned_rows(bad):
+    """The kernel copies rows in 16-byte pieces: `_check` (what the
+    wrapper runs before a launch) raises on a base pointer off 16 bytes
+    or a (batch, seq, head) stride that is not a multiple of 4, and
+    passes the aligned tensors and strides of length-1 axes."""
+    b, s, h, hd = 2, 8, 4, 32
+    q, k, v = (torch.zeros((b, s, h, hd)) for _ in range(3))
+    mod = _flash_mod()
+    mod._check(q, k, v)
+    # a batch of one: its batch stride is never used
+    one = [torch.as_strided(torch.zeros(s * h * hd), (1, s, h, hd),
+                            (3, h * hd, hd, 1)) for _ in range(3)]
+    mod._check(*one)
+    if bad == "q_offset":
+        q = torch.zeros(b * s * h * hd + 1)[1:].view(b, s, h, hd)
+        assert q.data_ptr() % 16 == 4
+    elif bad == "k_seq_stride":
+        k = torch.zeros((b, s, h * hd + 2))[:, :, :h * hd].view(
+            b, s, h, hd)
+        assert k.stride(1) % 4 == 2
+    else:
+        v = torch.zeros((b, s, h, hd + 1))[..., :hd]
+        assert v.stride(2) == hd + 1
+    with pytest.raises(ValueError, match="16 bytes"):
+        mod._check(q, k, v)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_and_bellman_match_plain():
     """The flash kernel against its plain version on every case above
-    (atol = rtol = 1e-4) and the Bellman kernel at K = 8, 24 and 64
-    (atol = rtol = 1e-5), on the card."""
+    and at S in {1, 63, 65, 129} for each head dim (atol = rtol = 1e-4),
+    and the Bellman kernel at K = 8, 24 and 64 (atol = rtol = 1e-5), on
+    the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
-    for case in sorted(FLASH_CASES):
+    for case in sorted(FLASH_CASES) + sorted(FLASH_EDGES):
         q, k, v, kw = _flash_inputs(case)
         args = [torch.from_numpy(a).to(dev) for a in (q, k, v)]
         n = flash_attention.launches
@@ -426,15 +476,20 @@ def test_cuda_flash_and_bellman_match_plain():
 # SSD chunk (Mamba2 prefill)
 # --------------------------------------------------------------------------
 
-def _ssd_inputs(b, c, q, h, p, n, seed, dev):
+def _ssd_inputs(b, c, q, h, p, n, seed, dev, q_valid=None):
     """Inputs drawn as the model makes them: dt = softplus(.), da = -e *
     dt (a_log = 1), so exp(seg_i - seg_j) overflows above the diagonal;
-    B and C broadcast over the heads with stride 0 (one group)."""
+    B and C broadcast over the heads with stride 0 (one group).  With
+    ``q_valid``, the rows of the last chunk from it on are zero in every
+    input, as the model pads them."""
     rng = np.random.default_rng(seed)
     dt = np.logaddexp(rng.normal(size=(b, c, q, h)), 0.0)
     arrs = dict(xh=rng.normal(size=(b, c, q, h, p)), dt=dt, da=-np.e * dt,
                 bb=rng.normal(size=(b, c, q, 1, n)),
                 cc=rng.normal(size=(b, c, q, 1, n)))
+    if q_valid is not None:
+        for a in arrs.values():
+            a[:, -1, q_valid:] = 0.0
     t = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
          for k, v in arrs.items()}
     shape = (b, c, q, h, n)
@@ -451,16 +506,23 @@ def test_cuda_ssd_chunk_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
-    for shape in ((2, 2, 32, 3, 32, 16), (1, 1, 256, 24, 64, 128)):
-        args = _ssd_inputs(*shape, seed=shape[2], dev=dev)
+    cases = [((2, 2, 32, 3, 32, 16), None), ((1, 1, 256, 24, 64, 128), None)]
+    # the caller's zero tail: q_valid rows of the last chunk computed
+    cases += [((1, 1, 256, 24, 64, 128), qv) for qv in (1, 37, 64, 200, 256)]
+    cases += [((2, 4, 256, 24, 64, 128), 37), ((2, 3, 32, 4, 32, 16), 5)]
+    for shape, qv in cases:
+        args = _ssd_inputs(*shape, seed=shape[2] + (qv or 0), dev=dev,
+                           q_valid=qv)
         n = ssd_chunk.launches
-        got = ssd_chunk(*args)
+        got = ssd_chunk(*args, q_valid=qv)
         torch.cuda.synchronize()
         assert ssd_chunk.launches == n + 1
-        want = ssd_chunk_plain(*args)
+        want = ssd_chunk_plain(*args, q_valid=qv)
         for g, w in zip(got, want):
             assert torch.isfinite(g).all()
             torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-4)
+        if qv is not None:
+            assert (got[0][:, -1, qv:] == 0).all()
 
 
 # --------------------------------------------------------------------------

@@ -124,6 +124,79 @@ def test_ssd_chunk_plain_matches_jax(case):
     np.testing.assert_allclose(st.numpy(), np.asarray(sk), **KERNEL)
 
 
+# (shape, q_valid, model decay): the caller's zero tail in the last chunk
+ZERO_TAIL_CASES = {
+    "q32_one_row": ((1, 2, 32, 2, 32, 16), 1, False),
+    "q64_ragged": ((2, 1, 64, 3, 64, 128), 37, True),
+    "q64_full": ((1, 1, 64, 2, 32, 16), 64, True),
+    "q16_three_chunks": ((1, 3, 16, 1, 128, 8), 9, False),
+}
+
+
+def _zero_tail(arrs, q_valid):
+    """Rows q_valid.. of the last chunk zero in every input, as the
+    model pads a prompt (x = B = C = dt = 0, hence da = 0)."""
+    out = [a.copy() for a in arrs]
+    for a in out:
+        a[:, -1, q_valid:] = 0.0
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(ZERO_TAIL_CASES))
+def test_ssd_chunk_plain_zero_tail_matches_jax(case):
+    """With ``q_valid``, the plain version equals the JAX reference and
+    the Pallas kernel in interpret mode (which compute every row) on
+    zero-tail inputs, and its y rows past q_valid are exactly 0."""
+    shape, qv, model_decay = ZERO_TAIL_CASES[case]
+    arrs = _zero_tail(_chunk_inputs(
+        *shape, seed=10 + sorted(ZERO_TAIL_CASES).index(case),
+        model_decay=model_decay), qv)
+    y, st = ssd_chunk_plain(*(torch.from_numpy(a) for a in arrs),
+                            q_valid=qv)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    assert (y[:, -1, qv:] == 0).all()
+    j = [jnp.asarray(a) for a in arrs]
+    for yr, sr in (ref.ssd_chunk_ref(*j), ops.ssd_chunk(*j, interpret=True)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(yr), **KERNEL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(sr), **KERNEL)
+    # and as the wrapper gives it on the CPU
+    y2, st2 = ssd_chunk(*(torch.from_numpy(a) for a in arrs), q_valid=qv)
+    torch.testing.assert_close(y2, y, rtol=0, atol=0)
+    torch.testing.assert_close(st2, st, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("qv", [0, -1, 33])
+@pytest.mark.parametrize("fn", [ssd_chunk, ssd_chunk_plain],
+                         ids=["wrapper", "plain"])
+def test_ssd_chunk_refuses_q_valid_out_of_range(fn, qv):
+    args = (torch.from_numpy(a) for a in _chunk_inputs(1, 1, 32, 2, 32, 16,
+                                                       seed=3))
+    with pytest.raises(ValueError, match="q_valid"):
+        fn(*args, q_valid=qv)
+
+
+@pytest.mark.parametrize("bad", ["xh_offset", "bb_row_stride"])
+def test_ssd_chunk_wrapper_refuses_unaligned_rows(bad):
+    """The kernel copies rows of xh, bb and cc in 16-byte pieces: the
+    wrapper's `_check` raises on a base pointer off 16 bytes or a stride
+    that is not a multiple of 4, and passes the model's layout (B/C a
+    stride-0 broadcast over the heads)."""
+    import importlib
+    mod = importlib.import_module("repro_torch.kernels.ssd_chunk")
+    xh, dt, da, bb, cc = (torch.from_numpy(a) for a in _chunk_inputs(
+        1, 2, 32, 3, 32, 16, seed=9))
+    bb, cc = bb[:, :, :, :1].expand_as(bb), cc[:, :, :, :1].expand_as(cc)
+    mod._check(xh, dt, da, bb, cc)
+    if bad == "xh_offset":
+        xh = torch.zeros(xh.numel() + 1)[1:].view(xh.shape)
+    else:
+        wide = torch.zeros(*bb.shape[:3], 1, 18)
+        bb = wide[..., :16].expand_as(cc)
+        assert bb.stride(2) == 18
+    with pytest.raises(ValueError, match="16 bytes"):
+        mod._check(xh, dt, da, bb, cc)
+
+
 def test_ssd_chunk_wrapper_takes_the_plain_version_on_cpu():
     """On CPU tensors the wrapper IS the plain version (stride-0 B/C
     included) and launches nothing."""
@@ -177,6 +250,31 @@ def test_ssm_forward_matches_jax(mixer, s, use_kernel):
     kc = SSM_CFG.d_conv - 1
     if s < kc:
         assert (stt["conv"][:, :kc - s] == 0).all()
+
+
+@pytest.mark.parametrize("s", [2, 45, 64, 96])
+def test_ssm_forward_passes_the_padding_as_q_valid(mixer, monkeypatch, s):
+    """The kernel route hands the chunk ``q_valid = chunk - pad`` when it
+    pads the prompt (None when it does not), and the result still
+    matches the JAX package's."""
+    params, tparams = mixer
+    seen = []
+
+    def spy(*args, q_valid=None):
+        seen.append(q_valid)
+        return ssd_chunk(*args, q_valid=q_valid)
+
+    monkeypatch.setattr(tssm, "ssd_chunk", spy)
+    x = (np.random.default_rng(s + 1).normal(size=(2, s, D)) * 0.3) \
+        .astype(np.float32)
+    yt, stt = tssm.ssm_forward(tparams, torch.from_numpy(x), SSM_CFG,
+                               use_kernel=True)
+    pad = (-s) % SSM_CFG.chunk
+    assert seen == [SSM_CFG.chunk - pad if pad else None]
+    yj, stj = jssm.ssm_forward(params, jnp.asarray(x), SSM_CFG)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **F32)
+    np.testing.assert_allclose(stt["ssm"].numpy(), np.asarray(stj["ssm"]),
+                               **F32)
 
 
 def test_ssm_decode_matches_jax(mixer):
