@@ -9,15 +9,21 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      the sources in the checkout (one nvcc per source, in parallel):
      paged_attention, paged_prefill, flash_attention, bellman_backup,
      ssd_chunk, ramp_exit; prints what ptxas reports for each
-     (registers, static shared memory, spills) and, for flash_attention
-     and ssd_chunk, what the runtime reports at their timed shapes
-     (registers, shared memory a block, blocks an SM, local memory);
+     (registers, static shared memory, spills) and, for the paged pair,
+     flash_attention and ssd_chunk, what the runtime reports at their
+     timed shapes (registers, shared memory a block, blocks an SM, local
+     memory; for the paged pair also the splits of a lane's pages);
   2. holds each kernel against its plain PyTorch version on the card:
      the paged pair at the chunked serve's shapes (8 lanes, 12 heads,
      head_dim 64, 16-token pages, 8 pages a lane, 16-token chunks),
      with position -1 holes, an all-masked lane, ragged and mid-page
      chunks, a GQA case with a window and the serve's own history
-     lengths, atol = rtol = 1e-4; flash_attention at the calibration
+     lengths, at 1024-token contexts (64-page tables, histories of
+     993-1024 positions, chunks from about position 1000: the lanes'
+     pages split over blocks) and at qwen3-4b's GQA widths (32 heads on
+     8 kv heads, head_dim 128) with a window, atol = rtol = 1e-4; the
+     all-masked lane and the padded prefill rows exactly 0;
+     flash_attention at the calibration
      prefill's shape (512, 64, 12, 12, 64), a ring admission's (1, 32,
      12, 12, 64), a GQA case with a window and a ragged length, head_dim
      32 and 96 cases, and S in {1, 63, 65, 129} at each head_dim (GQA,
@@ -69,7 +75,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      exactly;
   4. times each kernel and its plain version with CUDA events — device
      time from CUDA graph replay, and the time of an eager call, host
-     included — on the chunked serve's shapes (paged pair), the
+     included — on the chunked serve's shapes and at 1024-token
+     contexts (paged pair), the
      calibration prefill's and a ring admission's shapes
      (flash_attention, each beside one call of
      ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick the
@@ -209,6 +216,8 @@ PLAINS = {"paged_attention": paged_attention_plain,
           "ssd_chunk": ssd_chunk_plain, "ramp_exit": ramp_exit_plain}
 # the wrappers' modules (the package attributes of these names are the
 # wrapper functions)
+PA_MOD = importlib.import_module("repro_torch.kernels.paged_attention")
+PP_MOD = importlib.import_module("repro_torch.kernels.paged_prefill")
 FLASH_MOD = importlib.import_module("repro_torch.kernels.flash_attention")
 SSD_MOD = importlib.import_module("repro_torch.kernels.ssd_chunk")
 SOURCES = {
@@ -243,15 +252,16 @@ def card_line() -> str:
 # inputs at the serve path's shapes (numpy-seeded)
 # ---------------------------------------------------------------------------
 
-def pool_inputs(rng, lens, *, hkv, hd, holes=True):
+def pool_inputs(rng, lens, *, hkv, hd, holes=True, maxp=MAXP):
     """A page pool holding each lane's history of ``lens[i]`` positions
-    (page 0 = garbage sink, position -1), stale positions in the tails
-    of partly filled pages, and -1 holes in lane 0's first page."""
+    (page 0 = garbage sink, position -1) in a ``maxp``-wide table, stale
+    positions in the tails of partly filled pages, and -1 holes in lane
+    0's first page."""
     n_pages = 1 + sum(-(-n // PS) for n in lens)
     k = (rng.normal(size=(n_pages, PS, hkv, hd)) * 0.5).astype(np.float32)
     v = (rng.normal(size=(n_pages, PS, hkv, hd)) * 0.5).astype(np.float32)
     pos = np.full((n_pages, PS), -1, np.int32)
-    table = np.zeros((len(lens), MAXP), np.int32)
+    table = np.zeros((len(lens), maxp), np.int32)
     nxt = 1
     for lane, n in enumerate(lens):
         for j in range(-(-n // PS)):
@@ -272,25 +282,33 @@ def pool_inputs(rng, lens, *, hkv, hd, holes=True):
 # (32-token prompts in 16-token chunks, then up to 16 decoded tokens)
 SERVE_LENS = [33, 48, 40, 35, 47, 38, 44, 36]
 SERVE_STARTS, SERVE_WIDTHS = [0, 16, 0, 16, 16, 0, 16, 0], [C] * B
+# the long-context cases: GPT-2-small's 1024-token context (the scale
+# paper-ee-100m copies), 64 pages a lane
+LONG_MAXP = 64
+LONG_LENS = [1024, 993, 1010, 1001, 1017, 996, 1023, 1005]
+LONG_STARTS = [1008, 1000, 1004, 993, 1008, 1001, 996, 1006]
+# the GQA check cases: ROADMAP A3's qwen3-4b widths (32 heads on 8 kv
+# heads, head_dim 128)
+G4 = dict(h=32, hkv=8, hd=128)
 
 
-def decode_case(seed, *, h=H, hkv=HKV, window=None,
+def decode_case(seed, *, h=H, hkv=HKV, hd=HD, window=None, maxp=MAXP,
                 lens=(48, 33, 17, 128, 1, 64, 0, 90)):   # lane 6: masked
     rng = np.random.default_rng(seed)
-    k, v, pos, table = pool_inputs(rng, lens, hkv=hkv, hd=HD)
+    k, v, pos, table = pool_inputs(rng, lens, hkv=hkv, hd=hd, maxp=maxp)
     q_pos = torch.tensor([max(n, 1) - 1 if n else -1 for n in lens],
                          dtype=torch.int32, device=DEV)
-    q = torch.from_numpy((rng.normal(size=(B, h, HD)) * 0.5)
+    q = torch.from_numpy((rng.normal(size=(B, h, hd)) * 0.5)
                          .astype(np.float32)).to(DEV)
-    return (q, k, v, pos, table, q_pos), dict(scale=HD ** -0.5,
+    return (q, k, v, pos, table, q_pos), dict(scale=hd ** -0.5,
                                               window=window)
 
 
-def prefill_case(seed, *, h=H, hkv=HKV, window=None,
+def prefill_case(seed, *, h=H, hkv=HKV, hd=HD, window=None, maxp=MAXP,
                  starts=(16, 0, 21, 48, 5, 0, 32, 100),   # mid-page 21, 5
                  widths=(16, 16, 11, 16, 3, 0, 16, 7)):   # lane 5 idle
     rng = np.random.default_rng(seed)
-    k, v, pos, table = pool_inputs(rng, starts, hkv=hkv, hd=HD)
+    k, v, pos, table = pool_inputs(rng, starts, hkv=hkv, hd=hd, maxp=maxp)
     q_pos = np.full((B, C), -1, np.int32)
     for lane, (s, w) in enumerate(zip(starts, widths)):
         q_pos[lane, :w] = np.arange(s, s + w)
@@ -301,9 +319,9 @@ def prefill_case(seed, *, h=H, hkv=HKV, window=None,
         return torch.from_numpy((rng.normal(size=shape) * 0.5)
                                 .astype(np.float32)).to(DEV)
 
-    q, ck, cv = rnd(B, C, h, HD), rnd(B, C, hkv, HD), rnd(B, C, hkv, HD)
+    q, ck, cv = rnd(B, C, h, hd), rnd(B, C, hkv, hd), rnd(B, C, hkv, hd)
     return (q, k, v, pos, table, q_pos, start, ck, cv, q_pos), \
-        dict(scale=HD ** -0.5, window=window)
+        dict(scale=hd ** -0.5, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -620,9 +638,10 @@ def graph_ms(fn, calls=20, replays=10):
 
 def phase_build():
     """Build every kernel; print what ptxas reports for each (registers,
-    static shared memory, spills) and, for the two kernels with dynamic
+    static shared memory, spills) and, for the four kernels with dynamic
     shared memory sized by the call, what the runtime reports at their
-    timed shapes.  Returns the latter."""
+    timed shapes (for the paged pair also the splits of a lane's pages).
+    Returns the latter."""
     t0 = time.perf_counter()
     built = build.build_all()
     wall = time.perf_counter() - t0
@@ -634,6 +653,14 @@ def phase_build():
     log(f"kernel build wall time: {wall:.1f} s (all sources in parallel)")
     res = {}
     for name, info in (
+            ("paged_attention", {
+                case: PA_MOD.kernel_info(B, H, HKV, HD, PS, maxp)
+                for case, maxp in (("serve", MAXP),
+                                   ("long-context", LONG_MAXP))}),
+            ("paged_prefill", {
+                case: PP_MOD.kernel_info(B, C, H, HKV, HD, PS, maxp)
+                for case, maxp in (("serve", MAXP),
+                                   ("long-context", LONG_MAXP))}),
             ("flash_attention", {
                 case: FLASH_MOD.kernel_info(shape[4], shape[1])
                 for case, shape in FLASH_CASES if case in FLASH_TIMED}),
@@ -645,7 +672,8 @@ def phase_build():
             log(f"resources {name} [{case}]: {r['registers']} registers "
                 f"a thread, {r['smem_bytes']} bytes of shared memory a "
                 f"block, {r['blocks_per_sm']} blocks an SM, "
-                f"{r['local_bytes']} bytes of local memory a thread")
+                f"{r['local_bytes']} bytes of local memory a thread"
+                + (f", {r['splits']} splits" if "splits" in r else ""))
     return res
 
 
@@ -662,7 +690,15 @@ def phase_kernel_checks():
               TOL_KERNEL),
              ("paged_prefill", "serve",
               prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS),
-              TOL_KERNEL)]
+              TOL_KERNEL),
+             ("paged_attention", "long-context", long_decode_case(),
+              TOL_KERNEL),
+             ("paged_prefill", "long-context", long_prefill_case(),
+              TOL_KERNEL),
+             ("paged_attention", "g4-hd128-window",
+              decode_case(8, window=40, **G4), TOL_KERNEL),
+             ("paged_prefill", "g4-hd128-window",
+              prefill_case(9, window=20, **G4), TOL_KERNEL)]
     cases += [("flash_attention", case, flash_case(10 + i, *shape),
                TOL_KERNEL) for i, (case, shape) in enumerate(FLASH_CASES)]
     cases += [("bellman_backup", f"K={k}", bellman_case(k, k), TOL_DP)
@@ -1091,14 +1127,25 @@ def phase_calibration_timing(params, cfg, flag):
     torch.cuda.empty_cache()
 
 
+def long_decode_case():
+    return decode_case(6, lens=LONG_LENS, maxp=LONG_MAXP)
+
+
+def long_prefill_case():
+    return prefill_case(7, starts=LONG_STARTS, widths=[C] * B,
+                        maxp=LONG_MAXP)
+
+
 # the timed cases: (kernel, case, inputs, bound); a kernel's first case
 # is its main one (the ``kernels`` line's numbers), the others are in
 # its ``timed_cases``
 TIMED = [("paged_attention", "serve", lambda: decode_case(4, lens=SERVE_LENS),
           decode_bound),
+         ("paged_attention", "long-context", long_decode_case, decode_bound),
          ("paged_prefill", "serve",
           lambda: prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS),
-          prefill_bound)]
+          prefill_bound),
+         ("paged_prefill", "long-context", long_prefill_case, prefill_bound)]
 TIMED += [("flash_attention", case, lambda i=i, shape=shape:
            flash_case(10 + i, *shape), flash_bound)
           for i, (case, shape) in enumerate(FLASH_CASES) if case in FLASH_TIMED]

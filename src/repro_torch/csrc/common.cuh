@@ -1,5 +1,6 @@
-// Shared device helpers of the paged attention kernels: a warp-wide sum
-// and the position mask of the paged KV pool.
+// Shared device helpers: the position mask of the paged KV pool,
+// cp.async copies, the visible-key list and the split merge of the two
+// paged kernels, and the f32 view of a stored element.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,13 +9,6 @@
 namespace repro {
 
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // A stored key at position kpos is visible to a query at position qp
 // when the slot is filled (kpos >= 0), causal (kpos <= qp) and, with a
@@ -28,48 +22,146 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// f32 online softmax of one query row held by one warp: lane `lane`
-// owns elements [lane * EPT, lane * EPT + EPT) of q and of the output.
-template <int EPT>
-struct OnlineRow {
-  float q[EPT];
-  float acc[EPT];
-  float m = kNegInf;
-  float l = 0.f;
+// 16 bytes from device to shared memory (both 16-byte aligned); with
+// in == false the destination is zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in = true) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0));
+}
 
-  __device__ __forceinline__ void load_q(const float* row, int lane) {
+// 4 bytes from device to shared memory (both 4-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Slots first .. n_keys - 1 of a lane's pages (slot i is slot i % ps of
+// page tab[i / ps]; page ids in shared memory) that pass `kpos < lt &&
+// key_visible(kpos, qp, window)`, in slot order: list[i] = the slot and,
+// when kpos_out is given, kpos_out[i] = its stored position.  The
+// positions of up to kPer * NT slots are loaded at once before any is
+// used, so up to that many cost one round trip.  cnt holds 4 * (NT /
+// 32) + 1 ints of shared memory.  Every thread of the block calls it;
+// it returns the count to all, the list written.
+template <int NT>
+__device__ __forceinline__ int gather_visible(
+    const int* tab, int first, int n_keys, int ps,
+    const int* __restrict__ pos_pages, long long pos_sp, long long pos_ss,
+    int qp, int window, int lt, int* list, int* kpos_out, int* cnt) {
+  constexpr int kPer = 4, kWarps = NT / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int total = 0;
+  for (int base = first; base < n_keys; base += kPer * NT) {
+    int kp[kPer];
 #pragma unroll
-    for (int i = 0; i < EPT; ++i) {
-      q[i] = row[lane * EPT + i];
-      acc[i] = 0.f;
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = base + i * NT + tid;
+      kp[i] = -1;
+      if (idx < n_keys) {
+        const int j = idx / ps, s = idx - j * ps;
+        kp[i] = pos_pages[(long long)tab[j] * pos_sp + s * pos_ss];
+      }
     }
+    unsigned bits[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = base + i * NT + tid;
+      bits[i] = __ballot_sync(0xffffffffu, idx < n_keys && kp[i] < lt &&
+                                               key_visible(kp[i], qp, window));
+      if (lane == 0) cnt[i * kWarps + warp] = __popc(bits[i]);
+    }
+    __syncthreads();
+    const unsigned below = (1u << lane) - 1u;
+    int off = total;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      int pre = off;
+      for (int w = 0; w < warp; ++w) pre += cnt[i * kWarps + w];
+      if ((bits[i] >> lane) & 1u) {
+        const int at = pre + __popc(bits[i] & below);
+        list[at] = base + i * NT + tid;
+        if (kpos_out) kpos_out[at] = kp[i];
+      }
+      for (int w = 0; w < kWarps; ++w) off += cnt[i * kWarps + w];
+    }
+    total = off;
+    __syncthreads();                    // cnt reused by the next round
   }
+  return total;
+}
 
-  // Fold one visible key/value row into the running max, sum and
-  // accumulator.  Every lane of the warp calls this with the same key.
-  template <typename T>
-  __device__ __forceinline__ void add(const T* krow, const T* vrow,
-                                      int lane, float scale) {
-    float d = 0.f;
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) d += q[i] * to_float(krow[lane * EPT + i]);
-    const float s = warp_sum(d) * scale;
-    const float m_new = fmaxf(m, s);
-    const float alpha = expf(m - m_new);
-    const float p = expf(s - m_new);
-    l = l * alpha + p;
-#pragma unroll
-    for (int i = 0; i < EPT; ++i)
-      acc[i] = acc[i] * alpha + p * to_float(vrow[lane * EPT + i]);
-    m = m_new;
+// The split merge of the paged kernels.  The S blocks of one unit (a
+// lane and kv head, and a row tile for prefill) each leave, for their
+// share of the keys, rows x hd sums unnormalised (relative to their own
+// running max) and rows x (m, l); the last block to finish (an integer
+// ticket per unit, which it puts back to zero) merges them.
+// `last_of_splits` returns true in that block, after the other blocks'
+// parts are visible.
+__device__ __forceinline__ bool last_of_splits(int* ticket, int S,
+                                               int* flag) {
+  __threadfence();                      // this block's part, device-wide
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int t = atomicAdd(ticket, 1);
+    *flag = t == S - 1;
+    if (t == S - 1) atomicExch(ticket, 0);
   }
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
 
-  // A row that saw no visible key has acc == 0 and writes zeros.
-  __device__ __forceinline__ void store(float* row, int lane) const {
-    const float denom = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) row[lane * EPT + i] = acc[i] / denom;
+// Merge S parts of `rows` rows (sums in `acc` [S][rows][HD], (m, l) in
+// `ml` [S][rows][2], both written by other blocks, so read through L2)
+// into the rows of out: dst(r) is row r's output pointer, 16-byte
+// aligned, or nullptr for a row that is not written.  Each thread takes
+// 4 columns of a row and folds the parts in split order, so the result
+// does not depend on which block finished last; the parts' loads do
+// not wait on each other.  A part that saw no visible key has m =
+// kNegInf and l = acc = 0 and adds nothing; a row no part saw writes
+// zeros.
+template <int HD, int NT, typename Dst>
+__device__ __forceinline__ void merge_parts(const float* acc,
+                                            const float* ml, int S,
+                                            int rows, Dst dst) {
+  for (int c = threadIdx.x; c < rows * (HD / 4); c += NT) {
+    const int r = c / (HD / 4), d = (c - r * (HD / 4)) * 4;
+    float* o = dst(r);
+    if (o == nullptr) continue;
+    float m = kNegInf, l = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int s = 0; s < S; ++s) {
+      const long long sr = (long long)s * rows + r;
+      const float2 p = __ldcg(reinterpret_cast<const float2*>(ml + 2 * sr));
+      const float4 v =
+          __ldcg(reinterpret_cast<const float4*>(acc + sr * HD + d));
+      const float mn = fmaxf(m, p.x);
+      const float f0 = expf(m - mn), f1 = expf(p.x - mn);
+      l = l * f0 + p.y * f1;
+      a.x = a.x * f0 + v.x * f1;
+      a.y = a.y * f0 + v.y * f1;
+      a.z = a.z * f0 + v.z * f1;
+      a.w = a.w * f0 + v.w * f1;
+      m = mn;
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    *reinterpret_cast<float4*>(o + d) =
+        make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
   }
-};
+}
 
 }  // namespace repro

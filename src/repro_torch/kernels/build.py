@@ -7,11 +7,17 @@ wrapper loads with ``ctypes``.  Libraries are built at first use into
 hash of the sources and flags, so an unchanged tree never rebuilds and
 a changed one never loads a stale library.  `build_all` starts one
 ``nvcc`` per source, all at once.
+
+It also holds what the wrappers share around a launch: the check that
+rows copied in 16-byte pieces start on 16 bytes, and the split of a
+long key range over blocks whose partial sums the last block to finish
+merges (`split_count`, and the integer tickets of `ticket_buffer`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -20,7 +26,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "check_rows_aligned"]
+import torch
+
+__all__ = ["SOURCES", "build_all", "library", "check_rows_aligned",
+           "split_count", "ticket_buffer"]
 
 SOURCES = ("paged_attention", "paged_prefill", "flash_attention",
            "bellman_backup", "ssd_chunk", "ramp_exit")
@@ -32,6 +41,8 @@ _FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_tickets: dict = {}
+_MAX_KEYS_A_BLOCK = 1024
 
 
 def _nvcc() -> str:
@@ -107,13 +118,49 @@ def library(name: str) -> ctypes.CDLL:
 def check_rows_aligned(kernel: str, **tensors) -> None:
     """Raise unless every row of each tensor starts on 16 bytes, for a
     kernel that copies rows in 16-byte pieces: the base pointer 16-byte
-    aligned and every stride but the last a multiple of 4 elements (a
-    stride of an axis of length 1 is never used).  The wrappers raise;
-    they never copy to make a tensor so."""
+    aligned and every stride but the last a multiple of 16 bytes (4 f32
+    or 8 bf16 elements; a stride of an axis of length 1 is never used).
+    The wrappers raise; they never copy to make a tensor so."""
     for name, t in tensors.items():
-        if t.data_ptr() % 16 or any(st % 4 for st, n in zip(
+        per = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % per for st, n in zip(
                 t.stride()[:-1], t.shape[:-1]) if n > 1):
             raise ValueError(
                 f"{kernel}: {name} must start on 16 bytes and have strides "
-                f"that are multiples of 4 elements (data_ptr % 16 = "
+                f"that are multiples of {per} elements (data_ptr % 16 = "
                 f"{t.data_ptr() % 16}, strides {tuple(t.stride())})")
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_count(units: int, maxp: int, ps: int, device, *,
+                keys_a_block: int = 128, blocks_an_sm: int = 8) -> int:
+    """Blocks that share one unit's (a lane and kv head's, with its row
+    tile for prefill) ``maxp`` pages of ``ps`` slots: one up to
+    ``keys_a_block`` slots; for longer contexts one per
+    ``keys_a_block``, at most about ``blocks_an_sm`` blocks an SM in
+    all, and never fewer than one per 1024 slots (a split's slot list
+    lives in shared memory).  The defaults are the decode kernel's (6 of
+    its blocks fit an SM)."""
+    keys = maxp * ps
+    want = min(-(-keys // keys_a_block),
+               max(1, -(-blocks_an_sm * _sm_count(device) // units)))
+    return min(maxp, max(1, want, -(-keys // _MAX_KEYS_A_BLOCK)))
+
+
+def ticket_buffer(kernel: str, n: int, device) -> torch.Tensor:
+    """``n`` zero int32 tickets of ``kernel`` on ``device``, allocated at
+    the first call that needs them (every launch leaves them at zero, so
+    calls of one kernel on one device must not overlap on two
+    streams)."""
+    t = _tickets.get((kernel, device))
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}: a call with {n} split units must "
+                               "run once before CUDA graph capture")
+        t = torch.zeros(n, dtype=torch.int32, device=device)
+        _tickets[(kernel, device)] = t
+    return t

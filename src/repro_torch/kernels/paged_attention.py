@@ -15,7 +15,14 @@ attended when its stored position is >= 0, <= q_pos and inside the
 sliding window.  A lane with nothing attendable returns zeros.
 
 `paged_attention` runs the plain version for CPU tensors and the
-kernel for CUDA tensors — there is no fallback between them.
+kernel for CUDA tensors — there is no fallback between them.  The
+kernel copies pool rows in 16-byte pieces, so the pool must start on 16
+bytes and have (page, slot, head) strides that are multiples of 8
+elements; the wrapper raises otherwise.  For long contexts it splits a
+lane's pages over several blocks (`build.split_count`) whose partial
+sums the last block to finish merges, counted by integer tickets that
+the wrapper allocates once per device and the kernel leaves at zero:
+calls of one kernel on one device must not overlap on two streams.
 """
 
 from __future__ import annotations
@@ -27,11 +34,11 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["paged_attention", "paged_attention_plain"]
+__all__ = ["paged_attention", "paged_attention_plain", "kernel_info"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = [_P] * 7 + [_I] * 6 + [_L] * 8 + [_F, _I, _P]
+_ARGTYPES = [_P] * 9 + [_I] * 7 + [_L] * 8 + [_F, _I, _P]
 
 
 @functools.cache
@@ -95,10 +102,15 @@ def _check(q, k_pages, v_pages, pos_pages, page_table, q_pos):
             f"q_pos {tuple(q_pos.shape)} (hd 32/64/128, H/Hkv <= 32)")
     if k_pages.stride(-1) != 1 or v_pages.stride(-1) != 1:
         raise ValueError("the pool's head_dim axis must be contiguous")
+    if b >= 2 ** 31 or hkv > 65535:
+        raise ValueError(f"paged_attention grid: B {b} must be < 2^31 and "
+                         f"Hkv {hkv} <= 65535")
     devs = {t.device for t in (q, k_pages, v_pages, pos_pages, page_table,
                                q_pos)}
     if len(devs) != 1:
         raise ValueError(f"paged_attention tensors span devices {devs}")
+    build.check_rows_aligned("paged_attention", k_pages=k_pages,
+                             v_pages=v_pages)
 
 
 def paged_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos, *,
@@ -118,14 +130,22 @@ def paged_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos, *,
     q_pos = q_pos.contiguous()
     b, h, hd = q.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    maxp = page_table.shape[1]
     out = torch.empty_like(q)
+    s = build.split_count(b * hkv, maxp, ps, q.device)
+    part = tickets = None
+    if s > 1:
+        part = torch.empty(b * hkv * s * (h // hkv) * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = build.ticket_buffer("paged_attention", b * hkv, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         pos_pages.data_ptr(), page_table.data_ptr(), q_pos.data_ptr(),
-        out.data_ptr(), b, h, hkv, hd, ps, page_table.shape[1],
-        *k_pages.stride()[:3], *v_pages.stride()[:3], *pos_pages.stride(),
-        float(scale), int(window or 0), stream)
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), b, h, hkv, hd, ps,
+        maxp, s, *k_pages.stride()[:3], *v_pages.stride()[:3],
+        *pos_pages.stride(), float(scale), int(window or 0), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -134,3 +154,21 @@ def paged_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos, *,
 
 
 paged_attention.launches = 0
+
+
+def kernel_info(b: int, h: int, hkv: int, hd: int, ps: int, maxp: int,
+                device="cuda") -> dict:
+    """The kernel's resources for a call on (b, h, hd) queries over
+    (ps, hkv, hd) pages and a ``maxp``-wide table, as the CUDA runtime
+    reports them: registers a thread, shared memory a block (bytes),
+    blocks an SM holds, local (spill) bytes a thread; and the splits of
+    a lane's pages the wrapper picks."""
+    s = build.split_count(b * hkv, maxp, ps, torch.device(device))
+    out = (ctypes.c_int * 4)()
+    rc = build.library("paged_attention").repro_paged_attention_info(
+        ctypes.c_int(hd), ctypes.c_int(h // hkv), ctypes.c_int(maxp),
+        ctypes.c_int(ps), ctypes.c_int(s), out)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention info failed: CUDA error {rc}")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "local_bytes"), out), splits=s)

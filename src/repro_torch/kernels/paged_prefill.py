@@ -18,7 +18,13 @@ maxp)``) and to the in-flight keys causally; a sliding window applies
 to both, and rows at position -1 return zeros.
 
 `paged_prefill` runs the plain version for CPU tensors and the kernel
-for CUDA tensors — there is no fallback between them.
+for CUDA tensors — there is no fallback between them.  The kernel
+copies rows in 16-byte pieces: q, ck and cv must start on 16 bytes (the
+wrapper makes them contiguous, and raises on a contiguous view off 16
+bytes) and the pool as `paged_attention` takes it.  A block takes 16
+rows (c, g) of a (lane, kv head), so the grid has B * Hkv * ceil(C * G /
+16) blocks, at most 2^31 - 1; long histories split over blocks as in
+`paged_attention` (same tickets, same rule for streams).
 """
 
 from __future__ import annotations
@@ -30,11 +36,22 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["paged_prefill", "paged_prefill_plain"]
+__all__ = ["paged_prefill", "paged_prefill_plain", "kernel_info"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = [_P] * 11 + [_I] * 7 + [_L] * 8 + [_F, _I, _P]
+_ARGTYPES = [_P] * 13 + [_I] * 8 + [_L] * 8 + [_F, _I, _P]
+
+
+_ROWS = 16               # rows (c, g) a block
+# a block's share of a long history, and blocks an SM to aim for (4 of
+# its blocks fit an SM, and its 16 rows x 64 keys do more work a key)
+_SPLIT = dict(keys_a_block=256, blocks_an_sm=4)
+
+
+def _row_tiles(c: int, g: int) -> int:
+    """Blocks a (lane, kv head) needs for its c * g rows."""
+    return -(-c * g // _ROWS)
 
 
 @functools.cache
@@ -114,10 +131,16 @@ def _check(q, k_pages, v_pages, pos_pages, page_table, q_pos, chunk_start,
             "(hd 32/64/128, H/Hkv <= 32)")
     if k_pages.stride(-1) != 1 or v_pages.stride(-1) != 1:
         raise ValueError("the pool's head_dim axis must be contiguous")
+    if b * hkv * _row_tiles(c, h // hkv) >= 2 ** 31:
+        raise ValueError(f"paged_prefill grid: B * Hkv * ceil(C * G / 16) "
+                         f"= {b} * {hkv} * {_row_tiles(c, h // hkv)} must "
+                         "be < 2^31")
     devs = {t.device for t in (q, k_pages, v_pages, pos_pages, page_table,
                                q_pos, chunk_start, ck, cv, c_pos)}
     if len(devs) != 1:
         raise ValueError(f"paged_prefill tensors span devices {devs}")
+    build.check_rows_aligned("paged_prefill", q=q, ck=ck, cv=cv,
+                             k_pages=k_pages, v_pages=v_pages)
 
 
 def paged_prefill(q, k_pages, v_pages, pos_pages, page_table, q_pos,
@@ -132,21 +155,31 @@ def paged_prefill(q, k_pages, v_pages, pos_pages, page_table, q_pos,
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill runs on cpu or cuda, not "
                          f"{q.device}")
+    q, ck, cv = q.contiguous(), ck.contiguous(), cv.contiguous()
     _check(q, k_pages, v_pages, pos_pages, page_table, q_pos, chunk_start,
            ck, cv, c_pos)
-    q, ck, cv = q.contiguous(), ck.contiguous(), cv.contiguous()
     page_table, q_pos = page_table.contiguous(), q_pos.contiguous()
     chunk_start, c_pos = chunk_start.contiguous(), c_pos.contiguous()
     b, c, h, hd = q.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    maxp = page_table.shape[1]
+    units = b * hkv * _row_tiles(c, h // hkv)
     out = torch.empty_like(q)
+    s = build.split_count(units, maxp, ps, q.device, **_SPLIT)
+    part = tickets = None
+    if s > 1:
+        part = torch.empty(units * s * _ROWS * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = build.ticket_buffer("paged_prefill", units, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel()(
         q.data_ptr(), q_pos.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), pos_pages.data_ptr(), page_table.data_ptr(),
         chunk_start.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-        c_pos.data_ptr(), out.data_ptr(), b, c, h, hkv, hd, ps,
-        page_table.shape[1], *k_pages.stride()[:3], *v_pages.stride()[:3],
+        c_pos.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), b, c, h, hkv, hd,
+        ps, maxp, s, *k_pages.stride()[:3], *v_pages.stride()[:3],
         *pos_pages.stride(), float(scale), int(window or 0), stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill kernel launch failed: CUDA "
@@ -156,3 +189,22 @@ def paged_prefill(q, k_pages, v_pages, pos_pages, page_table, q_pos,
 
 
 paged_prefill.launches = 0
+
+
+def kernel_info(b: int, c: int, h: int, hkv: int, hd: int, ps: int,
+                maxp: int, device="cuda") -> dict:
+    """The kernel's resources for a call on (b, c, h, hd) chunk queries
+    over (ps, hkv, hd) pages and a ``maxp``-wide table, as the CUDA
+    runtime reports them: registers a thread, shared memory a block
+    (bytes), blocks an SM holds, local (spill) bytes a thread; and the
+    splits of a lane's history the wrapper picks."""
+    s = build.split_count(b * hkv * _row_tiles(c, h // hkv), maxp, ps,
+                          torch.device(device), **_SPLIT)
+    out = (ctypes.c_int * 4)()
+    rc = build.library("paged_prefill").repro_paged_prefill_info(
+        ctypes.c_int(hd), ctypes.c_int(c), ctypes.c_int(maxp),
+        ctypes.c_int(ps), ctypes.c_int(s), out)
+    if rc != 0:
+        raise RuntimeError(f"paged_prefill info failed: CUDA error {rc}")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "local_bytes"), out), splits=s)

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import (bellman_backup, bellman_backup_plain,
                                  flash_attention, flash_attention_plain,
                                  paged_attention, paged_attention_plain,
@@ -114,10 +115,37 @@ DECODE_CASES = {
 }
 
 
+# cases at the edges of the kernel's staging and splits, each with its
+# own seed (the cases above keep theirs): the card's split count for
+# them is checked in `test_cuda_kernels_match_plain`
+DECODE_EDGES = {
+    # name: (seed, case as above)
+    # lane 0: 300 visible keys, over 3 splits of 8 pages (128 keys, two
+    # staged tiles each)
+    "tiles_splits": (60, (4, 2, 32, 16, 24, (300, 70, 17), None, None,
+                          False, False)),
+    # lane 1's window (keys 100..199) runs across split 1's first key
+    # (128), lane 0's (151..250) starts inside split 1
+    "window_across_split": (61, (4, 2, 32, 16, 24, (251, 200, 5), None, 100,
+                                 False, False)),
+    # lane 0's window holds keys 251..300 only: split 0 is wholly masked;
+    # lane 2 sees nothing at all
+    "masked_split": (62, (4, 2, 32, 16, 24, (301, 9, 0), (300, 8, -1), 50,
+                          False, False)),
+    "g4_hd128": (63, (8, 2, 128, 8, 6, (40, 13, 25), None, 16, True,
+                      False)),
+}
+# cases whose lanes span more than one split on the card
+DECODE_SPLIT = ("tiles_splits", "window_across_split", "masked_split")
+
+
 def _decode_inputs(case):
-    h, hkv, hd, ps, maxp, lens, qpos_over, window, holes, stale = \
-        DECODE_CASES[case]
-    rng = np.random.default_rng(sorted(DECODE_CASES).index(case))
+    if case in DECODE_CASES:
+        spec, seed = DECODE_CASES[case], sorted(DECODE_CASES).index(case)
+    else:
+        seed, spec = DECODE_EDGES[case]
+    h, hkv, hd, ps, maxp, lens, qpos_over, window, holes, stale = spec
+    rng = np.random.default_rng(seed)
     k, v, pos, pages, stale_id = _pool(rng, hkv=hkv, hd=hd, ps=ps,
                                        starts=lens, holes=holes,
                                        stale_page=stale)
@@ -130,7 +158,7 @@ def _decode_inputs(case):
                 ps=ps, maxp=maxp, hkv=hkv, window=window)
 
 
-@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+@pytest.mark.parametrize("case", sorted(DECODE_CASES) + sorted(DECODE_EDGES))
 def test_paged_attention_plain_matches_jax(case, jx):
     jnp, ops, ref = jx.jnp, jx.ops, jx.ref
     d = _decode_inputs(case)
@@ -156,10 +184,12 @@ def test_paged_attention_plain_matches_jax(case, jx):
         jnp.asarray(d["table"]), jnp.asarray(d["q_pos"]), scale=scale,
         window=d["window"], interpret=True)
     np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
-    if case == "all_masked":
+    if case in ("all_masked", "masked_split"):
         # lanes with nothing attendable come back exactly zero
-        np.testing.assert_array_equal(out[[0, 2]], 0.0)
+        np.testing.assert_array_equal(out[d["q_pos"] < 0], 0.0)
         assert np.isfinite(out).all()
+    if case == "all_masked":
+        np.testing.assert_array_equal(out[[0, 2]], 0.0)
 
 
 # --------------------------------------------------------------------------
@@ -176,10 +206,40 @@ PREFILL_CASES = {
 }
 
 
+# edge cases of the kernel's staging, row tiles and splits, each with
+# its own seed (the cases above keep theirs)
+PREFILL_EDGES = {
+    # name: (seed, case as above)
+    # lane 0: a 300-key history, 5 staged tiles over 2 splits
+    "tiles_splits": (70, (4, 2, 32, 16, 24, (300, 70), (6, 6), 6, None,
+                          False)),
+    # rows at 250.. and 200.. with a window of 100: the edge falls across
+    # split 1's first key (192)
+    "window_across_split": (71, (4, 2, 32, 16, 24, (250, 200), (5, 5), 5,
+                                 100, False)),
+    # rows at 300..305 see 261.. only: split 0 is wholly masked
+    "masked_split": (72, (4, 2, 32, 16, 24, (300, 40), (6, 3), 6, 40,
+                          False)),
+    # G 4 at hd 128: 36 rows (c, g), three 16-row tiles, with a window
+    "g4_hd128": (73, (8, 2, 128, 8, 6, (21, 10), (9, 4), 9, 12, False)),
+    # histories that end mid-page (37 of 48 slots, stale tail), holes
+    "history_mid_page": (74, (4, 4, 64, 16, 4, (37, 16), (8, 8), 8, None,
+                              True)),
+    # a 70-row chunk: the in-flight keys span two staged tiles
+    "long_chunk": (75, (2, 1, 32, 16, 8, (20, 0), (70, 33), 70, None,
+                        False)),
+}
+PREFILL_SPLIT = ("tiles_splits", "window_across_split", "masked_split")
+
+
 def _prefill_inputs(case):
-    h, hkv, hd, ps, maxp, starts, widths, c, window, holes = \
-        PREFILL_CASES[case]
-    rng = np.random.default_rng(10 + sorted(PREFILL_CASES).index(case))
+    if case in PREFILL_CASES:
+        spec = PREFILL_CASES[case]
+        seed = 10 + sorted(PREFILL_CASES).index(case)
+    else:
+        seed, spec = PREFILL_EDGES[case]
+    h, hkv, hd, ps, maxp, starts, widths, c, window, holes = spec
+    rng = np.random.default_rng(seed)
     k, v, pos, pages, _ = _pool(rng, hkv=hkv, hd=hd, ps=ps, starts=starts,
                                 holes=holes, stale_page=False)
     table = _table(pages, maxp, 0)
@@ -195,7 +255,7 @@ def _prefill_inputs(case):
                 ps=ps, maxp=maxp, hkv=hkv, window=window)
 
 
-@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES) + sorted(PREFILL_EDGES))
 def test_paged_prefill_plain_matches_jax(case, jx):
     jnp, ops, ref = jx.jnp, jx.ops, jx.ref
     d = _prefill_inputs(case)
@@ -264,12 +324,18 @@ def test_wrappers_take_the_plain_version_on_cpu():
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain():
     """Each CUDA kernel against its plain version on the card, on every
-    decode and prefill case above (atol = rtol = 1e-4)."""
+    decode and prefill case above (atol = rtol = 1e-4); the split cases
+    do split on the card, and masked lanes and rows are exactly 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
-    for case in sorted(DECODE_CASES):
+    _, pp = _paged_mods()
+    for case in sorted(DECODE_CASES) + sorted(DECODE_EDGES):
         d = _decode_inputs(case)
+        if case in DECODE_SPLIT:
+            b = len(d["q_pos"])
+            assert build.split_count(b * d["hkv"], d["maxp"], d["ps"],
+                                     dev) > 1
         args = (torch.from_numpy(d["q"]).to(dev),
                 torch.from_numpy(d["k"]).to(dev, torch.bfloat16),
                 torch.from_numpy(d["v"]).to(dev, torch.bfloat16),
@@ -283,8 +349,14 @@ def test_cuda_kernels_match_plain():
         want = paged_attention_plain(*args, scale=0.125,
                                      window=d["window"])
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-    for case in sorted(PREFILL_CASES):
+        assert (got[args[5] < 0] == 0).all()
+    for case in sorted(PREFILL_CASES) + sorted(PREFILL_EDGES):
         p = _prefill_inputs(case)
+        if case in PREFILL_SPLIT:
+            b, c, h = p["q"].shape[:3]
+            units = b * p["hkv"] * pp._row_tiles(c, h // p["hkv"])
+            assert build.split_count(units, p["maxp"], p["ps"], dev,
+                                     **pp._SPLIT) > 1
         t = {n: torch.from_numpy(p[n]).to(dev) for n in
              ("q", "pos", "table", "q_pos", "start", "ck", "cv")}
         pargs = (t["q"], torch.from_numpy(p["k"]).to(dev, torch.bfloat16),
@@ -297,6 +369,107 @@ def test_cuda_kernels_match_plain():
         assert paged_prefill.launches == n + 1
         want = paged_prefill_plain(*pargs, scale=0.125, window=p["window"])
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        assert (got[t["q_pos"] < 0] == 0).all()
+
+
+def _paged_mods():
+    """The paged kernels' modules (the package attributes of these names
+    are the wrappers)."""
+    return (importlib.import_module("repro_torch.kernels.paged_attention"),
+            importlib.import_module("repro_torch.kernels.paged_prefill"))
+
+
+@pytest.mark.parametrize("bad", ["pool_offset", "pool_slot_stride"])
+def test_paged_wrappers_refuse_unaligned_pool_rows(bad):
+    """Both kernels copy pool rows in 16-byte pieces: their `_check`
+    raises on a bf16 pool whose base is off 16 bytes or whose (page,
+    slot, head) strides are not multiples of 8 elements, and passes the
+    model's contiguous pool."""
+    pa, pp = _paged_mods()
+    d = _decode_inputs("gqa")
+    p_, ps, hkv, hd = d["k"].shape
+    args = [torch.from_numpy(d["q"]), torch.zeros(d["k"].shape,
+                                                  dtype=torch.bfloat16),
+            torch.zeros(d["v"].shape, dtype=torch.bfloat16),
+            torch.from_numpy(d["pos"]), torch.from_numpy(d["table"]),
+            torch.from_numpy(d["q_pos"])]
+    pf = _prefill_inputs("gqa_mid_page")
+    t = {n: torch.from_numpy(pf[n]) for n in
+         ("q", "pos", "table", "q_pos", "start", "ck", "cv")}
+    pool = torch.zeros(pf["k"].shape, dtype=torch.bfloat16)
+    pargs = [t["q"], pool, pool, t["pos"], t["table"], t["q_pos"],
+             t["start"], t["ck"], t["cv"], t["q_pos"]]
+    pa._check(*args)
+    pp._check(*pargs)
+    for a, i in ((args, 1), (pargs, 2)):
+        shape = a[i].shape
+        if bad == "pool_offset":
+            bad_pool = torch.zeros(a[i].numel() + 4,
+                                   dtype=torch.bfloat16)[4:].view(shape)
+            assert bad_pool.data_ptr() % 16 == 8
+        else:
+            bad_pool = torch.zeros((*shape[:-1], shape[-1] + 4),
+                                   dtype=torch.bfloat16)[..., :shape[-1]]
+            assert bad_pool.stride(2) % 8 == 4
+        a[i] = bad_pool
+    with pytest.raises(ValueError, match="16 bytes"):
+        pa._check(*args)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pp._check(*pargs)
+
+
+@pytest.mark.parametrize("bad", ["q_offset", "ck_seq_stride"])
+def test_paged_prefill_refuses_unaligned_f32_rows(bad):
+    """The prefill kernel copies q, ck and cv rows in 16-byte pieces: its
+    `_check` raises on a contiguous view off 16 bytes (the wrapper makes
+    them contiguous first, so a row stride can only be off for a view
+    passed to `_check` itself)."""
+    _, pp = _paged_mods()
+    pf = _prefill_inputs("gqa_mid_page")
+    t = {n: torch.from_numpy(pf[n]) for n in
+         ("q", "pos", "table", "q_pos", "start", "ck", "cv")}
+    pool = torch.zeros(pf["k"].shape, dtype=torch.bfloat16)
+    q, ck = t["q"], t["ck"]
+    if bad == "q_offset":
+        q = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+        assert q.data_ptr() % 16 == 4
+    else:
+        b, c, hkv, hd = ck.shape
+        ck = torch.zeros((b, c, hkv * hd + 2))[:, :, :hkv * hd].view(
+            b, c, hkv, hd)
+        assert ck.stride(1) % 4 == 2
+    with pytest.raises(ValueError, match="16 bytes"):
+        pp._check(q, pool, pool, t["pos"], t["table"], t["q_pos"],
+                  t["start"], ck, t["cv"], t["q_pos"])
+
+
+@pytest.mark.parametrize("kernel", ["paged_attention", "paged_prefill"])
+def test_paged_wrappers_refuse_grids_past_the_limits(kernel):
+    """The grids' limits: decode takes Hkv <= 65535 kv heads (grid y);
+    prefill B * Hkv * ceil(C * G / 16) < 2^31 blocks.  Stride-0 views
+    give the shapes without the memory."""
+    pa, pp = _paged_mods()
+    i32 = dict(dtype=torch.int32)
+    if kernel == "paged_attention":
+        hkv, b = 65536, 1
+        q = torch.zeros(1, 1, 32).expand(b, hkv, 32)
+        pool = torch.zeros(1, 1, 1, 32, dtype=torch.bfloat16).expand(
+            2, 8, hkv, 32)
+        args = (q, pool, pool, torch.zeros(2, 8, **i32),
+                torch.zeros(b, 1, **i32), torch.zeros(b, **i32))
+        with pytest.raises(ValueError, match="65535"):
+            pa._check(*args)
+    else:
+        b, c, hkv = 2 ** 16, 2 ** 16, 2 ** 4   # 2^36 rows, 16 a block
+        q = torch.zeros(1, 1, 1, 32).expand(b, c, hkv, 32)
+        pool = torch.zeros(1, 1, 1, 32, dtype=torch.bfloat16).expand(
+            2, 8, hkv, 32)
+        rows = torch.zeros(1, 1, **i32).expand(b, c)
+        args = (q, pool, pool, torch.zeros(2, 8, **i32),
+                torch.zeros(1, 1, **i32).expand(b, 1), rows,
+                torch.zeros(1, **i32).expand(b), q, q, rows)
+        with pytest.raises(ValueError, match="2\\^31"):
+            pp._check(*args)
 
 
 # --------------------------------------------------------------------------
