@@ -9,10 +9,11 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      the sources in the checkout (one nvcc per source, in parallel):
      paged_attention, paged_prefill, flash_attention, bellman_backup,
      ssd_chunk, ramp_exit; prints what ptxas reports for each
-     (registers, static shared memory, spills) and, for the paged pair,
-     flash_attention and ssd_chunk, what the runtime reports at their
-     timed shapes (registers, shared memory a block, blocks an SM, local
-     memory; for the paged pair also the splits of a lane's pages);
+     (registers, static shared memory, spills) and what the runtime
+     reports at their timed shapes (registers, shared memory a block,
+     blocks an SM, local memory; for the paged pair also the splits of
+     a lane's pages, for ramp_exit its cluster size and the clusters the
+     card holds at once, for the Bellman kernel its threads);
   2. holds each kernel against its plain PyTorch version on the card:
      the paged pair at the chunked serve's shapes (8 lanes, 12 heads,
      head_dim 64, 16-token pages, 8 pages a lane, 16-token chunks),
@@ -29,7 +30,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      32 and 96 cases, and S in {1, 63, 65, 129} at each head_dim (GQA,
      a window past one tile), atol = rtol = 1e-4 (f32 sums in another
      order); bellman_backup at K = 24 and 64 on row-stochastic
-     transitions, atol = rtol = 1e-5; ssd_chunk at what the mamba2-130m
+     transitions, atol = rtol = 1e-5, and the whole solve in one launch
+     (n = 6 at K = 24, n = 13 at K = 64) within 1e-5 of its plain
+     version and EQUAL to n chained single launches; ssd_chunk at what
+     the mamba2-130m
      calibration passes ((512, 1, 256, 24, 64, 128) with 64 valid rows,
      zeros after, q_valid 64), the same shape as a random full chunk, a
      ring admission's (1, 1, 256, ...) with q_valid 32, four chunks (2,
@@ -41,10 +45,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      y rows past q_valid exactly 0; ramp_exit at the
      readout's (8, 50 257, K 24) with x_idx spread over 0..K+1, a
      ragged (3, 50 257), mamba2's V of 50 280, the JAX test's (4, 1000,
-     16), (8, 4096, 32) and (3, 2048, 64), (512, 50 257, 24), a row
-     view of a wider tensor (its row stride), and one row with a
-     dominant logit (conf -> 1) beside one of equal logits (conf =
-     1/V): loss within atol = rtol = 1e-5 of the plain version, and
+     16), (8, 4096, 32) and (3, 2048, 64), (512, 50 257, 24), row
+     views of a wider tensor starting at elements 1, 2 and 3 (row
+     starts off 16 bytes), one row with a dominant logit (conf -> 1)
+     beside one of equal logits (conf = 1/V), 64 lanes at qwen3-4b's
+     vocab of 151 936, one lane, a (1, 7) row shorter than its two
+     splits' 16-byte words, and bf16 logits (also as a view at element
+     5): loss within atol = rtol = 1e-5 of the plain version, and
      bin, new_x and stop EQUAL to the plain decision recomputed from
      the kernel's own loss (a loss a few ulp from a support edge may
      land in the neighbouring bin of the plain loss: such flips, and the
@@ -59,7 +66,11 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      solve of the serve's own calibration (512 x 64 numpy-seeded
      prompts, k 24, lambda 0.5) through the Bellman kernel and through
      the plain backup gives equal stop tables and cont / phi / sigma /
-     value within rtol 1e-5; full-width mamba2-130m prefills two
+     value within rtol 1e-5, the kernel launched once for the solve
+     (then the plain solve, the one-launch route and the route before
+     it, n chained single launches, timed in turns as eager calls with
+     a sync, median of 20);
+     full-width mamba2-130m prefills two
      300-token prompts (two chunks, the second ragged) through the
      ssd_chunk kernel, through the einsum path on the card and on the
      CPU: logits, node losses and SSM state within 1e-3, the bf16 conv
@@ -80,10 +91,15 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      calibration prefill's and a ring admission's shapes
      (flash_attention, each beside one call of
      ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick the
-     port never calls), the calibration's real call and a random full
-     chunk (ssd_chunk, which no PyTorch call computes), K = 24
-     (bellman_backup), the readout's (8, 50 257, K 24) (ramp_exit,
-     which no PyTorch call computes); computes each case's bound from
+     port never calls), the calibration's real call, a random full
+     chunk and a ring admission (ssd_chunk, which no PyTorch call
+     computes), one backup at K = 24 and the serve's solve (n = 6, K =
+     24) in one launch, beside the 6 chained single launches, minimums
+     and stacks it replaced (bellman_backup), the readout's (8, 50 257,
+     K 24), 512 lanes of it and 64 lanes of qwen3-4b's 151 936 vocab
+     (ramp_exit, which no PyTorch call computes); prints
+     ``launch_floor_ms``, the graph-replay time of an in-place add on
+     one element (the cheapest launch); computes each case's bound from
      its inputs (for ssd_chunk only the rows below q_valid, and its
      products at 3 x their flops at the TF32 tensor-core rate, the f32
      figure beside), and times both calibration prefills (paper-ee-100m
@@ -101,14 +117,17 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      recall_threshold, norecall_patience and always_first — with every
      kernel's launch counter set to 0 just before each serve and read
      just after; every request must complete with its full token count,
-     each path's kernels must launch, and the kernels of other paths
+     each path's kernels must launch (the Bellman kernel once a line
+     solve on the --dp-kernel serves), and the kernels of other paths
      (ramp_exit in every serve: no serve calls it) must not;
   6. prints a ``kernels`` JSON line (``launches`` is each kernel's
      count on its own main path — for ramp_exit the decision check;
      ``launches_by_path`` holds every path's; the times are the first
-     timed case's, ``timed_cases`` holds every case of a kernel timed at
-     more than one, ``resources`` what the runtime reported), the card
-     line, and last ``{"ok": true, "device": {...}}``.
+     timed case's — for bellman_backup the solve's, the case its path
+     runs — ``timed_cases`` holds every case of a kernel timed at more
+     than one, ``resources`` what the runtime reported; the object also
+     carries ``launch_floor_ms``), the card line, and last ``{"ok":
+     true, "device": {...}}``.
 
 It exits nonzero, printing no result, when CUDA is not available, when
 the repository's sources are not beside it, or when any check fails.
@@ -137,7 +156,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config                    # noqa: E402
 from repro_torch.core.line_dp import solve_line               # noqa: E402
 from repro_torch.kernels import (bellman_backup,              # noqa: E402
-                                 bellman_backup_plain, build,
+                                 bellman_backup_plain, bellman_solve,
+                                 bellman_solve_plain, build,
                                  flash_attention, flash_attention_plain,
                                  paged_attention, paged_attention_plain,
                                  paged_prefill, paged_prefill_plain,
@@ -205,6 +225,9 @@ MAIN_PATH = {"paged_attention": "chunked_recall_index",
              "bellman_backup": "ring_recall_index",
              "ssd_chunk": "mamba_ring_recall_index",
              "ramp_exit": DECISION}
+# the timed case whose numbers the ``kernels`` line gives (else the
+# kernel's first): the one its main path runs
+MAIN_CASE = {"bellman_backup": "solve n=6 K=24"}
 KERNELS = {"paged_attention": paged_attention, "paged_prefill": paged_prefill,
            "flash_attention": flash_attention,
            "bellman_backup": bellman_backup, "ssd_chunk": ssd_chunk,
@@ -220,6 +243,9 @@ PA_MOD = importlib.import_module("repro_torch.kernels.paged_attention")
 PP_MOD = importlib.import_module("repro_torch.kernels.paged_prefill")
 FLASH_MOD = importlib.import_module("repro_torch.kernels.flash_attention")
 SSD_MOD = importlib.import_module("repro_torch.kernels.ssd_chunk")
+EXIT_MOD = importlib.import_module("repro_torch.kernels.ramp_exit")
+BELLMAN_MOD = importlib.import_module("repro_torch.kernels.bellman_backup")
+LINE_DP = importlib.import_module("repro_torch.core.line_dp")
 SOURCES = {
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:87"),
@@ -439,6 +465,38 @@ def bellman_case(seed, k):
             torch.from_numpy(mi.T.astype(np.int32).copy()).to(DEV)), {}
 
 
+def solve_case(seed, n, k):
+    """A whole backward solve as `solve_line` gives it: the base phi
+    (xvals on every row), n row-stochastic transitions, positive costs
+    on the card, the X axis and the min-index table of a sorted grid."""
+    rng = np.random.default_rng(seed)
+    grid = np.sort(rng.uniform(0.01, 1.0, k)).astype(np.float32)
+    xv = np.concatenate([[0.0], grid, [grid[-1] * 1e4 + 1e4]]).astype(
+        np.float32)
+    mi = np.where(xv[:, None] <= grid[None, :], np.arange(k + 2)[:, None],
+                  np.arange(1, k + 1)[None, :])
+    trans = rng.dirichlet(np.ones(k), size=(n, k)).astype(np.float32)
+    costs = rng.uniform(0.01, 0.2, n).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+
+    return (dev(np.tile(xv, (k, 1))), dev(trans), dev(costs), dev(xv),
+            dev(mi.T.astype(np.int32))), {}
+
+
+def bellman_chain(base, trans_full, costs, xvals, mi_t):
+    """The solve as n single-backup launches, each followed by its
+    minimum, then the two stacks: the route `solve_line(use_kernel=True)`
+    took before the one-launch solve."""
+    conts, phis = [], [base]
+    for i in reversed(range(trans_full.shape[0])):
+        conts.append(bellman_backup(phis[-1], trans_full[i], costs[i:i + 1],
+                                    mi_t))
+        phis.append(torch.minimum(xvals[None, :], conts[-1]))
+    return torch.stack(conts[::-1]), torch.stack(phis[::-1])
+
+
 def flash_bound(args, kw):
     """Bytes and flops one flash call needs: q in and out written once;
     every key row is visible to its own query row, so all of k and v is
@@ -463,6 +521,17 @@ def bellman_bound(args, kw):
     return nbytes, 2 * k * k * x
 
 
+def solve_bound(args, kw):
+    """Bytes and flops of a whole solve: base, transitions, costs, xvals
+    and mi_t read once, cont (n, K, X) and phi (n + 1, K, X) written
+    once; 2 * K flops per output of each of the n backups."""
+    base, trans_full, costs, xvals, mi_t = args
+    n, k, _ = trans_full.shape
+    x = base.shape[1]
+    nbytes = 4 * (sum(t.numel() for t in args) + (2 * n + 1) * k * x)
+    return nbytes, 2 * n * k * k * x
+
+
 # ssd chunk: (b, c, q, h, p, n, stride-0 B/C, q_valid) — first what the
 # mamba2-130m calibration passes (64-token prompts: 64 valid rows of a
 # 256-row chunk, zeros after) and a random full chunk (the timed
@@ -476,7 +545,7 @@ SSD_CASES = [("calibration", (512, 1, 256, 24, 64, 128, True, 64)),
              ("q_valid-200", (2, 1, 256, 24, 64, 128, True, 200)),
              ("q_valid-256", (2, 1, 256, 24, 64, 128, True, 256)),
              ("small-per-head-bc", (2, 3, 32, 4, 32, 16, False, None))]
-SSD_TIMED = ("calibration", "full-chunk")
+SSD_TIMED = ("calibration", "full-chunk", "ring-admission")
 
 
 def ssd_case(seed, b, c, q, h, p, n, broadcast, q_valid):
@@ -536,17 +605,26 @@ EXIT_CASES = [("readout", (8, 50257, 24, True, "spread")),
               ("jax-8x4096", (8, 4096, 32, False, None)),
               ("jax-3x2048", (3, 2048, 64, False, None)),
               ("b512", (512, 50257, 24, True, None)),
-              ("row-view", (8, 50257, 24, True, "view")),
-              ("extremes", (2, 50257, 24, True, "extremes"))]
+              ("row-view", (8, 50257, 24, True, "view3")),
+              ("extremes", (2, 50257, 24, True, "extremes")),
+              ("b64-v151936", (64, 151936, 24, True, None)),
+              ("b1", (1, 50257, 24, True, None)),
+              ("b1-v7", (1, 7, 24, True, None)),
+              ("row-view-1", (8, 50257, 24, True, "view1")),
+              ("row-view-2", (8, 50257, 24, True, "view2")),
+              ("bf16", (8, 50257, 24, True, "bf16")),
+              ("bf16-row-view-5", (8, 50257, 24, True, "bf16-view5"))]
+EXIT_TIMED = ("readout", "b512", "b64-v151936")
 
 
 def exit_case(seed, b, v, k, as_bool, variant):
     """Logits ~ N(0, 2) as the JAX test draws them, sorted edges in
     (0, 1), a random stop table (bool as the line DP's, or int32 as the
     JAX test's), lane state drawn at random; ``spread`` puts x_idx
-    evenly over 0..K+1, ``view`` passes the logits as a row view of a
-    wider tensor, ``extremes`` makes row 0 one dominant logit (conf 1)
-    and row 1 equal logits (conf 1/V)."""
+    evenly over 0..K+1, ``view<o>`` passes the logits as a row view of a
+    wider tensor starting at element o, ``bf16`` rounds them to bf16,
+    ``extremes`` makes row 0 one dominant logit (conf 1) and row 1 equal
+    logits (conf 1/V)."""
     rng = np.random.default_rng(seed)
     logits = rng.normal(0, 2, (b, v)).astype(np.float32)
     if variant == "extremes":
@@ -559,10 +637,13 @@ def exit_case(seed, b, v, k, as_bool, variant):
     x_idx = (np.linspace(0, k + 1, b).round() if variant == "spread"
              else rng.integers(0, k + 2, b)).astype(np.int32)
     t = torch.from_numpy(logits).to(DEV)
-    if variant == "view":
-        wide = torch.zeros((b, v + 7), device=DEV)
-        wide[:, 3:3 + v] = t
-        t = wide[:, 3:3 + v]
+    if variant and variant.startswith("bf16"):
+        t = t.to(torch.bfloat16)
+    if variant and "view" in variant:
+        off = int(variant.split("view")[1])
+        wide = torch.zeros((b, v + 7), dtype=t.dtype, device=DEV)
+        wide[:, off:off + v] = t
+        t = wide[:, off:off + v]
     table = table.astype(bool) if as_bool else table.astype(np.int32)
     return (t, torch.from_numpy(edges).to(DEV),
             torch.from_numpy(table).to(DEV), torch.from_numpy(s_bin).to(DEV),
@@ -606,6 +687,13 @@ def time_ms(fn, iters=200, warm=20):
     return t0.elapsed_time(t1) / iters
 
 
+def launch_floor_ms():
+    """Device time of the cheapest launch: an in-place add on a
+    one-element tensor, by graph replay."""
+    one = torch.zeros(1, device=DEV)
+    return min(graph_ms(lambda: one.add_(1.0)) for _ in range(2))
+
+
 def graph_ms(fn, calls=20, replays=10):
     """Device time per call: ``calls`` calls captured in one CUDA graph
     and replayed ``replays`` times, so the host's cost to issue each
@@ -638,10 +726,10 @@ def graph_ms(fn, calls=20, replays=10):
 
 def phase_build():
     """Build every kernel; print what ptxas reports for each (registers,
-    static shared memory, spills) and, for the four kernels with dynamic
-    shared memory sized by the call, what the runtime reports at their
-    timed shapes (for the paged pair also the splits of a lane's pages).
-    Returns the latter."""
+    static shared memory, spills) and what the runtime reports at their
+    timed shapes (for the paged pair also the splits of a lane's pages,
+    for ramp_exit its cluster size and the clusters the card holds, for
+    the Bellman kernel its threads).  Returns the latter."""
     t0 = time.perf_counter()
     built = build.build_all()
     wall = time.perf_counter() - t0
@@ -666,14 +754,17 @@ def phase_build():
                 for case, shape in FLASH_CASES if case in FLASH_TIMED}),
             ("ssd_chunk", {
                 case: SSD_MOD.kernel_info(shape[2], shape[4], shape[5])
-                for case, shape in SSD_CASES if case in SSD_TIMED})):
+                for case, shape in SSD_CASES if case in SSD_TIMED}),
+            ("bellman_backup", {
+                "K=24": BELLMAN_MOD.kernel_info(1, 24, 26),
+                "solve n=6 K=24": BELLMAN_MOD.kernel_info(6, 24, 26)}),
+            ("ramp_exit", {
+                case: EXIT_MOD.kernel_info(shape[0], shape[1])
+                for case, shape in EXIT_CASES if case in EXIT_TIMED})):
         res[name] = info
         for case, r in info.items():
-            log(f"resources {name} [{case}]: {r['registers']} registers "
-                f"a thread, {r['smem_bytes']} bytes of shared memory a "
-                f"block, {r['blocks_per_sm']} blocks an SM, "
-                f"{r['local_bytes']} bytes of local memory a thread"
-                + (f", {r['splits']} splits" if "splits" in r else ""))
+            log(f"resources {name} [{case}]: "
+                + ", ".join(f"{k} {v}" for k, v in r.items()))
     return res
 
 
@@ -734,6 +825,24 @@ def phase_kernel_checks():
         errs[name] = max(errs[name], err)
         del got, want, args
         torch.cuda.empty_cache()
+    # the line solve in one launch: equal to n chained single launches
+    for n, k in ((6, serve.CALIB_K), (13, 64)):
+        args, _ = solve_case(n, n, k)
+        got = bellman_solve(*args)
+        chained = bellman_chain(*args)
+        torch.cuda.synchronize()
+        want = bellman_solve_plain(*args)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        same = all(torch.equal(g, c) for g, c in zip(got, chained))
+        ok = same and all(torch.allclose(g, w, atol=TOL_DP, rtol=TOL_DP)
+                          for g, w in zip(got, want))
+        log(f"check bellman_solve [n={n} K={k}] vs plain: max_abs_err "
+            f"{err:.3e} (atol=rtol={TOL_DP}); cont and phi "
+            f"{'equal' if same else 'NOT equal'} to {n} chained single "
+            f"launches {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"bellman_solve [n={n} K={k}] disagrees")
+        errs["bellman_backup"] = max(errs["bellman_backup"], err)
     # masked rows/lanes come back exactly zero
     args, kw = decode_case(0)
     if paged_attention(*args, **kw)[6].abs().max() != 0:
@@ -1002,8 +1111,8 @@ def phase_dp_check(params, cfg):
     n0 = bellman_backup.launches
     kern = solve_line(casc.chain, casc.costs, casc.support, use_kernel=True)
     torch.cuda.synchronize()
-    if bellman_backup.launches - n0 != casc.n_nodes:
-        raise SystemExit("the kernel solve did not launch once a node")
+    if bellman_backup.launches - n0 != 1:
+        raise SystemExit("the kernel solve did not launch once a solve")
     ok = torch.equal(kern.stop, plain.stop)
     errs = {}
     for f in ("cont", "phi", "sigma", "value"):
@@ -1018,6 +1127,36 @@ def phase_dp_check(params, cfg):
     if not ok:
         raise SystemExit("the line solve through the Bellman kernel "
                          "disagrees with the plain solve")
+
+    def eager(route):
+        """Median of 20 synchronized eager solves, host clock: the plain
+        solve, the one-launch kernel route, or the route before it (n
+        chained single launches, a minimum each, 2 stacks)."""
+        times = []
+        with_kernel = route != "plain"
+        if route == "chained":
+            LINE_DP.bellman_solve = bellman_chain
+        try:
+            for _ in range(21):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solve_line(casc.chain, casc.costs, casc.support,
+                           use_kernel=with_kernel)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            LINE_DP.bellman_solve = bellman_solve
+        return float(np.median(times[1:]))
+
+    routes = ("plain", "kernel", "chained")
+    first = {r: eager(r) for r in routes}
+    second = {r: eager(r) for r in reversed(routes)}
+    log(f"time solve_line [n={kern.n} K={kern.k}, eager, host clock, "
+        f"median of 20, in turns]: use_kernel=True (one launch) "
+        f"{first['kernel']:.4f} / {second['kernel']:.4f} ms; the route "
+        f"before it ({kern.n} chained single launches) "
+        f"{first['chained']:.4f} / {second['chained']:.4f} ms; plain "
+        f"{first['plain']:.4f} / {second['plain']:.4f} ms")
     return casc
 
 
@@ -1150,12 +1289,17 @@ TIMED += [("flash_attention", case, lambda i=i, shape=shape:
            flash_case(10 + i, *shape), flash_bound)
           for i, (case, shape) in enumerate(FLASH_CASES) if case in FLASH_TIMED]
 TIMED += [("bellman_backup", "K=24", lambda: bellman_case(24, 24),
-           bellman_bound)]
+           bellman_bound),
+          # the serve's own solve: paper-ee-100m's 6 nodes at CALIB_K 24
+          ("bellman_backup", "solve n=6 K=24",
+           lambda: solve_case(6, 6, serve.CALIB_K), solve_bound,
+           (bellman_solve, bellman_solve_plain))]
 TIMED += [("ssd_chunk", case, lambda i=i, shape=shape:
            ssd_case(30 + i, *shape), ssd_bound)
           for i, (case, shape) in enumerate(SSD_CASES) if case in SSD_TIMED]
-TIMED += [("ramp_exit", "readout", lambda: exit_case(40, *EXIT_CASES[0][1]),
-           exit_bound)]
+TIMED += [("ramp_exit", case, lambda i=i, shape=shape:
+           exit_case(40 + i, *shape), exit_bound)
+          for i, (case, shape) in enumerate(EXIT_CASES) if case in EXIT_TIMED]
 
 
 def phase_timing():
@@ -1164,9 +1308,9 @@ def phase_timing():
     the bound from the case's inputs and, for flash, the library call.
     Returns {kernel: {case: numbers}}."""
     rows = {}
-    for name, case, inputs, bound in TIMED:
+    for name, case, inputs, bound, *fns in TIMED:
         args, kw = inputs()
-        kern, plain = KERNELS[name], PLAINS[name]
+        kern, plain = fns[0] if fns else (KERNELS[name], PLAINS[name])
 
         def run_kern():
             return kern(*args, **kw)
@@ -1176,7 +1320,8 @@ def phase_timing():
 
         # the SSD chunk at the calibration shape takes milliseconds (its
         # plain version tens), so fewer calls a graph
-        g = dict(calls=4, replays=3) if name == "ssd_chunk" else {}
+        g = dict(calls=4, replays=3) if name == "ssd_chunk" and \
+            args[0].shape[0] > 1 else {}
         plain_g = [graph_ms(run_plain, **g)]
         kern_g = [graph_ms(run_kern, **g), graph_ms(run_kern, **g)]
         plain_g.append(graph_ms(run_plain, **g))
@@ -1213,12 +1358,28 @@ def phase_timing():
                 f"ms (device, graph replay; max_abs_err vs plain "
                 f"{lib_err:.3e})")
             del qt, kt, vt
+        extra = {}
+        if kern is bellman_solve:
+            # the route it replaces: a launch, a minimum a node, 2 stacks
+            def run_chain():
+                return bellman_chain(*args)
+
+            extra = dict(chained_ms=min(graph_ms(run_chain),
+                                        graph_ms(run_chain)),
+                         chained_eager_ms=time_ms(run_chain, iters=50))
+            single = rows[name]["K=24"]["ms"]
+            log(f"time {name} [{case}]: {args[1].shape[0]} chained single "
+                f"launches with their minimums and 2 stacks (the route "
+                f"before the one-launch solve) {extra['chained_ms']:.5f} ms "
+                f"device, {extra['chained_eager_ms']:.5f} ms eager; "
+                f"{args[1].shape[0]} x the single backup's "
+                f"{args[1].shape[0] * single:.5f} ms")
         del args
         torch.cuda.empty_cache()
         rows.setdefault(name, {})[case] = dict(
             ms=min(kern_g), plain_ms=min(plain_g), bound_ms=b_ms,
             bound_by=b_by, library_ms=lib, eager_ms=kern_e,
-            plain_eager_ms=plain_e)
+            plain_eager_ms=plain_e, **extra)
         log(f"time {name} [{case}] (device, CUDA graph replay): kernel "
             f"{kern_g[0]:.5f} / {kern_g[1]:.5f} ms, plain {plain_g[0]:.5f} "
             f"/ {plain_g[1]:.5f} ms; eager call (host included): kernel "
@@ -1328,6 +1489,9 @@ def main() -> None:
     phase_calibration_timing(params, cfg, "use_ssd_kernel")
     del params, params_cpu
     times = phase_timing()
+    floor = launch_floor_ms()
+    log(f"launch_floor_ms {floor:.6f} (device, graph replay of an in-place "
+        f"add on one element)")
     # each path's own counts; each kernel's main path is MAIN_PATH's
     by_path = {DECISION: decision}
     by_path.update({name: phase_serve(name, argv, must, must_not)
@@ -1335,7 +1499,7 @@ def main() -> None:
     kernels = []
     for name in KERNELS:
         cases = times[name]
-        main_case = next(iter(cases))
+        main_case = MAIN_CASE.get(name, next(iter(cases)))
         row = dict(name=name, route="cuda", source=SOURCES[name][0],
                    replaces=SOURCES[name][1],
                    launches=by_path[MAIN_PATH[name]][name],
@@ -1348,7 +1512,7 @@ def main() -> None:
             row["resources"] = resources[name]
         kernels.append(row)
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,11 @@ loss s, next candidate node i.  Bellman recursion (§4.2):
 
 with base case ``Phi(X, *, n) = X``.  The X axis has K+2 entries,
 ``xvals = [0, v_1..v_K, INF]``; a loss bin b maps to X-index b+1.  The
-backward pass is a reversed Python loop of (K x K) @ (K x (K+2))
-matmuls over a min-gathered table: the plain gather + matmul, or, under
-``solve_line(use_kernel=True)``, the fused Bellman-backup kernel of
-`repro_torch.kernels` (plain PyTorch on CPU tensors).
+backward pass is n backups, (K x K) @ (K x (K+2)) matmuls over a
+min-gathered table: a reversed Python loop of the plain gather + matmul
+(`repro_torch.kernels.bellman_solve_plain`), or, under
+``solve_line(use_kernel=True)``, one launch of the Bellman kernel that
+runs the whole loop (`bellman_solve`; the plain loop on CPU tensors).
 
 The exact dynamic index sigma (Def. 4.4) is recovered by linear
 interpolation at the stop/continue flip, as in the JAX package.
@@ -24,7 +25,8 @@ import torch
 
 from repro_torch.core.markov import MarkovChain
 from repro_torch.core.support import Support
-from repro_torch.kernels.bellman_backup import bellman_backup
+from repro_torch.kernels.bellman_backup import (bellman_solve,
+                                                bellman_solve_plain)
 
 __all__ = ["LineTables", "solve_line", "suffix_tables", "x_values",
            "INF_SENTINEL_MULT"]
@@ -69,19 +71,6 @@ def _min_index_matrix(grid: torch.Tensor) -> torch.Tensor:
     return torch.where(le, x_idx, grid_as_x)
 
 
-def _backup(phi_next, trans_row, cost, xvals, mi_t, *,
-            use_kernel: bool = False):
-    """cont[s, x] = c + sum_y trans[s, y] * phi_next[y, mi[x, y]].
-    ``mi_t`` is int32 under ``use_kernel`` (the kernel's type), int64
-    otherwise (what `torch.gather` takes)."""
-    if use_kernel:
-        cont = bellman_backup(phi_next, trans_row, cost, mi_t)
-    else:
-        m = torch.gather(phi_next, 1, mi_t)                 # (K, K+2)
-        cont = cost + trans_row @ m
-    return cont, torch.minimum(xvals[None, :], cont)
-
-
 def solve_line(chain: MarkovChain, costs, support: Support, *,
                use_kernel: bool = False) -> LineTables:
     """Solve the with-recall line problem (Prob. 4.1) exactly.
@@ -90,7 +79,7 @@ def solve_line(chain: MarkovChain, costs, support: Support, *,
       chain: fitted Markov chain over the binned losses (n nodes).
       costs: (n,) strictly-positive inspection costs c_i.
       support: the common discrete support V.
-      use_kernel: run each backup through the Bellman-backup kernel.
+      use_kernel: run the backward pass as one Bellman-kernel launch.
     """
     grid = support.grid
     costs = torch.as_tensor(costs, dtype=torch.float32, device=grid.device)
@@ -99,22 +88,13 @@ def solve_line(chain: MarkovChain, costs, support: Support, *,
     k = chain.k
     nx = k + 2
     xvals = x_values(grid)
-    mi_t = _min_index_matrix(grid).T.contiguous()           # (K, K+2)
-    if use_kernel:
-        mi_t = mi_t.to(torch.int32)         # once, outside the node loop
+    mi_t = _min_index_matrix(grid).T.to(torch.int32).contiguous()
     # Node 0 has no predecessor; its "transition row" is p0 for every s.
     trans_full = torch.cat([chain.p0[None, None, :].expand(1, k, k),
                             chain.trans], dim=0)            # (n, K, K)
     base = xvals[None, :].expand(k, nx).contiguous()        # (K, K+2)
-    n = chain.n
-    conts, phis = [None] * n, [None] * n
-    phi_next = base
-    for i in reversed(range(n)):
-        conts[i], phis[i] = _backup(phi_next, trans_full[i], costs[i],
-                                    xvals, mi_t, use_kernel=use_kernel)
-        phi_next = phis[i]
-    cont = torch.stack(conts)
-    phi = torch.stack(phis + [base])
+    solve = bellman_solve if use_kernel else bellman_solve_plain
+    cont, phi = solve(base, trans_full, costs, xvals, mi_t)
 
     # Ties break toward stopping ("smallest solution", Def. 4.4).
     stop = xvals[None, None, :] <= cont

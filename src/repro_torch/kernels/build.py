@@ -29,7 +29,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "build_all", "library", "check_rows_aligned",
-           "split_count", "ticket_buffer"]
+           "sm_count", "split_count", "ticket_buffer"]
 
 SOURCES = ("paged_attention", "paged_prefill", "flash_attention",
            "bellman_backup", "ssd_chunk", "ramp_exit")
@@ -132,7 +132,8 @@ def check_rows_aligned(kernel: str, **tensors) -> None:
 
 
 @functools.cache
-def _sm_count(device) -> int:
+def sm_count(device) -> int:
+    """The SMs of CUDA ``device``."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -147,7 +148,7 @@ def split_count(units: int, maxp: int, ps: int, device, *,
     its blocks fit an SM)."""
     keys = maxp * ps
     want = min(-(-keys // keys_a_block),
-               max(1, -(-blocks_an_sm * _sm_count(device) // units)))
+               max(1, -(-blocks_an_sm * sm_count(device) // units)))
     return min(maxp, max(1, want, -(-keys // _MAX_KEYS_A_BLOCK)))
 
 

@@ -19,9 +19,11 @@ loss.  ``s_bin`` is part of the contract because the TPU kernel takes it
 
 Unlike the TPU op, nothing is padded (the kernel bounds-checks the V
 tail and any B) and the logits are read through their row stride, so a
-sliced (B, V) view costs no copy.  `ramp_exit` runs the plain version
-for CPU tensors and the kernel for CUDA tensors — there is no fallback
-between them.
+sliced (B, V) view costs no copy.  The kernel splits each row over the
+blocks of one thread-block cluster (`exit_splits`), so it needs a
+Hopper card (sm_90a).  `ramp_exit` runs the plain version for CPU
+tensors and the kernel for CUDA tensors — there is no fallback between
+them.
 """
 
 from __future__ import annotations
@@ -33,12 +35,13 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["ramp_exit", "ramp_exit_plain"]
+__all__ = ["ramp_exit", "ramp_exit_plain", "exit_splits", "kernel_info"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, ctypes.c_longlong, _I, _I, _I, _P, _I, _P, _I, _P,
+_ARGTYPES = [_P, ctypes.c_longlong, _I, _I, _I, _I, _P, _I, _P, _I, _P,
              ctypes.c_float, _P, _P, _P, _P, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_SPLITS = 8                 # the portable thread-block cluster size
 
 
 @functools.cache
@@ -47,6 +50,32 @@ def _kernel():
     fn = build.library("ramp_exit").repro_ramp_exit
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
+
+
+def exit_splits(b: int, v: int, dtype: torch.dtype, device) -> int:
+    """Blocks (one cluster) that share a row: enough that the ``b`` rows
+    cover twice the SMs, at most 8, and no more than the row has 16-byte
+    words."""
+    want = min(-(-2 * build.sm_count(device) // b),
+               -(-v // (16 // dtype.itemsize)))
+    return max(1, min(_MAX_SPLITS, want))
+
+
+def kernel_info(b: int, v: int) -> dict:
+    """The kernel's resources for ``b`` rows of ``v`` f32 logits, as the
+    CUDA runtime reports them: registers a thread, static shared memory
+    a block (bytes), blocks an SM, local (spill) bytes a thread, the
+    cluster size (splits a row) and the clusters the card holds at
+    once."""
+    splits = exit_splits(b, v, torch.float32, torch.device("cuda"))
+    out = (ctypes.c_int * 5)()
+    rc = build.library("ramp_exit").repro_ramp_exit_info(
+        ctypes.c_int(b), ctypes.c_int(splits), out)
+    if rc != 0:
+        raise RuntimeError(f"ramp_exit info failed: CUDA error {rc}")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "local_bytes", "active_clusters"), out),
+                cluster_size=splits)
 
 
 def ramp_exit_plain(logits, edges, stop_table, s_bin, x_idx, *,
@@ -112,8 +141,9 @@ def ramp_exit(logits, edges, stop_table, s_bin, x_idx, *, lam: float):
     bins = torch.empty((b,), dtype=torch.int32, device=dev)
     new_x = torch.empty((b,), dtype=torch.int32, device=dev)
     stop = torch.empty((b,), dtype=torch.bool, device=dev)
+    splits = exit_splits(b, v, logits.dtype, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernel()(logits.data_ptr(), logits.stride(0), b, v,
+    rc = _kernel()(logits.data_ptr(), logits.stride(0), b, v, splits,
                    _DTYPES[logits.dtype], edges.data_ptr(), edges.shape[0],
                    table.data_ptr(), table.shape[1], x_idx.data_ptr(),
                    float(lam), loss.data_ptr(), bins.data_ptr(),

@@ -13,12 +13,14 @@ in different orders).  The bf16 pools are built from the same f32 numpy
 arrays in both frameworks and must be bit-equal.
 
 The CUDA kernels themselves run only on the card: `test_cuda_kernels_
-match_plain`, `test_cuda_flash_and_bellman_match_plain` and
+match_plain`, `test_cuda_flash_and_bellman_match_plain`,
+`test_cuda_bellman_solve_matches_chained_launches`,
 `test_cuda_ssd_chunk_matches_plain` and `test_cuda_ramp_exit_matches_
 plain` hold each against its plain version
 there (atol = rtol = 1e-4 for attention, whose f32 sums run in another
-order; 1e-5 for the backup; 2e-4 for the SSD chunk, as the JAX
-package's own kernel test) and skip on a machine without one.  The JAX package is imported by the fixture of the
+order; 1e-5 for the backup and the solve, whose n-node launch must also
+equal n chained single launches bit for bit; 2e-4 for the SSD chunk, as
+the JAX package's own kernel test) and skip on a machine without one.  The JAX package is imported by the fixture of the
 tests that need it, so that test also runs where JAX is not installed
 (``pytest -m cuda tests/test_torch_kernels.py``).
 """
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import (bellman_backup, bellman_backup_plain,
+                                 bellman_solve, bellman_solve_plain,
                                  flash_attention, flash_attention_plain,
                                  paged_attention, paged_attention_plain,
                                  paged_prefill, paged_prefill_plain,
@@ -561,9 +564,66 @@ def test_bellman_backup_plain_matches_jax(k, jx):
         out, np.asarray(ops.bellman_backup(*j, interpret=True)), **TOL)
 
 
+def _solve_inputs(n, k, seed):
+    """A backward line solve as `solve_line` gives it: p0 and n - 1
+    row-stochastic transitions, positive costs and a sorted grid (numpy),
+    with the base phi, the (n, K, K) transitions (p0 on every row first),
+    xvals and mi_t derived from them."""
+    rng = np.random.default_rng(seed)
+    grid = np.sort(rng.uniform(0.01, 1.0, k)).astype(np.float32)
+    p0 = rng.dirichlet(np.ones(k)).astype(np.float32)
+    trans = rng.dirichlet(np.ones(k), size=(n - 1, k)).astype(np.float32)
+    costs = rng.uniform(0.01, 0.2, n).astype(np.float32)
+    xv = np.concatenate([[0.0], grid, [grid[-1] * 1e4 + 1e4]]).astype(
+        np.float32)
+    mi = np.where(xv[:, None] <= grid[None, :], np.arange(k + 2)[:, None],
+                  np.arange(1, k + 1)[None, :])
+    full = np.concatenate([np.tile(p0, (1, k, 1)), trans], axis=0)
+    solve = (np.tile(xv, (k, 1)), full, costs, xv,
+             mi.T.astype(np.int32).copy())
+    return (p0, trans, costs, grid), solve
+
+
+def _chained(backup, base, trans_full, costs, xvals, mi_t):
+    """The solve as n single backups, each followed by its minimum."""
+    conts, phis = [], [base]
+    for i in reversed(range(trans_full.shape[0])):
+        conts.append(backup(phis[-1], trans_full[i], costs[i:i + 1], mi_t))
+        phis.append(torch.minimum(xvals[None, :], conts[-1]))
+    return torch.stack(conts[::-1]), torch.stack(phis[::-1])
+
+
+@pytest.mark.parametrize("n", [1, 6])
+@pytest.mark.parametrize("k", [8, 24])
+def test_bellman_solve_plain_matches_jax(k, n, jx):
+    """The solve's plain version against the JAX package's
+    ``solve_line(use_kernel=True)`` (the Pallas backup in interpret mode,
+    inside its `lax.scan`) and against n chained plain backups and
+    minimums: cont and phi within 1e-5."""
+    from repro.core import line_dp as jline
+    from repro.core.markov import MarkovChain
+    from repro.core.support import Support
+
+    (p0, trans, costs, grid), arrs = _solve_inputs(n, k, 7 * k + n)
+    args = [torch.from_numpy(a) for a in arrs]
+    cont, phi = bellman_solve_plain(*args)
+    assert cont.shape == (n, k, k + 2) and phi.shape == (n + 1, k, k + 2)
+    jnp = jx.jnp
+    jt = jline.solve_line(
+        MarkovChain(p0=jnp.asarray(p0), trans=jnp.asarray(trans)),
+        jnp.asarray(costs),
+        Support(grid=jnp.asarray(grid),
+                edges=jnp.asarray((grid[1:] + grid[:-1]) / 2)),
+        use_kernel=True)
+    np.testing.assert_allclose(cont.numpy(), np.asarray(jt.cont), **TOL)
+    np.testing.assert_allclose(phi.numpy(), np.asarray(jt.phi), **TOL)
+    for got, want in zip((cont, phi), _chained(bellman_backup_plain, *args)):
+        torch.testing.assert_close(got, want, **TOL)
+
+
 def test_new_wrappers_take_the_plain_version_on_cpu():
-    """On CPU tensors the flash and Bellman wrappers ARE the plain
-    versions and launch nothing."""
+    """On CPU tensors the flash and Bellman wrappers (the single backup
+    and the whole solve) ARE the plain versions and launch nothing."""
     q, k, v, kw = _flash_inputs("gqa")
     args = [torch.from_numpy(a) for a in (q, k, v)]
     before = flash_attention.launches
@@ -577,6 +637,9 @@ def test_new_wrappers_take_the_plain_version_on_cpu():
     before = bellman_backup.launches
     torch.testing.assert_close(bellman_backup(*bargs),
                                bellman_backup_plain(*bargs), rtol=0, atol=0)
+    sargs = [torch.from_numpy(a) for a in _solve_inputs(6, 8, 3)[1]]
+    for got, want in zip(bellman_solve(*sargs), bellman_solve_plain(*sargs)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert bellman_backup.launches == before
 
 
@@ -611,6 +674,31 @@ def test_flash_wrapper_refuses_unaligned_rows(bad):
         assert v.stride(2) == hd + 1
     with pytest.raises(ValueError, match="16 bytes"):
         mod._check(q, k, v)
+
+
+@pytest.mark.cuda
+def test_cuda_bellman_solve_matches_chained_launches():
+    """The n-node solve kernel on the card, at K in {8, 24, 64} and n in
+    {1, 6, 13}: one launch a solve; cont and phi EQUAL (bit for bit) to
+    n chained single-backup launches of the same kernel and their
+    minimums (each output sums y in ascending order in one FMA chain,
+    whatever n), and within atol = rtol = 1e-5 of the plain solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for k in (8, 24, 64):
+        for n in (1, 6, 13):
+            args = [torch.from_numpy(a).to(dev)
+                    for a in _solve_inputs(n, k, 7 * k + n)[1]]
+            before = bellman_backup.launches
+            got = bellman_solve(*args)
+            torch.cuda.synchronize()
+            assert bellman_backup.launches == before + 1
+            chained = _chained(bellman_backup, *args)
+            assert bellman_backup.launches == before + 1 + n
+            for g, c, w in zip(got, chained, bellman_solve_plain(*args)):
+                assert torch.equal(g, c), (k, n)
+                torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -702,8 +790,10 @@ def test_cuda_ssd_chunk_matches_plain():
 # ramp exit (the fused exit decision)
 # --------------------------------------------------------------------------
 
-# the JAX test's three shapes, then the paper-ee-100m readout's
-EXIT_SHAPES = [(4, 1000, 16), (8, 4096, 32), (3, 2048, 64), (8, 50257, 24)]
+# the JAX test's three shapes, then the paper-ee-100m readout's, one
+# lane of it, and a row shorter than one split's 16-byte words
+EXIT_SHAPES = [(4, 1000, 16), (8, 4096, 32), (3, 2048, 64), (8, 50257, 24),
+               (1, 50257, 24), (2, 7, 8)]
 
 
 def _exit_inputs(b, v, k):
@@ -760,15 +850,33 @@ def test_ramp_exit_takes_the_line_dp_bool_table_and_row_views():
 @pytest.mark.cuda
 def test_cuda_ramp_exit_matches_plain():
     """The exit-decision kernel against its plain version on the card at
-    every shape above, with an int32 and a bool table: loss within atol
-    = rtol = 1e-5, and bin, new x and stop equal to the plain decision
-    recomputed from the kernel's own loss."""
+    every shape above and at 512 lanes of the readout, with an int32 and
+    a bool table, f32 and bf16 logits, and as row views of a wider
+    tensor starting at elements 1, 2 and 3 (rows off 16 bytes: scalar
+    head and tail): loss within atol = rtol = 1e-5, and bin, new x and
+    stop equal to the plain decision recomputed from the kernel's own
+    loss.  (2, 7) is split over 2 blocks, fewer elements than their
+    16-byte words hold."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.kernels.ramp_exit import exit_splits
+
     dev = torch.device("cuda")
-    for shape in EXIT_SHAPES:
+    assert exit_splits(2, 7, torch.float32, dev) == 2
+    cases = [(shape, torch.float32, 0) for shape in EXIT_SHAPES]
+    cases += [((512, 50257, 24), torch.float32, 0)]
+    cases += [(shape, dt, off) for shape in ((8, 50257, 24), (2, 7, 8))
+              for dt in (torch.float32, torch.bfloat16) for off in (1, 2, 3)]
+    for shape, dt, off in cases:
         logits, edges, table, s_bin, x_idx = (
             torch.from_numpy(a).to(dev) for a in _exit_inputs(*shape))
+        if off:
+            wide = torch.zeros((shape[0], shape[1] + 5), dtype=dt,
+                               device=dev)
+            wide[:, off:off + shape[1]] = logits
+            logits = wide[:, off:off + shape[1]]
+        else:
+            logits = logits.to(dt)
         for tab in (table, table.bool()):
             n = ramp_exit.launches
             got = ramp_exit(logits, edges, tab, s_bin, x_idx, lam=0.6)

@@ -80,12 +80,16 @@ def test_support_chain_and_tables_match(cascades):
 
 def test_solve_line_kernel_route_matches(cascades):
     """solve_line(use_kernel=True) in both packages on the same fitted
-    chain: stop tables equal, cont / phi / sigma / value within 1e-5."""
+    chain: stop tables equal, cont / phi / sigma / value within 1e-5.
+    On CPU tensors the port's route is the plain solve: no launch."""
     _, jc, tc = cascades
     from repro.core.line_dp import solve_line as jsolve
     from repro_torch.core.line_dp import solve_line as tsolve
+    from repro_torch.kernels import bellman_backup
     jt = jsolve(jc.chain, jc.costs, jc.support, use_kernel=True)
+    before = bellman_backup.launches
     tt = tsolve(tc.chain, tc.costs, tc.support, use_kernel=True)
+    assert bellman_backup.launches == before
     np.testing.assert_array_equal(tt.stop.numpy(), np.asarray(jt.stop))
     for f in ("cont", "phi", "sigma"):
         np.testing.assert_allclose(getattr(tt, f).numpy(),
