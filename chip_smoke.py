@@ -105,8 +105,17 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      figure beside), and times both calibration prefills (paper-ee-100m
      with and without --flash, mamba2-130m with and without
      --ssd-kernel);
-  5. serves at full width through ``repro_torch.launch.serve.main``
-     twelve times — paper-ee-100m chunked paged under recall_index and
+  5. replays the model-free steppers on the card and on the CPU: the
+     same numpy trace bank (``ee_like_traces``, seed 0, 6 nodes),
+     tables and seeded Poisson workload (16 req/s for 10 s, 8 lanes)
+     through ``Server`` + ``SimStepper`` under recall_index, FIFO with
+     chunked prefill and again EDF with static batching, then a
+     two-rung ``CascadeSimStepper`` (6 + 6 nodes) under skip_recall
+     with the recall policy; every request's served nodes, token
+     count, virtual TTFT and finish, and the cascade's stats, must be
+     EQUAL on the two devices (a sha256 of the records is printed);
+  6. serves at full width through ``repro_torch.launch.serve.main``
+     fifteen times — paper-ee-100m chunked paged under recall_index and
      under always_last (the paged pair's path), the ring server with
      --flash --dp-kernel under recall_index (flash and Bellman's path),
      the one-shot batch with --flash --dp-kernel; mamba2-130m's ring
@@ -114,13 +123,25 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      path) and its one-shot batch with --ssd-kernel; then paper-ee-100m
      chunked paged for 1 s under each other online policy of the
      registry: tree_index, skip_recall, norecall_threshold,
-     recall_threshold, norecall_patience and always_first — with every
-     kernel's launch counter set to 0 just before each serve and read
-     just after; every request must complete with its full token count,
-     each path's kernels must launch (the Bellman kernel once a line
-     solve on the --dp-kernel serves), and the kernels of other paths
-     (ramp_exit in every serve: no serve calls it) must not;
-  6. prints a ``kernels`` JSON line (``launches`` is each kernel's
+     recall_threshold, norecall_patience and always_first; a two-model
+     cascade of full-width paper-ee-100m (rungs seeded 0 and 1, 12
+     global nodes, 8 + 4 lanes) through the paged pair on both rungs,
+     under skip_recall with the recall policy for 2 s
+     (``cascade_recall``) and under recall_threshold with the commit
+     policy for 1 s (``cascade_commit``), each required to escalate and
+     catch up on rung 1 (and to commit), printing the per-rung token
+     shares, escalations, de-escalations and re-pinned tokens; and,
+     last, chunked paged under recall_index in EDF order with a 200 ms
+     SLO and ``--eos`` set to the most frequent token of the first
+     serve (``chunked_edf_eos``: a request is complete with all its
+     tokens or when its last token is that one; at least one must end
+     early) — with every kernel's launch counter set to 0 just before
+     each serve and read just after; every request must complete with
+     its full token count, each path's kernels must launch (the Bellman
+     kernel once a line solve on the --dp-kernel serves), and the
+     kernels of other paths (ramp_exit in every serve: no serve calls
+     it) must not;
+  7. prints a ``kernels`` JSON line (``launches`` is each kernel's
      count on its own main path — for ramp_exit the decision check;
      ``launches_by_path`` holds every path's; the times are the first
      timed case's — for bellman_backup the solve's, the case its path
@@ -135,6 +156,8 @@ the repository's sources are not beside it, or when any check fails.
 
 from __future__ import annotations
 
+import collections
+import hashlib
 import importlib
 import json
 import subprocess
@@ -154,6 +177,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config                    # noqa: E402
+from repro_torch.core import traces                           # noqa: E402
 from repro_torch.core.line_dp import solve_line               # noqa: E402
 from repro_torch.kernels import (bellman_backup,              # noqa: E402
                                  bellman_backup_plain, bellman_solve,
@@ -168,7 +192,13 @@ from repro_torch.models import attention as A                 # noqa: E402
 from repro_torch.models import blocks                         # noqa: E402
 from repro_torch.models import model as M                     # noqa: E402
 from repro_torch.models.param import materialize, tree_map    # noqa: E402
+from repro_torch.serving import runtime as rt                 # noqa: E402
+from repro_torch.serving.cascade import (CascadeSimStepper,   # noqa: E402
+                                         ModelBank, ModelSpec)
+from repro_torch.serving.runtime.server import arrays_to      # noqa: E402
+from repro_torch.serving.runtime.workload import WorkloadSpec  # noqa: E402
 from repro_torch.strategy import Cascade, RecallIndexStrategy  # noqa: E402
+from repro_torch.strategy import make as make_strategy         # noqa: E402
 
 DEV = torch.device("cuda")
 TOL_KERNEL = 1e-4
@@ -218,7 +248,31 @@ SERVES = [
      ("ssd_chunk",), ATTN + EXIT),
 ] + [(f"chunked_{p}", SERVE_ARGS + ["--policy", p, "--duration", "1"],
       PAGED, NEW + ("ssd_chunk",) + EXIT) for p in POLICIES]
+# the two-model cascade of full-width paper-ee-100m (rungs seeded 0 and
+# 1, 12 global nodes), through the paged pair on both rungs
+CASCADE_ARGS = (["--cascade", "paper-ee-100m:paper-ee-100m"] + LOAD
+                + ["--server", "--paged-kernel", "--prefill-chunk", str(C),
+                   "--page-size", str(PS), "--escalate-patience", "4",
+                   "--cascade-lanes", "4"])
+CASCADE_SERVES = [
+    ("cascade_recall", CASCADE_ARGS + ["--policy", "skip_recall",
+                                       "--escalate-policy", "recall"],
+     PAGED, NEW + ("ssd_chunk",) + EXIT),
+    ("cascade_commit", CASCADE_ARGS + ["--policy", "recall_threshold",
+                                       "--escalate-policy", "commit",
+                                       "--duration", "1"],
+     PAGED, NEW + ("ssd_chunk",) + EXIT),
+]
+# EDF order, a 200 ms SLO and an eos token: the workload of
+# chunked_recall_index (2 s, so the same requests) and the token that
+# serve emits most often before a stream's last token (appended when
+# that serve has run)
+EDF_EOS = ("chunked_edf_eos", SERVE_ARGS + ["--policy", "recall_index",
+                                            "--order", "edf", "--slo-ms",
+                                            "200"],
+           PAGED, NEW + ("ssd_chunk",) + EXIT)
 DECISION = "decision_check"
+SIM_DEVICES = ("cuda", "cpu")   # the sim digest's two devices
 MAIN_PATH = {"paged_attention": "chunked_recall_index",
              "paged_prefill": "chunked_recall_index",
              "flash_attention": "ring_recall_index",
@@ -1388,9 +1442,92 @@ def phase_timing():
     return rows
 
 
-def _check_serve_run(name, argv, run, n_nodes, vocab):
-    """Every request (or batch row) got its full token count; tokens and
-    served nodes are in range.  Returns a summary string."""
+def _sim_records(metrics) -> list:
+    """Per request: served nodes, token count, virtual TTFT, finish."""
+    return [(rid, rec.tokens, rec.n_tokens, rec.ttft, rec.finished)
+            for rid, rec in sorted(metrics.records.items())]
+
+
+def phase_sim_digest():
+    """The model-free steppers on the card and on the CPU: the same numpy
+    trace bank (ee_like_traces, seed 0, 6 nodes), tables and seeded
+    Poisson workload through Server + SimStepper — recall_index, FIFO,
+    chunked prefill; then EDF with static batching — and a two-rung
+    CascadeSimStepper under skip_recall with the recall policy.  Every
+    record (served nodes, token count, virtual TTFT and finish) and the
+    cascade's stats must be EQUAL on the two devices."""
+    rng = np.random.default_rng(0)
+    losses, _, flops = traces.ee_like_traces(rng, 3_000, 6)
+    casc = Cascade.from_traces(losses[:1_500], 0.4 * flops, k=12, lam=0.6)
+    bank = losses[1_500:]
+    spec = WorkloadSpec(rate=16.0, duration=2.5, prompt_len=32,
+                        max_tokens=(4, 16), seed=0)
+    crng = np.random.default_rng(3)
+    closses, bounds = traces.cascade_traces(
+        crng, 3_000, [(1.0, 2.0, 3.0, 4.0, 5.0, 6.0),
+                      (4.0, 6.0, 8.0, 10.0, 12.0, 14.0)],
+        head_overthink=0.3)
+    ccosts = np.concatenate([np.full(6, 0.5 / 6), np.full(6, 2.0 / 6)])
+    ccasc = Cascade.from_traces(closses[:1_500], 0.1 * ccosts, k=10,
+                                lam=0.9, boundaries=bounds)
+    ccasc.solve_skip("cascade")
+    digests, out = {}, {}
+    for dev in SIM_DEVICES:
+        t0 = time.perf_counter()
+        c = arrays_to(casc, dev)
+        runs = []
+        for order, static in (("fifo", False), ("edf", True)):
+            reqs = rt.make_workload("poisson", spec)
+            strategies, sid_of = rt.build_bank(
+                reqs, rt.cascade_factory(c), ("recall_index", None))
+            stepper = rt.SimStepper(strategies, bank, n_lanes=8,
+                                    seg_time=0.002, overhead=0.0005,
+                                    prefill_tok_time=0.0001,
+                                    prefill_chunk=C, device=dev)
+            m = rt.Server(stepper, rt.LaneScheduler(8), sid_of,
+                          order=order, slo=0.2,
+                          static_batching=static).serve(reqs)
+            if m.summary()["completed"] != len(reqs):
+                raise SystemExit(f"sim_digest [{dev}]: {order} serve did "
+                                 "not complete")
+            runs.append(_sim_records(m))
+        mbank = ModelBank([
+            ModelSpec("small", 6, n_lanes=8, seg_time=0.002,
+                      prefill_tok_time=0.0001),
+            ModelSpec("large", 6, n_lanes=4, seg_time=0.008,
+                      prefill_tok_time=0.0004)])
+        strat = (make_strategy("skip_recall", arrays_to(ccasc, dev),
+                               mode="cascade"),)
+        reqs = rt.make_workload("poisson", spec)
+        stepper = CascadeSimStepper(mbank, strat, closses[1_500:],
+                                    overhead=0.0005, policy="recall",
+                                    chunk=C, device=dev)
+        m = rt.Server(stepper, rt.LaneScheduler(8), lambda r: 0,
+                      slo=0.2).serve(reqs)
+        cs = stepper.cascade_stats()
+        if m.summary()["completed"] != len(reqs) or cs["escalations"] <= 0:
+            raise SystemExit(f"sim_digest [{dev}]: cascade sim did not "
+                             f"complete or escalate: {cs}")
+        runs.append((_sim_records(m), cs))
+        out[dev] = runs
+        digests[dev] = hashlib.sha256(
+            repr(runs).encode()).hexdigest()
+        log(f"sim_digest [{dev}]: {len(runs[0])} + {len(runs[1])} + "
+            f"{len(runs[2][0])} requests, cascade escalations "
+            f"{cs['escalations']}, de-escalations {cs['deescalations']}, "
+            f"tokens by rung {cs['tokens_served']}, sha256 "
+            f"{digests[dev]}, {time.perf_counter() - t0:.1f} s")
+    if out[SIM_DEVICES[0]] != out[SIM_DEVICES[1]]:
+        raise SystemExit("sim_digest: the records differ between "
+                         f"{' and '.join(SIM_DEVICES)}")
+    log(f"sim_digest: records equal on {' and '.join(SIM_DEVICES)} "
+        f"(sha256 {digests[SIM_DEVICES[0]]})")
+
+
+def _check_serve_run(name, argv, run, n_nodes, vocab, eos=None):
+    """Every request (or batch row) got its full token count — or, with
+    ``eos``, ended on that token; tokens and served nodes are in range.
+    Returns a summary string."""
     if run is None:
         raise SystemExit(f"serve [{name}]: the workload was empty")
     if isinstance(run, serve.BatchRun):
@@ -1410,7 +1547,9 @@ def _check_serve_run(name, argv, run, n_nodes, vocab):
                 f"{st.segments_full // b} batch launches")
     for req in run.requests:
         rec = run.metrics.records[req.rid]
-        if rec.n_tokens != req.max_tokens or rec.finished is None:
+        ended = eos is not None and rec.n_tokens and rec.tokens[-1] == eos
+        if rec.finished is None or not (rec.n_tokens == req.max_tokens
+                                        or ended):
             raise SystemExit(f"serve [{name}]: request {req.rid} got "
                              f"{rec.n_tokens}/{req.max_tokens} tokens")
         if not all(0 <= tk < vocab for tk in rec.tokens):
@@ -1429,10 +1568,35 @@ def _check_serve_run(name, argv, run, n_nodes, vocab):
             f"{[nodes[i] for i in range(n_nodes)]}")
 
 
-def phase_serve(name, argv, must, must_not):
+def _cascade_check(name, run, commit):
+    """A cascade serve escalated and caught up on rung 1 (and, under
+    commit, committed); returns its summary."""
+    cs = run.cascade_stats
+    if cs["escalations"] <= 0 or cs["catchup_tokens"][1] <= 0:
+        raise SystemExit(f"serve [{name}]: the escalation path did not "
+                         f"run: {cs}")
+    if commit and cs["commits"] <= 0:
+        raise SystemExit(f"serve [{name}]: no request committed: {cs}")
+    total = max(sum(cs["tokens_served"]), 1)
+    shares = ", ".join(f"{m} {n} tokens ({100 * n / total:.1f}%)"
+                       for m, n in zip(cs["models"], cs["tokens_served"]))
+    return (f"served by rung: {shares}; escalations {cs['escalations']}, "
+            f"de-escalations {cs['deescalations']}, commits "
+            f"{cs['commits']}, recalls {cs['recalls']}, catch-up tokens "
+            f"{cs['catchup_tokens']}, re-pinned tokens "
+            f"{cs['repin_tokens']}, probes {cs['probes']}, sync writes "
+            f"{cs['sync_writes']}, peak lanes {cs['peak_lanes']}")
+
+
+
+def phase_serve(name, argv, must, must_not, eos=None):
     """One full-width serve; every kernel's launch counter is zeroed
-    just before and read just after."""
-    cfg = get_config(serve.parse_args(argv).arch)
+    just before and read just after.  Returns the launches and the
+    run."""
+    args = serve.parse_args(argv)
+    cfgs = [get_config(a) for a in (args.cascade.split(":")
+                                    if args.cascade else [args.arch])]
+    n_nodes = sum(c.n_ramps + 1 for c in cfgs)
     torch.cuda.reset_peak_memory_stats()
     for kern in KERNELS.values():
         kern.launches = 0
@@ -1441,7 +1605,19 @@ def phase_serve(name, argv, must, must_not):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: kern.launches for k, kern in KERNELS.items()}
-    summary = _check_serve_run(name, argv, run, cfg.n_ramps + 1, cfg.vocab)
+    summary = _check_serve_run(name, argv, run, n_nodes, cfgs[0].vocab,
+                               eos)
+    if args.cascade:
+        summary += "; " + _cascade_check(name, run,
+                                         args.escalate_policy == "commit")
+    if eos is not None:
+        early = sum(1 for r in run.requests
+                    if run.metrics.records[r.rid].n_tokens < r.max_tokens)
+        if early == 0:
+            raise SystemExit(f"serve [{name}]: no stream ended on eos "
+                             f"{eos}")
+        summary += (f"; {early}/{len(run.requests)} streams ended early "
+                    f"on eos {eos}")
     for k in must:
         if launches[k] <= 0:
             raise SystemExit(f"serve [{name}]: {k} never launched on the "
@@ -1454,7 +1630,38 @@ def phase_serve(name, argv, must, must_not):
     log(f"serve [{name}]: {summary}, launches {launches}, peak memory "
         f"{peak:.0f} MiB, wall {wall:.1f} s (calibration and warmup "
         f"included)")
-    return launches
+    return launches, run
+
+
+def phase_serves() -> dict:
+    """Every serve of SERVES and CASCADE_SERVES, then EDF_EOS; returns
+    each serve's launch counts."""
+    by_path, streams = {}, {}
+    for name, argv, must, must_not in SERVES + CASCADE_SERVES:
+        by_path[name], run = phase_serve(name, argv, must, must_not)
+        if name == "chunked_recall_index":
+            streams = {rid: rec.tokens
+                       for rid, rec in run.metrics.records.items()}
+        del run
+    # the EDF serve's eos: the token the recall_index serve emits most
+    # often before a stream's last token, so some stream must end early
+    counts = collections.Counter(t for toks in streams.values()
+                                 for t in toks[:-1])
+    eos = counts.most_common(1)[0][0]
+    name, argv, must, must_not = EDF_EOS
+    by_path[name], run = phase_serve(name, argv + ["--eos", str(eos)], must,
+                                     must_not, eos=eos)
+    # same requests, and a stream depends on its own request alone: each
+    # EDF stream is the recall_index stream cut after its first eos
+    for rid, rec in run.metrics.records.items():
+        full = streams[rid]
+        cut = full[:full.index(eos) + 1] if eos in full else full
+        if rec.tokens != cut:
+            raise SystemExit(f"serve [{name}]: request {rid} emitted "
+                             f"{rec.tokens}, not {cut}")
+    log(f"serve [{name}]: every stream is the recall_index serve's, cut "
+        f"after its first eos {eos}")
+    return by_path
 
 
 def main() -> None:
@@ -1492,10 +1699,10 @@ def main() -> None:
     floor = launch_floor_ms()
     log(f"launch_floor_ms {floor:.6f} (device, graph replay of an in-place "
         f"add on one element)")
+    phase_sim_digest()
     # each path's own counts; each kernel's main path is MAIN_PATH's
     by_path = {DECISION: decision}
-    by_path.update({name: phase_serve(name, argv, must, must_not)
-                    for name, argv, must, must_not in SERVES})
+    by_path.update(phase_serves())
     kernels = []
     for name in KERNELS:
         cases = times[name]

@@ -16,12 +16,30 @@ stop-the-world or chunked (``--prefill-chunk``) admission:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --server --ssd-kernel --dp-kernel --lanes 8 --rate 8 --duration 2
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --server \
+      --cascade paper-ee-100m:paper-ee-100m --paged-kernel \
+      --prefill-chunk 16 --page-size 16 --policy skip_recall \
+      --escalate-policy recall --lanes 8 --cascade-lanes 4
+
 ``--policy`` takes any online name of ``repro_torch.strategy.available()``
 (the JAX launcher's: ``recall_index``, ``tree_index``, ``skip_recall``,
 ``norecall_threshold``, ``recall_threshold``, ``norecall_patience``,
 ``always_first``, ``always_last``) and its aliases ``recall`` /
 ``threshold`` / ``none``; ``--threshold`` and ``--patience`` tune the
-baselines.  The hindsight oracles are refused.
+baselines.  The hindsight oracles are refused.  ``--server`` replays a
+seeded open-loop workload (``--workload poisson|bursty|diurnal``) in
+``--order fifo|edf`` (EDF deadlines: arrival + ``--slo-ms``), ends a
+stream early on ``--eos``, and reports throughput, latency percentiles,
+goodput under ``--slo-ms`` and segments saved.
+
+``--cascade A:B[:C]`` serves a MULTI-MODEL ladder in one process
+(`repro_torch.serving.cascade`): the strategy's node line spans every
+model, escalation chunk-prefills the stream onto deeper models through
+the paged pool, and ``--escalate-policy recall`` makes revisiting an
+earlier model a page-table re-pin (``commit`` pins a stream to the
+model it escalated to).  Rung m's weights come from seed ``--seed +
+m``; the calibration prompts from a ``torch.Generator`` seeded with
+``--seed + 1``.
 
 It runs on the card (``--device cuda``, the default) and refuses to go
 on when CUDA is missing; ``--device cpu`` runs the same path with the
@@ -56,7 +74,9 @@ __all__ = ["main", "ServeRun", "BatchRun", "ALIASES", "ONLINE",
            "build_strategy"]
 
 CALIB_PROMPTS, CALIB_LEN, CALIB_K = 512, 64, 24
-SLO_S = 1.0        # the TTFT limit that goodput counts against
+# the cascade's calibration: prompts x length, support size (the JAX
+# launcher's _calibrate_multi)
+MULTI_PROMPTS, MULTI_LEN, MULTI_K = 128, 32, 16
 
 # the reference launcher's aliases
 ALIASES = {
@@ -99,12 +119,14 @@ def build_strategy(name: str, casc: strategy.Cascade, *, threshold: float,
 
 @dataclasses.dataclass
 class ServeRun:
-    """What one ``main`` call served, for callers that check it."""
+    """What one ``main`` call served, for callers that check it
+    (``cascade_stats`` only for ``--cascade``)."""
 
     requests: list
     metrics: rt.RuntimeMetrics
-    stepper: rt.EngineStepper
+    stepper: object               # EngineStepper | CascadeEngineStepper
     cascade: strategy.Cascade
+    cascade_stats: dict | None = None
 
 
 @dataclasses.dataclass
@@ -150,8 +172,17 @@ def parse_args(argv=None):
                     help="mean arrivals/sec")
     ap.add_argument("--duration", type=float, default=5.0,
                     help="arrival window in seconds")
+    ap.add_argument("--slo-ms", type=float, default=1000.0,
+                    help="TTFT SLO for goodput accounting (and the EDF "
+                         "deadline: arrival + SLO)")
     ap.add_argument("--lanes", type=int, default=None,
                     help="lane count (default: --batch)")
+    ap.add_argument("--workload", default="poisson",
+                    choices=("poisson", "bursty", "diurnal"))
+    ap.add_argument("--order", default="fifo", choices=("fifo", "edf"))
+    ap.add_argument("--eos", type=int, default=None,
+                    help="token id that ends a stream early (lane is "
+                         "recycled immediately)")
     ap.add_argument("--kv", default="ring", choices=("ring", "paged"),
                     help="decode KV memory: per-lane ring caches or the "
                          "paged pool with shared-prefix reuse")
@@ -170,6 +201,25 @@ def parse_args(argv=None):
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="max prompt tokens prefilled per step across "
                          "all admitting lanes (default: --prefill-chunk)")
+    ap.add_argument("--cascade", default=None,
+                    help="serve a MULTI-MODEL cascade: ':'-separated "
+                         "arch names in escalation order (shared "
+                         "tokenization required), all in one process on "
+                         "the paged pool with chunked prefill.  Implies "
+                         "--server")
+    ap.add_argument("--escalate-policy", default="recall",
+                    choices=("recall", "commit"),
+                    help="cascade residency policy: 'recall' retains "
+                         "the source model (recall = page re-pin; "
+                         "deeper rungs released after --escalate-"
+                         "patience idle tokens), 'commit' pins the "
+                         "stream to the escalated model for good")
+    ap.add_argument("--escalate-patience", type=int, default=4,
+                    help="recall policy: de-escalate a rung after this "
+                         "many consecutive tokens that never probed it")
+    ap.add_argument("--cascade-lanes", type=int, default=None,
+                    help="decode lanes per deeper cascade rung "
+                         "(default: max(1, --lanes // 2))")
     ap.add_argument("--flash", action="store_true",
                     help="run every whole-prompt prefill (calibration, "
                          "stop-the-world admission, the one-shot batch) "
@@ -190,6 +240,10 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.lanes is None:
         args.lanes = args.batch
+    if args.cascade_lanes is None:
+        args.cascade_lanes = max(1, args.lanes // 2)
+    if args.cascade:
+        args.server = True
     return args
 
 
@@ -218,18 +272,24 @@ def _serve_batch(args, cfg, params, strat, device) -> BatchRun:
     return BatchRun(prompts=prompts, stats=stats)
 
 
+def _workload(args, vocab: int, name: str) -> list:
+    lo = max(1, min(4, args.tokens))
+    spec = WorkloadSpec(rate=args.rate, duration=args.duration,
+                        prompt_len=args.prompt_len, vocab=vocab,
+                        max_tokens=(lo, args.tokens), seed=args.seed,
+                        strategy=name)
+    requests = make_workload(args.workload, spec)
+    if not requests:
+        print("workload produced no arrivals; raise --rate or --duration")
+    return requests
+
+
 def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
     """The ``--server`` path: a seeded open-loop workload through the
     continuous-batching runtime."""
     name = ALIASES.get(args.policy, args.policy)
-    lo = max(1, min(4, args.tokens))
-    spec = WorkloadSpec(rate=args.rate, duration=args.duration,
-                        prompt_len=args.prompt_len, vocab=cfg.vocab,
-                        max_tokens=(lo, args.tokens), seed=args.seed,
-                        strategy=name)
-    requests = make_workload("poisson", spec)
+    requests = _workload(args, cfg.vocab, name)
     if not requests:
-        print("workload produced no arrivals; raise --rate or --duration")
         return None
 
     def make_strategy(sname, lam):
@@ -247,23 +307,26 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
                                prefill_budget=args.prefill_budget,
                                use_flash=args.flash,
                                use_ssd_kernel=args.ssd_kernel)
-    server = rt.Server(stepper, rt.LaneScheduler(args.lanes), sid_of)
+    slo = args.slo_ms / 1e3
+    server = rt.Server(stepper, rt.LaneScheduler(args.lanes), sid_of,
+                       order=args.order, slo=slo, eos=args.eos)
     kv_desc = args.kv if args.kv == "ring" else (
         f"paged ({stepper.pool.n_pages} pages x {args.page_size} tokens)")
     if args.prefill_chunk:
         kv_desc += (f", chunked prefill ({args.prefill_chunk}-token "
                     f"chunks, {stepper.planner.budget} tokens/step)")
-    print(f"serving {len(requests)} poisson requests "
+    print(f"serving {len(requests)} {args.workload} requests "
           f"(rate {args.rate}/s x {args.duration}s) on {args.lanes} lanes, "
-          f"policy {name}, kv {kv_desc}, device {device}, paged kernels "
+          f"policy {name}, order {args.order}, kv {kv_desc}, device "
+          f"{device}, paged kernels "
           f"{'on' if args.paged_kernel else 'off'}, flash "
           f"{'on' if args.flash else 'off'}, ssd kernel "
           f"{'on' if args.ssd_kernel else 'off'}, "
-          f"SLO ttft<={SLO_S * 1e3:.0f}ms ...")
+          f"SLO ttft<={args.slo_ms:.0f}ms ...")
     with torch.no_grad():
         metrics = server.serve(requests)
     report = ServeReport()
-    report.add_runtime(metrics.summary(slo=SLO_S), slo_ms=SLO_S * 1e3)
+    report.add_runtime(metrics.summary(slo=slo), slo_ms=args.slo_ms)
     report.add_segments(metrics.seg_batch, metrics.seg_policy,
                         steps=metrics.steps, n_seg=len(cfg.segments),
                         lane_steps=metrics.lane_steps)
@@ -283,15 +346,140 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
             extra["kv_pool"] = pool_stats
         if args.prefill_chunk:
             extra["chunked_prefill"] = stepper.chunk_stats
-        metrics.to_json(args.json, slo=SLO_S, extra=extra)
+        metrics.to_json(args.json, slo=slo, extra=extra)
         print(f"wrote metrics JSON to {args.json}")
     return ServeRun(requests=requests, metrics=metrics, stepper=stepper,
                     cascade=casc)
 
 
+def _calibrate_multi(cfgs, params_list, tokens, lam, *,
+                     k: int = MULTI_K) -> strategy.Cascade:
+    """Multi-model calibration: every ladder model prefills the SAME
+    ``(T, seq)`` prompts ``tokens``; the concatenated per-node losses
+    become one `Cascade` with model boundaries, per-node costs weighted
+    by each model's backbone FLOPs share."""
+    device = params_list[0]["embed"]["table"].device
+    tokens = torch.as_tensor(tokens).to(device)
+    model_losses, weights = [], []
+    for cfg, params in zip(cfgs, params_list):
+        with torch.no_grad():
+            _, _, node_losses, _ = M.prefill(params, cfg, {"tokens": tokens},
+                                             tokens.shape[1] + 8)
+        model_losses.append(node_losses.cpu().numpy())
+        # FLOPs proxy: layers x d_model^2 (dense decode cost order)
+        layers = sum(seg.n_layers for seg in cfg.segments)
+        weights.append(layers * cfg.d_model ** 2)
+    base = weights[0]
+    model_costs = [
+        (1.0 - lam) * np.full((ls.shape[1],), (w / base) / ls.shape[1])
+        for ls, w in zip(model_losses, weights)]
+    return strategy.Cascade.from_model_traces(model_losses, model_costs,
+                                              k=k, lam=lam, solve=False,
+                                              device=device)
+
+
+def _serve_cascade(args, device) -> ServeRun | None:
+    """``--cascade A:B[:C]`` — a ladder of models in ONE process, served
+    as a T-Tamer multi-stage decision process on the paged pool."""
+    from repro_torch.serving.cascade import (CascadeEngineStepper,
+                                             ModelBank, ModelSpec)
+    arch_names = args.cascade.split(":")
+    if len(arch_names) < 2:
+        raise SystemExit("--cascade needs at least two ':'-separated "
+                         "arch names (e.g. qwen3-4b:qwen3-14b)")
+    cfgs = [get_config(a, smoke=args.smoke) for a in arch_names]
+    vocabs = {cfg.vocab for cfg in cfgs}
+    if len(vocabs) > 1:
+        # fail BEFORE the multi-model calibration
+        raise SystemExit(
+            f"--cascade models must share tokenization (one vocab); "
+            f"got {sorted(vocabs)} for {arch_names}")
+    params_list = [
+        materialize(M.model_defs(cfg),
+                    torch.Generator(device=device).manual_seed(args.seed + i),
+                    device)
+        for i, cfg in enumerate(cfgs)]
+    ladder = " -> ".join(f"{a} ({cfg.n_ramps + 1} nodes)"
+                         for a, cfg in zip(arch_names, cfgs))
+    print(f"cascade ladder: {ladder} (random init demo)")
+
+    name = ALIASES.get(args.policy, args.policy)
+    n_total = sum(cfg.n_ramps + 1 for cfg in cfgs)
+    if strategy.needs_tables(name):
+        gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        tokens = torch.randint(0, cfgs[0].vocab, (MULTI_PROMPTS, MULTI_LEN),
+                               generator=gen, device=device)
+        casc = _calibrate_multi(cfgs, params_list, tokens, args.lam)
+    else:
+        casc = strategy.Cascade.uniform(
+            n_total, lam=args.lam,
+            boundaries=tuple(cfg.n_ramps + 1 for cfg in cfgs),
+            device=device)
+
+    lanes = [args.lanes] + [args.cascade_lanes] * (len(cfgs) - 1)
+    # rung-indexed spec names keep prefix caches apart even when the
+    # same arch appears twice (distinct weights = distinct KV bytes)
+    bank = ModelBank([
+        ModelSpec(f"{i}:{a}", cfg.n_ramps + 1, n_lanes=n, cfg=cfg,
+                  params=p)
+        for i, (a, cfg, p, n) in enumerate(
+            zip(arch_names, cfgs, params_list, lanes))])
+    requests = _workload(args, cfgs[0].vocab, name)
+    if not requests:
+        return None
+
+    def make_strategy(sname, lam):
+        return build_strategy(sname, casc, threshold=args.threshold,
+                              patience=args.patience, lam=lam)
+
+    strat_bank, sid_of = rt.build_bank(requests, make_strategy,
+                                       (name, None))
+    stepper = CascadeEngineStepper(
+        bank, strat_bank, cache_len=args.cache_len,
+        prompt_len=args.prompt_len, page_size=args.page_size,
+        chunk=args.prefill_chunk or 8,
+        budgets=([args.prefill_budget] * len(cfgs)
+                 if args.prefill_budget else None),
+        pages=([args.pages] * len(cfgs) if args.pages else None),
+        policy=args.escalate_policy, patience=args.escalate_patience,
+        paged_kernel=args.paged_kernel)
+    slo = args.slo_ms / 1e3
+    server = rt.Server(stepper, rt.LaneScheduler(args.lanes), sid_of,
+                       order=args.order, slo=slo, eos=args.eos)
+    print(f"serving {len(requests)} {args.workload} requests "
+          f"(rate {args.rate}/s x {args.duration}s) on a "
+          f"{'->'.join(arch_names)} cascade "
+          f"({'+'.join(str(n) for n in lanes)} lanes), policy {name}, "
+          f"escalate-policy {args.escalate_policy} "
+          f"(patience {args.escalate_patience}), device {device}, paged "
+          f"kernels {'on' if args.paged_kernel else 'off'}, "
+          f"SLO ttft<={args.slo_ms:.0f}ms ...")
+    with torch.no_grad():
+        metrics = server.serve(requests)
+    cs = stepper.cascade_stats()
+    report = ServeReport()
+    report.add_runtime(metrics.summary(slo=slo), slo_ms=args.slo_ms)
+    report.add_segments(metrics.seg_batch, metrics.seg_policy,
+                        steps=metrics.steps, n_seg=bank.n_total,
+                        lane_steps=metrics.lane_steps)
+    report.add_cascade(cs)
+    report.print()
+    if args.json:
+        extra = {"policy": name, "rate": args.rate, "lanes": args.lanes,
+                 "cascade": args.cascade, "device": str(device),
+                 "escalate_policy": args.escalate_policy,
+                 "paged_kernel": args.paged_kernel, "cascade_stats": cs}
+        metrics.to_json(args.json, slo=slo, extra=extra)
+        print(f"wrote metrics JSON to {args.json}")
+    return ServeRun(requests=requests, metrics=metrics, stepper=stepper,
+                    cascade=casc, cascade_stats=cs)
+
+
 def main(argv=None) -> ServeRun | BatchRun | None:
     args = parse_args(argv)
     device = _device(args.device)
+    if args.cascade:
+        return _serve_cascade(args, device)
     cfg = get_config(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = materialize(M.model_defs(cfg), gen, device)

@@ -141,7 +141,9 @@ def fold_readout(strategies, states, node, logits, ell, active, sid, best):
 
 def make_token_step(params, cfg: ModelConfig, strategies, *,
                     carry_state: bool = False, paged: bool = False,
-                    paged_kernel_on: bool = False, prefill_slots: int = 0):
+                    paged_kernel_on: bool = False, prefill_slots: int = 0,
+                    node_offset: int = 0, walk_io: bool = False,
+                    resume_walk: bool = False):
     """Build the one-token segment sweep shared by `Engine.generate` and
     the continuous-batching runtime.
 
@@ -152,8 +154,10 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
       carry_state: runtime mode — the step takes the bank's per-lane
         states after ``kv`` and returns them updated; every occupied
         lane's state is re-initialized at its token boundary
-        (`strategy.base.reset_lanes`).  Off (the Engine), every token
-        starts from fresh states.
+        (`strategy.base.reset_lanes`), except for strategies that set
+        ``persistent = True``, whose state lives across a request's
+        tokens and is reset only at admission.  Off (the Engine), every
+        token starts from fresh states.
       paged: the caches are the paged KV pool and the step takes a
         `models.attention.PagedKV` handle as ``kv``; off, they are the
         per-lane ring caches and ``kv`` is None.
@@ -167,34 +171,71 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
         against the same pool.  Lanes whose chunk finishes the prompt
         (``chunk.emit``) get their first token (argmax of the
         final-position head logits) in ``next_tok``.
+      node_offset: global id of this model's FIRST node.  The
+        multi-model cascade (`serving.cascade`) builds one step per
+        ladder model over ONE combined strategy bank, so model m's
+        ramps and head fold under the global ids [offset, offset +
+        n_m).  0 is the single-model case.
+      walk_io: the step also takes a ``walk`` pair ``(active (B,) bool,
+        best (B, vocab) f32)`` and returns the updated pair after its
+        other outputs: the escalation handoff.  A lane still active
+        after this model's head wants a deeper ladder model; its walk
+        and its best-so-far logits go to that model's step, so the walk
+        across models serves what one walk over the joined line would.
+      resume_walk: (needs carry_state and walk_io) the step continues
+        walks begun on an earlier ladder model: the bank states arrive
+        already folded and are not reset at the token boundary.
+        Persistent strategies are refused: their cross-token state
+        cannot also carry a mid-token handoff.
 
     Returns ``step(tok (B,) i32, caches, pos (B,) i32, occupied (B,)
-    bool, sid (B,) i32, kv=None, states=None, chunk=None) -> (next_tok,
-    caches, served_node, seg_batch, seg_policy[, states])``; the caches
-    are updated in place, and seg_* are int32 device scalars counting
-    this token's launched segments and per-lane probes.
+    bool, sid (B,) i32, kv=None, states=None, chunk=None, walk=None) ->
+    (next_tok, caches, served_node, seg_batch, seg_policy[, states][,
+    walk])``; the caches are updated in place, and seg_* are int32
+    device scalars counting this token's launched segments and per-lane
+    probes.
     """
     strategies = tuple(_check_online(s) for s in strategies)
     if prefill_slots and not paged:
         raise ValueError("prefill_slots needs the paged KV pool "
                          "(chunks are committed page by page)")
+    if resume_walk:
+        if not (carry_state and walk_io):
+            raise ValueError("resume_walk continues a handed-off walk; "
+                             "it needs carry_state and walk_io")
+        for s in strategies:
+            if getattr(s, "persistent", False):
+                raise ValueError(
+                    f"{type(s).__name__} is persistent — its cross-token "
+                    "state cannot double as a mid-token walk handoff")
     embed = params["embed"]["table"]
 
     def step(tok, caches, pos, occupied, sid, kv=None, states_in=None,
-             chunk=None):
+             chunk=None, walk=None):
         b = tok.shape[0]
         dev = tok.device
         x = embed[tok.long()][:, None, :]
-        if carry_state:
-            states = tuple(reset_lanes(s, st, occupied)
-                           for s, st in zip(strategies, states_in))
+        if resume_walk:
+            # mid-token continuation: the earlier ladder model's step
+            # already reset and folded these states for this token
+            states = tuple(states_in)
+        elif carry_state:
+            states = tuple(
+                st if getattr(s, "persistent", False)
+                else reset_lanes(s, st, occupied)
+                for s, st in zip(strategies, states_in))
         else:
             states = tuple(s.init(b) for s in strategies)
         active = occupied
         best = torch.zeros((b, cfg.vocab), dtype=torch.float32, device=dev)
+        if walk_io:
+            # escalation handoff in: each lane's walk activity and its
+            # best-served-so-far logits from the previous ladder model
+            walk_active, best = walk
+            active = occupied & walk_active
         seg_batch = torch.zeros((), dtype=torch.int32, device=dev)
         seg_policy = torch.zeros((), dtype=torch.int32, device=dev)
-        node = 0
+        node = node_offset
         with paged_kernel(paged_kernel_on):
             for si, seg in enumerate(cfg.segments):
                 any_active = bool(active.any())      # host sync
@@ -238,7 +279,13 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
 
         served = bank_serve(strategies, states, sid)
         out = (next_tok, caches, served, seg_batch, seg_policy)
-        return out + (states,) if carry_state else out
+        if carry_state:
+            out = out + (states,)
+        if walk_io:
+            # handoff out: a lane still active after the head wants a
+            # node past this model's rung
+            out = out + ((active, best),)
+        return out
 
     return step
 

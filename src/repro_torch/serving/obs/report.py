@@ -2,10 +2,10 @@
 
 The report builds a `MetricsRegistry` first — every number it shows
 lands as a labelled gauge — and renders its lines *from the registry*.
-The port keeps the sections its launcher fills (runtime, segments, kv
-pool, chunked prefill), with the reference's wording; the cascade,
-control and observability sections come with the slices that port
-their producers.
+The port keeps the sections its launcher fills (runtime, segments,
+cascade, kv pool — one per cascade rung —, chunked prefill), with the
+reference's wording; the control and observability sections come with
+the slices that port their producers.
 
 Sections are added for whatever subsystems actually ran; `lines()`
 renders only what was added, in a stable order.
@@ -42,6 +42,8 @@ class ServeReport:
     def __init__(self) -> None:
         self.registry = MetricsRegistry()
         self._sections: list[str] = []
+        self._models: list[str] = []        # cascade rung names, in order
+        self._pool_models: list[str | None] = []
 
     # -------------------------------------------------------- sections
     def add_runtime(self, summary: Mapping[str, Any], *,
@@ -58,17 +60,33 @@ class ServeReport:
             "steps": steps, "n_seg": n_seg, "lane_steps": lane_steps})
         self._sections.append("segments")
 
-    def add_pool(self, stats: Mapping[str, Any]) -> None:
-        self.registry.absorb("kv_pool", stats)
-        self._sections.append("pool")
+    def add_pool(self, stats: Mapping[str, Any],
+                 model: str | None = None) -> None:
+        labels = {"model": model} if model is not None else {}
+        self.registry.absorb("kv_pool", stats, **labels)
+        self._pool_models.append(model)
+        if "pool" not in self._sections:
+            self._sections.append("pool")
+
+    def add_cascade(self, cs: Mapping[str, Any]) -> None:
+        self._models = list(cs.get("models", ()))
+        for key in ("escalations", "recalls", "deescalations", "commits",
+                    "repin_tokens"):
+            if key in cs:
+                self.registry.gauge(f"cascade_{key}").set(float(cs[key]))
+        for m, n in zip(self._models, cs.get("tokens_served", ())):
+            self.registry.gauge("cascade_tokens_served", model=m).set(n)
+        for m, pool in cs.get("pools", {}).items():
+            self.add_pool(pool, model=m)
+        self._sections.append("cascade")
 
     def add_chunked_prefill(self, cs: Mapping[str, Any]) -> None:
         self.registry.absorb("chunked_prefill", cs)
         self._sections.append("chunk")
 
     # -------------------------------------------------------- renderers
-    def _v(self, name: str, default=None):
-        return self.registry.value(name, default)
+    def _v(self, name: str, default=None, **labels):
+        return self.registry.value(name, default, **labels)
 
     def _runtime_lines(self) -> list[str]:
         v = self._v
@@ -106,8 +124,13 @@ class ServeReport:
             lane_steps=int(v("segments_lane_steps", 0)))]
 
     def _pool_lines(self) -> list[str]:
-        v = lambda name, d=0: self._v(name, d)  # noqa: E731
-        return [f"kv pool: peak {v('kv_pool_pages_peak'):.0f}/"
+        lines = []
+        for model in self._pool_models:
+            labels = {"model": model} if model is not None else {}
+            v = lambda name, d=0: self._v(name, d, **labels)  # noqa: E731
+            tag = f" [{model}]" if model is not None else ""
+            lines.append(
+                f"kv pool{tag}: peak {v('kv_pool_pages_peak'):.0f}/"
                 f"{v('kv_pool_n_pages', 1) - 1:.0f} pages, "
                 f"prefix hit rate "
                 f"{100 * v('kv_pool_prefix_hit_rate', 0.0):.0f}% "
@@ -115,7 +138,25 @@ class ServeReport:
                 f"{v('kv_pool_cow_splits'):.0f} COW splits, "
                 f"{v('kv_pool_evictions'):.0f} evictions, "
                 f"{v('kv_pool_grows'):.0f} grows, "
-                f"{v('kv_pool_reserve_failures'):.0f} blocked admissions"]
+                f"{v('kv_pool_reserve_failures'):.0f} blocked admissions")
+        return lines
+
+    def _cascade_lines(self) -> list[str]:
+        v = self._v
+        served = [int(v("cascade_tokens_served", 0, model=m))
+                  for m in self._models]
+        total = max(sum(served), 1)
+        return [
+            "cascade: " + ", ".join(
+                f"{m} served {n} tokens ({100 * n / total:.0f}%)"
+                for m, n in zip(self._models, served)),
+            (f"escalations {v('cascade_escalations', 0):.0f}, "
+             f"recalls {v('cascade_recalls', 0):.0f}, "
+             f"de-escalations {v('cascade_deescalations', 0):.0f}, "
+             f"commits {v('cascade_commits', 0):.0f}, "
+             f"re-pinned catch-up tokens "
+             f"{v('cascade_repin_tokens', 0):.0f}"),
+        ]
 
     def _chunk_lines(self) -> list[str]:
         v = self._v
@@ -131,6 +172,7 @@ class ServeReport:
     def lines(self) -> list[str]:
         render = {"runtime": self._runtime_lines,
                   "segments": self._segments_lines,
+                  "cascade": self._cascade_lines,
                   "pool": self._pool_lines,
                   "chunk": self._chunk_lines}
         out: list[str] = []

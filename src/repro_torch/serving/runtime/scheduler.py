@@ -5,7 +5,7 @@ stop-the-world or chunked prefill.
 Three layers:
 
   * `LaneScheduler` — the pure allocator.  `n_lanes` slots; a lane is
-    recycled the moment its request finishes;
+    recycled the moment its request finishes (or its stream hits EOS);
     admission pops the `RequestQueue` into free lanes, gated by a
     ``can_admit`` callback (the pool's page-budget reservation: when the
     pool can't cover a request's worst case, the request STAYS QUEUED,
@@ -66,14 +66,22 @@ class LaneScheduler:
         return [i for i, r in enumerate(self.lane_req) if r is None]
 
     def admit(self, queue: RequestQueue, sid_of, *,
+              static_batching: bool = False,
               can_admit=None) -> list[tuple[int, Request]]:
         """Pop queued requests into free lanes; returns assignments.
+
+        ``static_batching=True`` reproduces the fixed-batch
+        `Engine.generate` discipline (the baseline): a new batch is
+        admitted only once EVERY lane is free, so stragglers idle the
+        whole width.
 
         ``can_admit(req)`` gates (and RESERVES resources for) each pop —
         the paged-KV page budget.  A False verdict stops admission at
         the queue head: the request waits, later arrivals wait behind it
         (deterministic head-of-line order; no starvation, no drops).
         """
+        if static_batching and self.busy():
+            return []
         out = []
         for lane in self.free_lanes():
             if not len(queue):
@@ -195,7 +203,17 @@ def _materialize_cache(spec, device, key=None):
 
 class EngineStepper:
     """Real-model lane state: ring caches or the paged pool + the shared
-    token step."""
+    token step.
+
+    ``node_offset``, ``walk_io`` and ``resume_walk`` go to the token
+    step (`serving.engine.make_token_step`): the multi-model cascade
+    builds one stepper per ladder rung over one strategy bank.
+    ``max_lane_pages`` and ``model_key`` go to the paged pool (a lane's
+    page cap for `KVPool.grow`, and the key that keeps two rungs'
+    prefix caches apart)."""
+
+    virtual_time = False
+    emits_tokens = True    # `emitted` really is token ids (EOS applies)
 
     def __init__(self, params, cfg, strategies: tuple, *, n_lanes: int,
                  cache_len: int, prompt_len: int, kv: str = "ring",
@@ -203,7 +221,11 @@ class EngineStepper:
                  paged_kernel: bool = False,
                  prefill_chunk: int | None = None,
                  prefill_budget: int | None = None,
-                 use_flash: bool = False, use_ssd_kernel: bool = False):
+                 use_flash: bool = False, use_ssd_kernel: bool = False,
+                 node_offset: int = 0, walk_io: bool = False,
+                 resume_walk: bool = False,
+                 max_lane_pages: int | None = None,
+                 model_key: str | None = None):
         if kv not in ("ring", "paged"):
             raise ValueError(f"unknown kv mode {kv!r} (ring|paged)")
         prefill_chunk = prefill_chunk or None      # 0 == disabled
@@ -234,16 +256,22 @@ class EngineStepper:
             else int(prefill_chunk)
         self.planner = None if prefill_chunk is None else ChunkPlanner(
             self.prefill_chunk, prefill_budget)
+        self.walk_io = bool(walk_io)
         self._step = make_token_step(params, cfg, strategies,
                                      carry_state=True,
                                      paged=(kv == "paged"),
                                      paged_kernel_on=paged_kernel,
-                                     prefill_slots=self.prefill_chunk or 0)
+                                     prefill_slots=self.prefill_chunk or 0,
+                                     node_offset=node_offset,
+                                     walk_io=self.walk_io,
+                                     resume_walk=resume_walk)
         self.pool = None
         if kv == "paged":
             self.pool = KVPool(n_lanes=self.n_lanes, page_size=page_size,
                                lane_pages=-(-self.cache_len // page_size),
-                               n_pages=n_pages)
+                               n_pages=n_pages,
+                               max_lane_pages=max_lane_pages,
+                               model_key=model_key)
         self.alloc()
 
     def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -405,6 +433,13 @@ class EngineStepper:
         self.states = tuple(init_lane(s, st, lane)
                             for s, st in zip(self.strategies, self.states))
 
+    def set_lane_token(self, lane: int, token: int) -> None:
+        """Override a lane's next input token.  The cascade uses this
+        after an escalation's catch-up prefill: the finishing chunk
+        seeds its own head argmax, but the escalated stream's next
+        input is the token the SOURCE model already emitted."""
+        self.tok[lane] = int(token)
+
     def warmup(self) -> None:
         """Run one dummy request through prefill and a decode token
         before the serving clock starts (on the card this builds and
@@ -472,7 +507,7 @@ class EngineStepper:
             self._idle_chunk = chunk
         return chunk, finished
 
-    def step(self, occupied: np.ndarray, sid: np.ndarray):
+    def step(self, occupied: np.ndarray, sid: np.ndarray, walk=None):
         """One step: a decode token for every occupied DECODING lane and
         a budgeted prefill chunk for the admitting lanes.
 
@@ -480,6 +515,13 @@ class EngineStepper:
         seg_policy, emit_mask (B,) bool)``; ``emit_mask`` marks the lanes
         whose ``emitted`` entry is a real token (lanes mid-prefill emit
         nothing).
+
+        ``walk_io`` steppers (the cascade's rungs) also take an optional
+        ``walk`` handoff pair ``(active (B,) bool, best (B, vocab) f32)``
+        on the device — omitted, every occupied lane starts a fresh walk
+        — and return an extra last element ``(walk_active (B,) bool on
+        the host, best on the device)``: the escalation handoff the
+        cascade stashes for the next ladder model.
         """
         decode = np.asarray(occupied, bool).copy()
         widths: dict = {}
@@ -504,9 +546,14 @@ class EngineStepper:
                          write_slot=self._dev(plan.write_slot))
         if self.prefill_chunk is not None:
             chunk, finished = self._build_chunk(widths)
-        tok, self.caches, served, sb, sp, self.states = self._step(
-            self.tok, self.caches, self.pos, occ, self._dev(sid), kv,
-            self.states, chunk)
+        if self.walk_io and walk is None:
+            walk = (torch.ones((self.n_lanes,), dtype=torch.bool,
+                               device=self.device),
+                    torch.zeros((self.n_lanes, self.cfg.vocab),
+                                dtype=torch.float32, device=self.device))
+        out = self._step(self.tok, self.caches, self.pos, occ,
+                         self._dev(sid), kv, self.states, chunk, walk)
+        tok, self.caches, served, sb, sp, self.states = out[:6]
         if self.pool is not None:
             self.pool.note_written(decode)
         self.tok = tok
@@ -521,5 +568,9 @@ class EngineStepper:
             for lane in finished:
                 st = self._prefilling.pop(lane)
                 self.pool.commit_prefix(lane, st["prompt"])
-        return (tok.cpu().numpy(), served.cpu().numpy(), int(sb), int(sp),
+        host = (tok.cpu().numpy(), served.cpu().numpy(), int(sb), int(sp),
                 decode)
+        if self.walk_io:
+            walk_active, best = out[6]
+            return host + ((walk_active.cpu().numpy(), best),)
+        return host

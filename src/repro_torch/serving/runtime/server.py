@@ -1,29 +1,49 @@
-"""The continuous-batching serve loop.
+"""The continuous-batching serve loop and the model-free simulation.
 
 Data flow per iteration:
 
     workload arrivals -> RequestQueue -> LaneScheduler.admit
-        -> stepper.admit (page allocation + prefill cursor)
+        -> stepper.admit (page allocation + prefill | sim cursor)
         -> stepper.step  (one token for every decoding lane, one
                           prefill chunk for the admitting lanes)
         -> metrics.on_token / lane recycling on completion
 
-Time is wall time.  The JAX package's observability, control and fault
-planes and its model-free simulation stepper are not part of the port
-yet.
+`Server` drives either stepper behind one loop:
+
+  * `EngineStepper` (scheduler.py) — the real model; time is wall time.
+  * `SimStepper` (here) — model-free: each lane's token replays a row of
+    per-node losses (calibration traces or synthetic) through the SAME
+    strategy bank the engine would consult, and a virtual clock prices
+    each step.  Its decision program runs on the stepper's device.
+
+The sim cost model prices a step as ``overhead + seg_time * work``
+where work is the launched depth (``cost="batch"``, what the masked
+batch engine pays) or the mean per-lane probes (``cost="lane"``, what a
+lane-granular dispatch would pay).
+
+The JAX package's observability, control and fault planes are not part
+of the port yet: the loop reads their hooks off the stepper with
+``getattr`` (``faults``, ``governor``), so they slot in when they come.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
+import torch
 
+from repro_torch.serving.engine import bank_observe, bank_serve
 from repro_torch.serving.runtime.metrics import RuntimeMetrics
-from repro_torch.serving.runtime.request import RequestQueue
-from repro_torch.serving.runtime.scheduler import LaneScheduler
+from repro_torch.serving.runtime.request import Request, RequestQueue
+from repro_torch.serving.runtime.scheduler import ChunkPlanner, LaneScheduler
+from repro_torch.strategy.base import dynamic_arrays, with_arrays
 
-__all__ = ["Server", "build_bank"]
+__all__ = ["Server", "SimStepper", "build_bank", "cascade_factory",
+           "arrays_to"]
+
+_ROW_PRIME = 9973  # deterministic per-(rid, token) trace-row assignment
 
 
 def build_bank(requests, make_strategy, default: tuple):
@@ -35,7 +55,7 @@ def build_bank(requests, make_strategy, default: tuple):
     admission.  ``make_strategy(name, lam)`` builds one member;
     ``default`` fills a request's missing fields (the launcher's
     factory is `repro_torch.launch.serve.build_strategy` with its
-    knobs).
+    knobs, the plain one `cascade_factory`).
     """
     def key_of(req):
         return (req.strategy or default[0],
@@ -53,56 +73,377 @@ def build_bank(requests, make_strategy, default: tuple):
     return strategies, lambda req: index[key_of(req)]
 
 
-class Server:
-    """Open-loop continuous-batching server over an `EngineStepper`."""
+def cascade_factory(cascade):
+    """The standard ``make_strategy`` for `build_bank`: registry dispatch
+    against one calibrated cascade, with ``lam=None`` meaning the
+    cascade's own lambda."""
+    from repro_torch import strategy as _strategy
 
-    def __init__(self, stepper, scheduler: LaneScheduler, sid_of):
+    def mk(name, lam):
+        if lam is None:
+            return _strategy.make(name, cascade)
+        return _strategy.make(name, cascade, lam=lam)
+
+    return mk
+
+
+def arrays_to(obj, device):
+    """``obj`` with every tensor in it on ``device``: a tensor, a
+    dataclass of tensors (tables, supports), or a dict of those (a
+    strategy's `dynamic_arrays`)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: arrays_to(v, device) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: arrays_to(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+class SimStepper:
+    """Model-free stepper: replays loss traces through the strategy bank.
+
+    ``trace_bank`` is a ``(T, n_nodes)`` array of per-node losses (e.g.
+    `core.traces.ee_like_traces` or a cascade's calibration traces);
+    request ``rid``'s token ``t`` deterministically reads row
+    ``(rid * 9973 + t) % T``, so a request's decisions are independent
+    of lane placement and arrival order by construction.
+
+    The decision program — one ``bank_observe`` fold per node over the
+    occupied lanes' rows, then ``bank_serve`` — runs on ``device`` with
+    the bank's dynamic arrays (`strategy.dynamic_arrays`) as its
+    argument; ``bank_source`` overrides them (the control plane's
+    hot-swap point) and ``row_tap`` receives each step's observed
+    (loss rows, served nodes).
+
+    Prefill cost model: ``prefill_tok_time`` prices one prompt token.
+    By default admission is STOP-THE-WORLD — the whole prompt's cost
+    lands on the virtual clock as a SERIAL stall before the next step.
+    With ``prefill_chunk`` set, admission is CHUNKED instead: the same
+    `ChunkPlanner` the real engine uses spreads up to
+    ``prefill_budget`` prompt tokens per step across admitting lanes,
+    and the fused step is priced at ``max(decode cost, chunk cost)``
+    (the compute-bound chunk hides under the memory-bound decode).
+    Lanes emit their first token on the step after their prefill
+    completes.  Token decisions are (rid, t)-keyed either way, so the
+    two admission modes produce identical streams — only the clock
+    moves.
+    """
+
+    virtual_time = True
+    emits_tokens = False   # `emitted` carries served nodes, not token ids
+    last_loss = None       # per-lane served-node loss of the last step
+    last_deepest = None    # per-lane deepest PROBED node (-1 = silent)
+
+    def __init__(self, strategies: tuple, trace_bank, *, n_lanes: int,
+                 seg_time: float = 1.0, overhead: float = 0.25,
+                 cost: str = "lane", prefill_tok_time: float = 0.0,
+                 prefill_chunk: int | None = None,
+                 prefill_budget: int | None = None, device="cuda"):
+        if cost not in ("lane", "batch"):
+            raise ValueError(f"unknown cost model {cost!r}")
+        self.device = torch.device(device)
+        self.prefill_tok_time = float(prefill_tok_time)
+        prefill_chunk = prefill_chunk or None      # 0 == disabled
+        self.prefill_chunk = None if prefill_chunk is None \
+            else int(prefill_chunk)
+        self.planner = None if prefill_chunk is None else ChunkPlanner(
+            self.prefill_chunk, prefill_budget)
+        self.strategies = strategies
+        self.bank = np.asarray(trace_bank, np.float32)
+        self.n_nodes = self.bank.shape[1]
+        self.full_depth = self.n_nodes
+        self.n_lanes = int(n_lanes)
+        self.seg_time = float(seg_time)
+        self.overhead = float(overhead)
+        self.cost = cost
+        for s in strategies:
+            if s.n_nodes != self.n_nodes:
+                raise ValueError(
+                    f"strategy expects {s.n_nodes} nodes, trace bank has "
+                    f"{self.n_nodes}")
+            if getattr(s, "needs_aux", False):
+                raise ValueError(
+                    f"{type(s).__name__} consumes the aux prediction "
+                    "channel; simulation mode replays losses only — "
+                    "serve it through the real EngineStepper instead")
+        self._bank_arrays = tuple(arrays_to(dynamic_arrays(s), self.device)
+                                  for s in strategies)
+        self.bank_source = None
+        self.row_tap = None
+        self.alloc()
+
+    def _decide(self, arrays, losses, occupied, sid):
+        live = tuple(with_arrays(s, a)
+                     for s, a in zip(self.strategies, arrays))
+        b = losses.shape[0]
+        states = tuple(s.init(b) for s in live)
+        active = occupied
+        depth = torch.zeros((), dtype=torch.int32, device=self.device)
+        policy = torch.zeros((), dtype=torch.int32, device=self.device)
+        # per-lane deepest PROBED node, folded from the per-node
+        # n_probed deltas (no extra strategy calls)
+        deepest = torch.full((b,), -1, dtype=torch.int32, device=self.device)
+        np_prev = torch.zeros((b,), dtype=torch.int32, device=self.device)
+
+        def probed_of(states):
+            out = states[0].n_probed
+            for k in range(1, len(live)):
+                out = torch.where(sid == k, states[k].n_probed, out)
+            return out
+
+        for node in range(self.n_nodes):
+            depth = depth + active.any().to(torch.int32)
+            policy = policy + active.sum(dtype=torch.int32)
+            states, active = bank_observe(live, states, node,
+                                          losses[:, node], None, active,
+                                          sid)
+            np_now = probed_of(states)
+            deepest = torch.where(np_now > np_prev, node, deepest)
+            np_prev = np_now
+        return bank_serve(live, states, sid), depth, policy, deepest
+
+    def bank_arrays(self) -> tuple:
+        """The per-slot dynamic arrays the next step will decide with."""
+        if self.bank_source is not None:
+            return self.bank_source.bank_arrays()
+        return self._bank_arrays
+
+    def alloc(self) -> None:
+        self.lane_req: list[Request | None] = [None] * self.n_lanes
+        self.lane_tidx = np.zeros(self.n_lanes, np.int64)
+        self.lane_prefill = np.zeros(self.n_lanes, np.int64)
+        self._stall = 0.0          # stop-the-world prefill debt
+
+    def release(self, lane: int) -> None:
+        self.lane_prefill[lane] = 0     # reaped mid-prefill: drop debt
+
+    def admit(self, lane: int, req: Request) -> None:
+        self.lane_req[lane] = req
+        self.lane_tidx[lane] = 0
+        lp = len(req.prompt)
+        if self.prefill_chunk is not None:
+            self.lane_prefill[lane] = lp
+        elif self.prefill_tok_time > 0.0:
+            # stop-the-world: the whole prompt stalls the next step
+            self._stall += lp * self.prefill_tok_time
+
+    def warmup(self) -> None:
+        """Run the decision program once (virtual time is unaffected)."""
+        n = self.n_lanes
+        self._decide(self.bank_arrays(),
+                     torch.zeros((n, self.n_nodes), device=self.device),
+                     torch.zeros((n,), dtype=torch.bool, device=self.device),
+                     torch.zeros((n,), dtype=torch.int32,
+                                 device=self.device))
+        self.alloc()
+
+    def _row(self, req: Request, tidx: int) -> np.ndarray:
+        return self.bank[(req.rid * _ROW_PRIME + tidx) % len(self.bank)]
+
+    def step(self, occupied: np.ndarray, sid: np.ndarray):
+        """Returns ``(emitted, served, seg_batch, seg_policy, cost,
+        emit_mask)`` — lanes mid-prefill are occupied but emit nothing
+        and consume no trace row."""
+        occupied = np.asarray(occupied, bool)
+        emit = occupied.copy()
+        stall = self._stall                 # stop-the-world: serial
+        self._stall = 0.0
+        chunk_cost = 0.0                    # chunked: piggybacked
+        if self.prefill_chunk is not None:
+            prefilling = occupied & (self.lane_prefill > 0)
+            emit &= ~prefilling
+            if prefilling.any():
+                widths = self.planner.plan({
+                    int(lane): (int(self.lane_prefill[lane]),
+                                len(self.lane_req[lane].prompt))
+                    for lane in np.flatnonzero(prefilling)})
+                for lane, w in widths.items():
+                    self.lane_prefill[lane] -= w
+                    chunk_cost += w * self.prefill_tok_time
+        losses = np.zeros((self.n_lanes, self.n_nodes), np.float32)
+        for lane in np.flatnonzero(emit):
+            losses[lane] = self._row(self.lane_req[lane],
+                                     int(self.lane_tidx[lane]))
+            self.lane_tidx[lane] += 1
+        served, depth, policy, deepest = self._decide(
+            self.bank_arrays(), torch.as_tensor(losses, device=self.device),
+            torch.as_tensor(emit, device=self.device),
+            torch.as_tensor(np.asarray(sid, np.int32), device=self.device))
+        served = served.cpu().numpy()
+        depth, policy = int(depth), int(policy)
+        # per-lane served-node loss (NaN = no emission) and deepest
+        # probed node, for per-token decision attribution
+        self.last_loss = np.where(
+            emit, losses[np.arange(self.n_lanes),
+                         np.clip(served, 0, self.n_nodes - 1)], np.nan)
+        self.last_deepest = np.where(emit, deepest.cpu().numpy(), -1)
+        if self.row_tap is not None and emit.any():
+            idx = np.flatnonzero(emit)
+            self.row_tap(losses[idx], served[idx])
+        work = (policy / self.n_lanes) if self.cost == "lane" else depth
+        # piggyback roofline: the compute-bound chunk hides under the
+        # memory-bound decode sweep; the serial stop-the-world stall
+        # cannot (it is its own batch-1 program on the device queue)
+        cost = self.overhead + max(self.seg_time * float(work),
+                                   chunk_cost) + stall
+        # sim tokens have no content; the served node stands in
+        return served, served, depth, policy, cost, emit
+
+
+class Server:
+    """Open-loop continuous-batching server over any stepper.
+
+    ``order`` is the queue discipline (``"fifo"`` or ``"edf"``; under
+    EDF a request without a deadline gets ``arrival + slo``),
+    ``static_batching`` admits a new batch only when every lane is free,
+    ``eos`` ends a stream early on that token (token-emitting steppers
+    only), and ``enforce_deadlines`` reaps requests past their
+    ``deadline``; a request's ``cancel_at`` is always enforced.
+    """
+
+    def __init__(self, stepper, scheduler: LaneScheduler, sid_of, *,
+                 order: str = "fifo", slo: float | None = None,
+                 static_batching: bool = False, eos: int | None = None,
+                 enforce_deadlines: bool = False):
         self.stepper = stepper
         self.scheduler = scheduler
         self.sid_of = sid_of
+        self.order = order
+        self.slo = slo
+        self.static_batching = static_batching
+        self.eos = eos
+        self.enforce_deadlines = bool(enforce_deadlines)
+        self._vt = 0.0
         self._t0 = 0.0
 
+    # ---- clock ---------------------------------------------------------
     def _now(self) -> float:
+        if self.stepper.virtual_time:
+            return self._vt
         return time.perf_counter() - self._t0
 
+    def _advance_to(self, t: float) -> None:
+        if self.stepper.virtual_time:
+            self._vt = max(self._vt, t)
+        else:
+            gap = t - self._now()
+            if gap > 0:
+                time.sleep(gap)
+
+    # ---- reaping -------------------------------------------------------
+    def _reap_status(self, req, now: float) -> str | None:
+        """Terminal status a live request has earned by ``now``, or
+        None.  Cancellation wins ties — a hung-up client's deadline is
+        moot."""
+        if req.cancel_at is not None and req.cancel_at <= now:
+            return "cancelled"
+        if (self.enforce_deadlines and req.deadline is not None
+                and req.deadline <= now):
+            return "timed_out"
+        return None
+
+    def _reap(self, queue, metrics, release, now: float) -> None:
+        """Sweep cancelled / expired requests out of the queue and off
+        their lanes between steps (lane resources released first)."""
+        sched = self.scheduler
+        for req in queue.reap(
+                lambda r: self._reap_status(r, now) is not None):
+            metrics.on_reap(req, now, self._reap_status(req, now))
+        for lane in np.flatnonzero(sched.occupied_mask()):
+            req = sched.lane_req[lane]
+            status = self._reap_status(req, now)
+            if status is None:
+                continue
+            if release is not None:
+                release(int(lane))  # KV pages + escalation lanes freed
+            sched.release(int(lane))
+            metrics.on_reap(req, now, status)
+
+    def _fault_wake(self, queue, reaping: bool, now: float) -> float | None:
+        """Earliest future instant at which the picture changes for a
+        queue that cannot admit right now: a queued request's reap time."""
+        wake = None
+        if reaping:
+            for r in queue.requests():
+                for t in (r.cancel_at,
+                          r.deadline if self.enforce_deadlines else None):
+                    if t is not None and t > now and (wake is None
+                                                      or t < wake):
+                        wake = t
+        return wake
+
+    # ---- the loop ------------------------------------------------------
     def serve(self, requests) -> RuntimeMetrics:
         """Run the full open-loop session: admit every request at its
-        arrival time (first come, first served), decode until all
-        streams drain, return metrics.  The stepper runs once before
-        the serving clock starts, so latency percentiles do not count
-        kernel builds."""
+        arrival time, decode until all streams drain, return metrics.
+
+        The stepper runs once before the serving clock starts (on the
+        card this builds and loads the kernels), so wall-clock latency
+        percentiles measure serving."""
         sched = self.scheduler
         stepper = self.stepper
         stepper.warmup()
         metrics = RuntimeMetrics(stepper.full_depth, sched.n_lanes)
-        queue = RequestQueue("fifo")
+        deadline_of = None
+        if self.order == "edf" and self.slo is not None:
+            deadline_of = lambda r: r.arrival + self.slo  # noqa: E731
+        queue = RequestQueue(self.order, deadline_of=deadline_of)
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        clocked = (getattr(stepper, "faults", None) is not None
+                   or getattr(stepper, "governor", None) is not None)
+        reaping = self.enforce_deadlines or any(
+            r.cancel_at is not None for r in pending)
+        self._vt = 0.0
         self._t0 = time.perf_counter()
         metrics.t_start = self._now()
+        # paged-KV steppers gate admission on their free-page budget
+        # (reserve-at-pop); a blocked request waits at the queue head
+        gate = getattr(stepper, "reserve", None)
+        release = getattr(stepper, "release", None)
 
         while pending or len(queue) or sched.busy():
             now = self._now()
+            if clocked:
+                stepper.fault_now = now
             while pending and pending[0].arrival <= now:
                 queue.push(pending.pop(0))
-            for lane, req in sched.admit(queue, self.sid_of,
-                                         can_admit=stepper.reserve):
+            if reaping:
+                self._reap(queue, metrics, release, now)
+            for lane, req in sched.admit(
+                    queue, self.sid_of,
+                    static_batching=self.static_batching,
+                    can_admit=gate):
                 stepper.admit(lane, req)
                 metrics.on_admit(req, self._now())
             if not sched.busy():
                 if not pending:
+                    # nothing running, nothing arriving — the queue may
+                    # still hold page-blocked requests.  Guard against a
+                    # request that can NEVER be admitted, unless a queued
+                    # request is about to be reaped: then jump there.
                     if len(queue):
+                        wake = self._fault_wake(queue, reaping, now)
+                        if wake is not None and wake > now:
+                            self._advance_to(wake)
+                            continue
                         raise RuntimeError(
                             "admission deadlock: queued requests but no "
                             "lane busy and no pending arrivals")
                     break
-                # every lane idle: sleep to the next arrival
-                gap = pending[0].arrival - self._now()
-                if gap > 0:
-                    time.sleep(gap)
+                # every lane idle and nothing admissible: jump (sim) or
+                # sleep (real) to the next arrival
+                self._advance_to(pending[0].arrival)
                 continue
 
-            emitted, served, sb, sp, emit = stepper.step(
-                sched.occupied_mask(), sched.sid)
+            out = stepper.step(sched.occupied_mask(), sched.sid)
+            if stepper.virtual_time:
+                emitted, served, sb, sp, cost, emit = out
+                self._vt += cost
+            else:
+                emitted, served, sb, sp, emit = out
             tnow = self._now()
             # emit marks lanes whose entry is a real token this step;
             # lanes mid-prefill are occupied but still silent
@@ -111,9 +452,15 @@ class Server:
                 req = sched.lane_req[lane]
                 metrics.on_token(req.rid, int(served[lane]), tnow,
                                  token=int(emitted[lane]))
-                if sched.consume_token(lane):
+                done = sched.consume_token(lane)
+                if (not done and self.eos is not None
+                        and getattr(stepper, "emits_tokens", True)
+                        and int(emitted[lane]) == self.eos):
+                    done = True  # stream early exit: recycle immediately
+                if done:
                     metrics.on_finish(req.rid, tnow)
-                    stepper.release(lane)   # pages back to the pool
+                    if release is not None:
+                        release(lane)   # paged KV: pages back to the pool
                     sched.release(lane)
 
         metrics.t_end = self._now()
