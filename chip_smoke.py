@@ -21,14 +21,18 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      chunks, a GQA case with a window and the serve's own history
      lengths, at 1024-token contexts (64-page tables, histories of
      993-1024 positions, chunks from about position 1000: the lanes'
-     pages split over blocks) and at qwen3-4b's GQA widths (32 heads on
-     8 kv heads, head_dim 128) with a window, atol = rtol = 1e-4; the
+     pages split over blocks), at qwen3-4b's GQA widths (32 heads on
+     8 kv heads, head_dim 128) and at starcoder2-3b's (24 heads on 2,
+     head_dim 128), each with a window shorter than the context,
+     atol = rtol = 1e-4; the
      all-masked lane and the padded prefill rows exactly 0;
      flash_attention at the calibration
      prefill's shape (512, 64, 12, 12, 64), a ring admission's (1, 32,
      12, 12, 64), a GQA case with a window and a ragged length, head_dim
-     32 and 96 cases, and S in {1, 63, 65, 129} at each head_dim (GQA,
-     a window past one tile), atol = rtol = 1e-4 (f32 sums in another
+     32 and 96 cases, S in {1, 63, 65, 129} at each head_dim (GQA, a
+     window past one tile), and qwen3-4b's and starcoder2-3b's
+     calibration prefills ((512, 64, 32, 8, 128), (512, 64, 24, 2, 128)
+     with its 4096-token window), atol = rtol = 1e-4 (f32 sums in another
      order); bellman_backup at K = 24 and 64 on row-stochastic
      transitions, atol = rtol = 1e-5, and the whole solve in one launch
      (n = 6 at K = 24, n = 13 at K = 64) within 1e-5 of its plain
@@ -83,12 +87,17 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      port's RecallIndexStrategy.observe (plain, on the card): lam * ell
      within 1e-5 of the kernel's loss, and the strategy fed the
      kernel's loss (lam 1) keeps the kernel's bin, x index and stop
-     exactly;
+     exactly; then granite-3-2b, qwen3-4b and starcoder2-3b at full
+     width, each built on the card and freed before the next (their
+     10-16 GB of f32 weights get no CPU copy): the paged chunk plus
+     decode token through the kernels against the page gather, and the
+     flash prefill against the einsum path, within 1e-3;
   4. times each kernel and its plain version with CUDA events — device
      time from CUDA graph replay, and the time of an eager call, host
-     included — on the chunked serve's shapes and at 1024-token
-     contexts (paged pair), the
-     calibration prefill's and a ring admission's shapes
+     included — on the chunked serve's shapes, at 1024-token contexts
+     and at the serve's histories with qwen3-4b's and starcoder2-3b's
+     widths (paged pair), the calibration prefill's, a ring admission's
+     and the two dense configs' calibration shapes
      (flash_attention, each beside one call of
      ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick the
      port never calls), the calibration's real call, a random full
@@ -114,8 +123,19 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      with the recall policy; every request's served nodes, token
      count, virtual TTFT and finish, and the cascade's stats, must be
      EQUAL on the two devices (a sha256 of the records is printed);
+     then the control plane's adaptive leg (`bench.adaptive`: the
+     reference bench's diurnal workload, gear bank and controller, with
+     online recalibration) — at least 2 gear switches and 1
+     recalibration, every request finished, one set of bank storages
+     decided with across every publish (``decide_cache_size() == 1``,
+     the reserved tensors' data_ptrs kept), records and switch/publish
+     logs EQUAL on the two devices; and a chaos serve of the two-rung
+     cascade sim under a seeded FaultPlan (cancellations, deadlines, a
+     rung-1 stall, a page squeeze) with the degrade governor and a
+     rung-0 pool — requests reaped and completed, escalations denied,
+     the pool drained, records and governor stats EQUAL;
   6. serves at full width through ``repro_torch.launch.serve.main``
-     fifteen times — paper-ee-100m chunked paged under recall_index and
+     twenty-two times — paper-ee-100m chunked paged under recall_index and
      under always_last (the paged pair's path), the ring server with
      --flash --dp-kernel under recall_index (flash and Bellman's path),
      the one-shot batch with --flash --dp-kernel; mamba2-130m's ring
@@ -135,7 +155,17 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      SLO and ``--eos`` set to the most frequent token of the first
      serve (``chunked_edf_eos``: a request is complete with all its
      tokens or when its last token is that one; at least one must end
-     early) — with every kernel's launch counter set to 0 just before
+     early); then granite-3-2b, qwen3-4b and starcoder2-3b chunked paged
+     with --flash --dp-kernel under recall_index, qwen3-4b under
+     always_last (36 layers a token), qwen3-4b under --adaptive (a
+     diurnal workload, three gears; the controller's stats printed),
+     qwen3-4b under --cancel-rate 0.25, --kv-reclaim 0.5 and a
+     --deadline-ms of half the recall_index serve's median e2e latency
+     (some requests reaped, the rest complete, the pool drained), and the
+     two-rung cascade under a --faults plan with a rung-1 stall over its
+     first second (the governor must deny an escalation into the
+     stalled rung; both pools drained) — with every kernel's launch
+     counter set to 0 just before
      each serve and read just after; every request must complete with
      its full token count, each path's kernels must launch (the Bellman
      kernel once a line solve on the --dp-kernel serves), and the
@@ -160,6 +190,7 @@ import collections
 import hashlib
 import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -195,6 +226,12 @@ from repro_torch.models.param import materialize, tree_map    # noqa: E402
 from repro_torch.serving import runtime as rt                 # noqa: E402
 from repro_torch.serving.cascade import (CascadeSimStepper,   # noqa: E402
                                          ModelBank, ModelSpec)
+from repro_torch.bench import adaptive as legs                 # noqa: E402
+from repro_torch.serving.faults import (DegradeGovernor,      # noqa: E402
+                                        FaultPlan)
+from repro_torch.serving.kvpool import KVPool                 # noqa: E402
+from repro_torch.strategy.base import array_leaves            # noqa: E402
+from repro_torch.serving.runtime.request import Request       # noqa: E402
 from repro_torch.serving.runtime.server import arrays_to      # noqa: E402
 from repro_torch.serving.runtime.workload import WorkloadSpec  # noqa: E402
 from repro_torch.strategy import Cascade, RecallIndexStrategy  # noqa: E402
@@ -271,6 +308,41 @@ EDF_EOS = ("chunked_edf_eos", SERVE_ARGS + ["--policy", "recall_index",
                                             "--order", "edf", "--slo-ms",
                                             "200"],
            PAGED, NEW + ("ssd_chunk",) + EXIT)
+# the dense tied-embedding configs at full width: the launcher's normal
+# calibration (512 x 64 numpy prompts, k 24) under the same load, the
+# paged pair at head_dim 128 and GQA groups of 4 and 12
+DENSE = ("granite-3-2b", "qwen3-4b", "starcoder2-3b")
+DENSE_PAGED = LOAD + ["--server", "--kv", "paged", "--page-size", str(PS),
+                      "--prefill-chunk", str(C), "--paged-kernel"]
+DENSE_RECALL = {a: ["--arch", a] + DENSE_PAGED + [
+    "--flash", "--dp-kernel", "--policy", "recall_index"] for a in DENSE}
+DENSE_SERVES = [
+    (f"{a.split('-')[0]}_chunked_recall_index", DENSE_RECALL[a],
+     PAGED + NEW, ("ssd_chunk",) + EXIT) for a in DENSE] + [
+    ("qwen3_chunked_always_last",
+     ["--arch", "qwen3-4b"] + DENSE_PAGED + ["--policy", "always_last"],
+     PAGED, NEW + ("ssd_chunk",) + EXIT),
+    # the gear bank's calibration is its own (128 x 32 prompts); the
+    # policy's tables are not used under --adaptive, so none are solved
+    ("qwen3_adaptive",
+     ["--arch", "qwen3-4b"] + DENSE_PAGED + [
+         "--policy", "always_last", "--adaptive", "--gears",
+         "quality:0.95,balanced:0.92,turbo:0.75", "--workload", "diurnal"],
+     PAGED, NEW + ("ssd_chunk",) + EXIT)]
+# qwen3-4b under reaping: --deadline-ms is appended from the e2e
+# latencies of qwen3_chunked_recall_index (the same requests)
+QWEN3_FAULTS = ("qwen3_faults",
+                DENSE_RECALL["qwen3-4b"] + ["--cancel-rate", "0.25",
+                                            "--kv-reclaim", "0.5"],
+                PAGED + NEW, ("ssd_chunk",) + EXIT)
+# the two-rung cascade under a fault plan the script writes: rung 1
+# stalled over the first escalations, deadlines on every request
+CASCADE_FAULTS = ("cascade_faults",
+                  CASCADE_ARGS + ["--policy", "skip_recall",
+                                  "--escalate-policy", "recall"],
+                  PAGED, NEW + ("ssd_chunk",) + EXIT)
+# the serves whose decode-only steps are traced after they end
+PROFILED = ("qwen3_chunked_recall_index", "qwen3_chunked_always_last")
 DECISION = "decision_check"
 SIM_DEVICES = ("cuda", "cpu")   # the sim digest's two devices
 MAIN_PATH = {"paged_attention": "chunked_recall_index",
@@ -367,9 +439,11 @@ SERVE_STARTS, SERVE_WIDTHS = [0, 16, 0, 16, 16, 0, 16, 0], [C] * B
 LONG_MAXP = 64
 LONG_LENS = [1024, 993, 1010, 1001, 1017, 996, 1023, 1005]
 LONG_STARTS = [1008, 1000, 1004, 993, 1008, 1001, 996, 1006]
-# the GQA check cases: ROADMAP A3's qwen3-4b widths (32 heads on 8 kv
-# heads, head_dim 128)
+# the GQA cases at the dense configs' widths: qwen3-4b's (32 heads on 8
+# kv heads, head_dim 128) and starcoder2-3b's (24 heads on 2 kv heads,
+# head_dim 128)
 G4 = dict(h=32, hkv=8, hd=128)
+G12 = dict(h=24, hkv=2, hd=128)
 
 
 def decode_case(seed, *, h=H, hkv=HKV, hd=HD, window=None, maxp=MAXP,
@@ -479,17 +553,22 @@ def prefill_bound(args, kw):
 
 
 # flash attention: (b, s, h, hkv, hd, window) — the calibration
-# prefill's shape first and a ring admission's (the timed cases), then
-# a GQA case with a window and lengths at the 64-row tile's edges at
-# every head dim
+# prefill's shape first and a ring admission's (timed), then a GQA case
+# with a window and lengths at the 64-row tile's edges at every head
+# dim, then the dense configs' calibration prefills (timed)
 FLASH_CASES = [("calibration", (512, 64, 12, 12, 64, None)),
                ("ring-admission", (1, 32, 12, 12, 64, None)),
                ("gqa-window-ragged", (2, 200, 8, 2, 128, 48)),
                ("hd32", (4, 100, 4, 2, 32, None)),
                ("hd96", (2, 130, 6, 3, 96, 40))] + [
     (f"s{s}-hd{hd}", (2, s, 4, 2, hd, 24 if s > 64 else None))
-    for s in (1, 63, 65, 129) for hd in (32, 64, 96, 128)]
-FLASH_TIMED = ("calibration", "ring-admission")
+    for s in (1, 63, 65, 129) for hd in (32, 64, 96, 128)] + [
+    # the dense configs' calibration prefills (starcoder2-3b's window of
+    # 4096 is longer than the 64-token prompts)
+    ("qwen3-4b-calibration", (512, 64, 32, 8, 128, None)),
+    ("starcoder2-3b-calibration", (512, 64, 24, 2, 128, 4096))]
+FLASH_TIMED = ("calibration", "ring-admission", "qwen3-4b-calibration",
+               "starcoder2-3b-calibration")
 
 
 def flash_case(seed, b, s, h, hkv, hd, window):
@@ -796,13 +875,11 @@ def phase_build():
     res = {}
     for name, info in (
             ("paged_attention", {
-                case: PA_MOD.kernel_info(B, H, HKV, HD, PS, maxp)
-                for case, maxp in (("serve", MAXP),
-                                   ("long-context", LONG_MAXP))}),
+                case: PA_MOD.kernel_info(B, h, hkv, hd, PS, maxp)
+                for case, (h, hkv, hd, maxp) in PAGED_TIMED.items()}),
             ("paged_prefill", {
-                case: PP_MOD.kernel_info(B, C, H, HKV, HD, PS, maxp)
-                for case, maxp in (("serve", MAXP),
-                                   ("long-context", LONG_MAXP))}),
+                case: PP_MOD.kernel_info(B, C, h, hkv, hd, PS, maxp)
+                for case, (h, hkv, hd, maxp) in PAGED_TIMED.items()}),
             ("flash_attention", {
                 case: FLASH_MOD.kernel_info(shape[4], shape[1])
                 for case, shape in FLASH_CASES if case in FLASH_TIMED}),
@@ -843,7 +920,11 @@ def phase_kernel_checks():
              ("paged_attention", "g4-hd128-window",
               decode_case(8, window=40, **G4), TOL_KERNEL),
              ("paged_prefill", "g4-hd128-window",
-              prefill_case(9, window=20, **G4), TOL_KERNEL)]
+              prefill_case(9, window=20, **G4), TOL_KERNEL),
+             ("paged_attention", "g12-hd128-window",
+              decode_case(50, window=40, **G12), TOL_KERNEL),
+             ("paged_prefill", "g12-hd128-window",
+              prefill_case(51, window=20, **G12), TOL_KERNEL)]
     cases += [("flash_attention", case, flash_case(10 + i, *shape),
                TOL_KERNEL) for i, (case, shape) in enumerate(FLASH_CASES)]
     cases += [("bellman_backup", f"K={k}", bellman_case(k, k), TOL_DP)
@@ -964,7 +1045,9 @@ def phase_exit_checks():
 def phase_model_check(params, params_cpu, cfg):
     """Full-width model on a small input: one 16-token prefill chunk for
     two lanes, then one decode token, through the kernels and through
-    the page gather on the card, and through the gather on the CPU."""
+    the page gather on the card, and through the gather on the CPU —
+    or, with ``params_cpu`` None (the dense configs, whose 10-16 GB of
+    weights stay on the card), the kernels against the gather."""
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab, (2, C)).astype(np.int32)
     widths = (C, 11)
@@ -979,10 +1062,10 @@ def phase_model_check(params, params_cpu, cfg):
         ds[lane, :w] = np.arange(w) % PS
     dec_pos = np.asarray(widths, np.int32)
     outs = {}
-    for name, prm, dev, kern in (("kernel", params, DEV, True),
-                                 ("gather", params, DEV, False),
-                                 ("cpu", params_cpu, torch.device("cpu"),
-                                  False)):
+    paths = [("kernel", params, DEV, True), ("gather", params, DEV, False)]
+    if params_cpu is not None:
+        paths.append(("cpu", params_cpu, torch.device("cpu"), False))
+    for name, prm, dev, kern in paths:
         def t(a, dtype=torch.int32, dev=dev):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
         caches = []
@@ -1021,18 +1104,23 @@ def phase_model_check(params, params_cpu, cfg):
             ells.append(ell)
         outs[name] = [first.float().cpu(), logits.float().cpu(),
                       torch.stack(ells, 1).cpu()]
-    for name in ("kernel", "gather"):
+    pairs = ([("kernel", "cpu"), ("gather", "cpu")] if "cpu" in outs
+             else [("kernel", "gather")])
+    where = {"kernel": "kernels on the card", "gather": "gather on the card",
+             "cpu": "gather on the CPU"}
+    for name, ref in pairs:
         errs = [float((a - b).abs().max())
-                for a, b in zip(outs[name], outs["cpu"])]
+                for a, b in zip(outs[name], outs[ref])]
         ok = all(torch.allclose(a, b, atol=TOL_MODEL, rtol=TOL_MODEL)
                  and bool(torch.isfinite(a).all())
-                 for a, b in zip(outs[name], outs["cpu"]))
-        log(f"model check [{name} on the card vs gather on the CPU]: "
+                 for a, b in zip(outs[name], outs[ref]))
+        log(f"model check {cfg.name} [{where[name]} vs {where[ref]}]: "
             f"first-token logits {errs[0]:.3e}, decode logits "
             f"{errs[1]:.3e}, node losses {errs[2]:.3e} "
             f"(atol=rtol={TOL_MODEL}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"model check failed for the {name} path")
+            raise SystemExit(f"model check failed for {cfg.name}'s "
+                             f"{name} path")
     shapes = [tuple(o.shape) for o in outs["kernel"]]
     want = [(2, cfg.vocab), (2, cfg.vocab), (2, cfg.n_ramps + 1)]
     if shapes != want:
@@ -1041,17 +1129,18 @@ def phase_model_check(params, params_cpu, cfg):
 
 def phase_flash_model_check(params, params_cpu, cfg):
     """Full-width whole-prompt prefill into ring caches: through the
-    flash kernel, through the einsum path on the card and on the CPU.
-    The prompt (40 tokens) outruns the 32-slot ring, so the caches keep
-    its tail."""
+    flash kernel, through the einsum path on the card and on the CPU
+    (without ``params_cpu``: flash against einsum on the card).  The
+    prompt (40 tokens) outruns the 32-slot ring, so the caches keep its
+    tail."""
     toks = np.random.default_rng(6).integers(0, cfg.vocab, (2, 40))
     cache_len = 32
     outs = {}
     n0 = flash_attention.launches
-    for name, prm, dev, flash in (("flash", params, DEV, True),
-                                  ("einsum", params, DEV, False),
-                                  ("cpu", params_cpu, torch.device("cpu"),
-                                   False)):
+    paths = [("flash", params, DEV, True), ("einsum", params, DEV, False)]
+    if params_cpu is not None:
+        paths.append(("cpu", params_cpu, torch.device("cpu"), False))
+    for name, prm, dev, flash in paths:
         with torch.no_grad():
             logits, caches, losses, _ = M.prefill(
                 prm, cfg, {"tokens": torch.as_tensor(toks, device=dev)},
@@ -1064,7 +1153,9 @@ def phase_flash_model_check(params, params_cpu, cfg):
         raise SystemExit(f"flash prefill launched the kernel "
                          f"{flash_attention.launches - n0} times, not "
                          f"{n_layers}")
-    for a, b in (("flash", "einsum"), ("flash", "cpu"), ("einsum", "cpu")):
+    pairs = ((("flash", "einsum"), ("flash", "cpu"), ("einsum", "cpu"))
+             if "cpu" in outs else (("flash", "einsum"),))
+    for a, b in pairs:
         (la, na, ca), (lb, nb, cb) = outs[a], outs[b]
         ok = all(torch.allclose(x, y, atol=TOL_MODEL, rtol=TOL_MODEL)
                  and bool(torch.isfinite(x).all())
@@ -1075,7 +1166,7 @@ def phase_flash_model_check(params, params_cpu, cfg):
         ok &= all(torch.allclose(x[n].float(), y[n].float(),
                                  atol=TOL_BF16, rtol=TOL_BF16)
                   for x, y in zip(ca, cb) for n in ("k", "v"))
-        log(f"model check [prefill, {a} vs {b}]: logits "
+        log(f"model check {cfg.name} [prefill, {a} vs {b}]: logits "
             f"{float((la - lb).abs().max()):.3e}, node losses "
             f"{float((na - nb).abs().max()):.3e} (atol=rtol={TOL_MODEL}); "
             f"ring pos equal; ring k/v {kv_err:.3e} (atol=rtol={TOL_BF16})"
@@ -1320,6 +1411,15 @@ def phase_calibration_timing(params, cfg, flag):
     torch.cuda.empty_cache()
 
 
+# the paged pair's timed cases: (h, hkv, hd, maxp) — the serve's shapes,
+# 1024-token contexts, and the serve's histories at qwen3-4b's and
+# starcoder2-3b's widths
+PAGED_TIMED = {"serve": (H, HKV, HD, MAXP),
+               "long-context": (H, HKV, HD, LONG_MAXP),
+               "serve-g4-hd128": (G4["h"], G4["hkv"], G4["hd"], MAXP),
+               "serve-g12-hd128": (G12["h"], G12["hkv"], G12["hd"], MAXP)}
+
+
 def long_decode_case():
     return decode_case(6, lens=LONG_LENS, maxp=LONG_MAXP)
 
@@ -1339,6 +1439,15 @@ TIMED = [("paged_attention", "serve", lambda: decode_case(4, lens=SERVE_LENS),
           lambda: prefill_case(5, starts=SERVE_STARTS, widths=SERVE_WIDTHS),
           prefill_bound),
          ("paged_prefill", "long-context", long_prefill_case, prefill_bound)]
+TIMED += [(kern, f"serve-{tag}", lambda mk=mk, seed=seed, g=g, kw=kw:
+           mk(seed, **g, **kw), bound)
+          for tag, g in (("g4-hd128", G4), ("g12-hd128", G12))
+          for kern, mk, seed, kw, bound in (
+              ("paged_attention", decode_case, 4, dict(lens=SERVE_LENS),
+               decode_bound),
+              ("paged_prefill", prefill_case, 5,
+               dict(starts=SERVE_STARTS, widths=SERVE_WIDTHS),
+               prefill_bound))]
 TIMED += [("flash_attention", case, lambda i=i, shape=shape:
            flash_case(10 + i, *shape), flash_bound)
           for i, (case, shape) in enumerate(FLASH_CASES) if case in FLASH_TIMED]
@@ -1397,8 +1506,11 @@ def phase_timing():
         if name == "flash_attention":
             # the yardstick: one PyTorch call computing the same function
             # (never called by the port), on (B, H, S, hd) copies made
-            # outside the timing
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
+            # outside the timing, K and V repeated to every query head
+            g = args[0].shape[2] // args[1].shape[2]
+            qt, kt, vt = (t.repeat_interleave(g if i else 1, dim=2)
+                          .transpose(1, 2).contiguous()
+                          for i, t in enumerate(args))
 
             def run_lib():
                 return F.scaled_dot_product_attention(
@@ -1524,10 +1636,163 @@ def phase_sim_digest():
         f"(sha256 {digests[SIM_DEVICES[0]]})")
 
 
-def _check_serve_run(name, argv, run, n_nodes, vocab, eos=None):
+def phase_dense_model_checks():
+    """Each dense config at full width with its weights only on the card
+    (10-16 GB of f32, so no CPU copy): a prefill chunk plus one decode
+    token through the paged kernels against the page gather, and a
+    whole-prompt prefill through flash against the einsum path, within
+    TOL_MODEL.  Each model is freed before the next is built."""
+    for arch in DENSE:
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        params = materialize(M.model_defs(cfg), gen, DEV)
+        torch.cuda.synchronize()
+        sizes = []
+        tree_map(lambda t: sizes.append(t.numel()), params)
+        log(f"model {arch}: {sum(sizes)} parameters "
+            f"({4 * sum(sizes) / 1e9:.2f} GB in f32), "
+            f"{sum(seg.n_layers for seg in cfg.segments)} layers, "
+            f"{cfg.n_ramps + 1} nodes, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        phase_model_check(params, None, cfg)
+        phase_flash_model_check(params, None, cfg)
+        del params
+        torch.cuda.empty_cache()
+
+
+def _terminal_records(metrics) -> list:
+    """Per request: served nodes, token count, status, virtual TTFT and
+    end."""
+    return [(rid, rec.tokens, rec.n_tokens, rec.status, rec.ttft,
+             rec.ended) for rid, rec in sorted(metrics.records.items())]
+
+
+def _digest(obj) -> str:
+    return hashlib.sha256(repr(obj).encode()).hexdigest()
+
+
+def phase_control_sim():
+    """The adaptive leg of the reference's bench_runtime.
+    adaptive_vs_frozen on the port's SimStepper (bench.adaptive:
+    the same numpy traces, diurnal workload at peak 12.5 req/s over
+    30 s, span 1.5, hold 20, lead 1.5, recalibration every 2.5 s), on
+    the card and on the CPU: at least 2 switches and 1 recalibration,
+    every request finished, one set of bank storages decided with
+    (decide_cache_size() == 1) — the reserved tensors, whose data_ptrs
+    every publish kept — and records, switch and publish logs EQUAL on
+    the two devices."""
+    requests = legs.adaptive_requests()
+    rows = legs.adaptive_serve_mix()
+    out = {}
+    for dev in SIM_DEVICES:
+        t0 = time.perf_counter()
+        m, stepper, ctl, _ = legs.leg(requests, rows, device=dev)
+        st = ctl.stats()
+        done = sum(1 for r in m.records.values() if r.finished is not None)
+        reserved = [t for a in ctl.swap.bank_arrays()
+                    for t in array_leaves(a)]
+        ptrs = [t.data_ptr() for t in reserved]
+        ok = (st["gear_switches"] >= 2 and st["recalibrations"] >= 1
+              and done == len(requests) and stepper.decide_cache_size() == 1
+              and stepper.storages == {tuple(ptrs)}
+              and all(t.device.type == torch.device(dev).type
+                      for t in reserved))
+        out[dev] = (_sim_records(m), ctl.swap.switches, ctl.swap.publishes)
+        log(f"control_sim [{dev}]: {done}/{len(requests)} requests "
+            f"finished, {st['gear_switches']} gear switches at "
+            f"{[round(t, 6) for t, _, _ in ctl.swap.switches]} s, "
+            f"{st['recalibrations']} recalibrations ({st['publishes']} "
+            f"publishes), final gear {st['gear']}, decide_cache_size "
+            f"{stepper.decide_cache_size()}, {len(ptrs)} reserved tensors "
+            f"on {reserved[0].device} kept their data_ptrs, mean served "
+            f"loss {stepper.mean_served_loss:.6f}, sha256 "
+            f"{_digest(out[dev])}, {time.perf_counter() - t0:.1f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"control_sim [{dev}] failed: {st}")
+    if out[SIM_DEVICES[0]] != out[SIM_DEVICES[1]]:
+        raise SystemExit("control_sim: records or switch/publish logs "
+                         f"differ between {' and '.join(SIM_DEVICES)}")
+    log(f"control_sim: records and switch/publish logs equal on "
+        f"{' and '.join(SIM_DEVICES)}")
+
+
+def phase_chaos_sim():
+    """A seeded FaultPlan — cancellations, deadlines, a rung-1 stall and
+    a page squeeze — on the two-rung CascadeSimStepper of
+    phase_sim_digest with a rung-0 KVPool and the DegradeGovernor, on
+    the card and on the CPU: requests reaped and completed, escalations
+    denied, the pool drained, and records, statuses and governor.stats()
+    EQUAL on the two devices."""
+    crng = np.random.default_rng(3)
+    closses, bounds = traces.cascade_traces(
+        crng, 3_000, [(1.0, 2.0, 3.0, 4.0, 5.0, 6.0),
+                      (4.0, 6.0, 8.0, 10.0, 12.0, 14.0)],
+        head_overthink=0.3)
+    ccosts = np.concatenate([np.full(6, 0.5 / 6), np.full(6, 2.0 / 6)])
+    ccasc = Cascade.from_traces(closses[:1_500], 0.1 * ccosts, k=10,
+                                lam=0.9, boundaries=bounds)
+    ccasc.solve_skip("cascade")
+    spec = WorkloadSpec(rate=16.0, duration=2.5, prompt_len=32,
+                        max_tokens=(4, 16), seed=0)
+    out = {}
+    for dev in SIM_DEVICES:
+        t0 = time.perf_counter()
+        reqs = rt.make_workload("poisson", spec)
+        plan = FaultPlan.generate(reqs, seed=13, cancel_rate=0.25,
+                                  cancel_after=(0.05, 0.5),
+                                  deadline=(0.3, 1.5),
+                                  stalls=[(1, 0.3, 0.8)],
+                                  squeezes=[(0.5, 1.2, 8)])
+        reqs = plan.stamp(reqs)
+        mbank = ModelBank([
+            ModelSpec("small", 6, n_lanes=8, seg_time=0.002,
+                      prefill_tok_time=0.0001),
+            ModelSpec("large", 6, n_lanes=4, seg_time=0.008,
+                      prefill_tok_time=0.0004)])
+        pool = KVPool(n_lanes=8, page_size=PS, lane_pages=4, n_pages=33)
+        gov = DegradeGovernor()
+        strat = (make_strategy("skip_recall", arrays_to(ccasc, dev),
+                               mode="cascade"),)
+        stepper = CascadeSimStepper(mbank, strat, closses[1_500:],
+                                    overhead=0.0005, policy="recall",
+                                    chunk=C, pool=pool, faults=plan,
+                                    governor=gov, device=dev)
+        m = rt.Server(stepper, rt.LaneScheduler(8), lambda r: 0, slo=0.2,
+                      enforce_deadlines=True).serve(reqs)
+        s = m.summary()
+        cs = stepper.cascade_stats()
+        ok = (s["cancelled"] > 0 and s["timed_out"] > 0
+              and s["completed"] > 0 and gov.denied_stall > 0
+              and s["cancelled"] + s["timed_out"] + s["completed"]
+              == s["requests"])
+        drained = _pool_drained(f"chaos_sim [{dev}]", pool)
+        out[dev] = (_terminal_records(m), gov.stats(), cs)
+        log(f"chaos_sim [{dev}]: {s['requests']} requests: "
+            f"{s['completed']} completed, {s['cancelled']} cancelled, "
+            f"{s['timed_out']} timed out; governor {gov.stats()}; "
+            f"escalations {cs['escalations']}, tokens by rung "
+            f"{cs['tokens_served']}; {drained}; sha256 "
+            f"{_digest(out[dev])}, {time.perf_counter() - t0:.1f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chaos_sim [{dev}]: the storm did not land: "
+                             f"{s}, {gov.stats()}")
+    if out[SIM_DEVICES[0]] != out[SIM_DEVICES[1]]:
+        raise SystemExit("chaos_sim: records, statuses or governor stats "
+                         f"differ between {' and '.join(SIM_DEVICES)}")
+    log(f"chaos_sim: records, statuses and governor stats equal on "
+        f"{' and '.join(SIM_DEVICES)}")
+
+
+def _check_serve_run(name, argv, run, n_nodes, vocab, eos=None,
+                     reaped=False):
     """Every request (or batch row) got its full token count — or, with
-    ``eos``, ended on that token; tokens and served nodes are in range.
-    Returns a summary string."""
+    ``eos``, ended on that token, or, with ``reaped``, was cancelled or
+    timed out; tokens and served nodes are in range.  Returns a summary
+    string."""
     if run is None:
         raise SystemExit(f"serve [{name}]: the workload was empty")
     if isinstance(run, serve.BatchRun):
@@ -1547,6 +1812,8 @@ def _check_serve_run(name, argv, run, n_nodes, vocab, eos=None):
                 f"{st.segments_full // b} batch launches")
     for req in run.requests:
         rec = run.metrics.records[req.rid]
+        if reaped and rec.status in ("cancelled", "timed_out"):
+            continue
         ended = eos is not None and rec.n_tokens and rec.tokens[-1] == eos
         if rec.finished is None or not (rec.n_tokens == req.max_tokens
                                         or ended):
@@ -1559,6 +1826,15 @@ def _check_serve_run(name, argv, run, n_nodes, vocab, eos=None):
     if not set(nodes) <= set(range(n_nodes)) \
             or sum(nodes.values()) != s["tokens"]:
         raise SystemExit(f"serve [{name}]: served nodes {dict(nodes)}")
+    if s["cancelled"] or s["timed_out"]:
+        p50 = s["deadline_slack"]["p50"] if s["deadline_slack"] else None
+        return (f"{s['completed']}/{s['requests']} requests completed, "
+                f"{s['cancelled']} cancelled, {s['timed_out']} timed out "
+                f"(deadline slack p50 "
+                f"{'n/a' if p50 is None else f'{1e3 * p50:.1f} ms'}), "
+                f"{s['tokens']} tokens, TTFT p50 "
+                f"{1e3 * s['ttft']['p50']:.1f} ms, token latency p50 "
+                f"{1e3 * s['token_latency']['p50']:.2f} ms")
     return (f"{s['completed']}/{s['requests']} requests, {s['tokens']} "
             f"tokens, {s['throughput_tok_s']:.1f} tok/s, TTFT p50 "
             f"{1e3 * s['ttft']['p50']:.1f} ms p99 "
@@ -1589,7 +1865,63 @@ def _cascade_check(name, run, commit):
 
 
 
-def phase_serve(name, argv, must, must_not, eos=None):
+class _SetupClock:
+    """Host-clock times inside one launcher call: the calibration
+    (`Cascade.calibrate`, synchronized), the serve (`Server.serve`), and
+    each single-model `EngineStepper.step` — which ends on the host, its
+    outputs copied back — split by whether it carried a prefill chunk.
+    It patches those three methods on their classes for the call, so a
+    renamed method stops being timed; it stays only until the tracer's
+    step spans carry the same split (ROADMAP A7)."""
+
+    def __enter__(self):
+        self.calib, self.serve, self.chunk, self.decode = [], [], [], []
+        self._orig = (Cascade.calibrate.__func__, rt.Server.serve,
+                      rt.EngineStepper.step)
+        calibrate, serve_fn, step_fn = self._orig
+        clock = self
+
+        def timed_calibrate(cls, *a, **k):
+            t0 = time.perf_counter()
+            out = calibrate(cls, *a, **k)
+            torch.cuda.synchronize()
+            clock.calib.append(time.perf_counter() - t0)
+            return out
+
+        def timed_serve(server, *a, **k):
+            t0 = time.perf_counter()
+            out = serve_fn(server, *a, **k)
+            clock.serve.append(time.perf_counter() - t0)
+            return out
+
+        def timed_step(stepper, *a, **k):
+            n0 = stepper.chunk_stats["chunk_steps"]
+            t0 = time.perf_counter()
+            out = step_fn(stepper, *a, **k)
+            (clock.chunk if stepper.chunk_stats["chunk_steps"] > n0
+             else clock.decode).append(time.perf_counter() - t0)
+            return out
+
+        Cascade.calibrate = classmethod(timed_calibrate)
+        rt.Server.serve = timed_serve
+        rt.EngineStepper.step = timed_step
+        return self
+
+    def __exit__(self, *exc):
+        calibrate, rt.Server.serve, rt.EngineStepper.step = self._orig
+        Cascade.calibrate = classmethod(calibrate)
+
+    def line(self) -> str:
+        def p50(xs):
+            return f"{1e3 * float(np.median(xs)):.2f} ms" if xs else "n/a"
+        return (f"calibration {sum(self.calib):.2f} s, serve loop "
+                f"{sum(self.serve):.2f} s, engine steps (every rung's, "
+                f"warmup included): {len(self.chunk)} with a prefill "
+                f"chunk (p50 {p50(self.chunk)}), {len(self.decode)} "
+                f"without (p50 {p50(self.decode)})")
+
+
+def phase_serve(name, argv, must, must_not, eos=None, reaped=False):
     """One full-width serve; every kernel's launch counter is zeroed
     just before and read just after.  Returns the launches and the
     run."""
@@ -1601,12 +1933,13 @@ def phase_serve(name, argv, must, must_not, eos=None):
     for kern in KERNELS.values():
         kern.launches = 0
     t0 = time.perf_counter()
-    run = serve.main(argv)
-    torch.cuda.synchronize()
+    with _SetupClock() as clock:
+        run = serve.main(argv)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: kern.launches for k, kern in KERNELS.items()}
     summary = _check_serve_run(name, argv, run, n_nodes, cfgs[0].vocab,
-                               eos)
+                               eos, reaped)
     if args.cascade:
         summary += "; " + _cascade_check(name, run,
                                          args.escalate_policy == "commit")
@@ -1629,7 +1962,7 @@ def phase_serve(name, argv, must, must_not, eos=None):
     peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"serve [{name}]: {summary}, launches {launches}, peak memory "
         f"{peak:.0f} MiB, wall {wall:.1f} s (calibration and warmup "
-        f"included)")
+        f"included: {clock.line()})")
     return launches, run
 
 
@@ -1661,6 +1994,181 @@ def phase_serves() -> dict:
                              f"{rec.tokens}, not {cut}")
     log(f"serve [{name}]: every stream is the recall_index serve's, cut "
         f"after its first eos {eos}")
+    by_path.update(phase_dense_serves())
+    return by_path
+
+
+def _pool_drained(name, pool) -> str:
+    """Every page back in the free list once the prefix cache lets go:
+    no lane holds a page or a reserved budget."""
+    held, budget = int(pool.n_held.sum()), int(pool.budget.sum())
+    cached = len(pool.prefix)
+    pool.prefix.clear()
+    bad = pool.check_invariants()
+    if held or budget or pool.pages_in_use or bad:
+        raise SystemExit(f"serve [{name}]: pages left behind: held {held}, "
+                         f"budget {budget}, in use {pool.pages_in_use}, "
+                         f"{bad}")
+    return (f"pool drained ({cached} prefix-cache entries released, "
+            f"{pool.reclaimed_pages} pages reclaimed, peak "
+            f"{pool.peak_pages} pages)")
+
+
+def _merged_us(spans) -> float:
+    """Microseconds covered by the union of (start, end) spans."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def phase_decode_profile(name, run, steps=3):
+    """One `torch.profiler` trace of decode-only steps of a served model,
+    driven through the serve's own `EngineStepper` after its serve: every
+    lane takes a 32-token request, chunk steps run until no lane
+    prefills, two decode-only steps warm up, ``steps`` are timed on the
+    host clock untraced and ``steps`` more traced.  Prints the host-clock
+    time a step (untraced, and traced: the profiler slows the host), the
+    device's busy time (the union of its kernels and copies in the
+    trace), the idle share against the untraced clock, device ops and
+    host syncs a step (by the ops they sit in), and the top device and
+    host ops; the Chrome trace goes to build/decode_profile_<name>.json."""
+    st = run.stepper
+    n = st.n_lanes
+    rng = np.random.default_rng(11)
+    occ, sid = np.ones(n, bool), np.zeros(n, np.int32)
+    for lane in range(n):
+        req = Request(rid=10_000 + lane, max_tokens=16,
+                      prompt=rng.integers(0, st.cfg.vocab, 32, np.int32))
+        if not st.reserve(req):
+            raise SystemExit(f"profile [{name}]: the pool refused lane "
+                             f"{lane}")
+        st.admit(lane, req)
+    for _ in range(2 * 32):
+        if st.step(occ, sid)[4].all():
+            break
+    else:
+        raise SystemExit(f"profile [{name}]: lanes still prefilling")
+    for _ in range(2):
+        st.step(occ, sid)
+    plain = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        st.step(occ, sid)
+        plain.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    walls = []
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            if not st.step(occ, sid)[4].all():
+                raise SystemExit(f"profile [{name}]: a traced step "
+                                 "carried a prefill chunk")
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    for lane in range(n):
+        st.release(lane)
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise SystemExit(f"profile [{name}]: the trace holds no device "
+                         "event")
+    busy_ms = _merged_us((e.time_range.start, e.time_range.end)
+                         for e in dev) / 1e3 / steps
+    wall_ms = 1e3 * sum(walls) / steps
+    plain_ms = 1e3 * sum(plain) / steps
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    # each host sync by the ops it sits in, innermost first
+    sync_by = collections.Counter()
+    for e in host:
+        if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaEventSynchronize"):
+            chain, op = [], e.cpu_parent
+            while op is not None and len(chain) < 3:
+                chain.append(op.name)
+                op = op.cpu_parent
+            sync_by[" < ".join(chain)] += 1 / steps
+    syncs = sum(sync_by.values())
+    by_dev, by_host = collections.Counter(), collections.Counter()
+    for e in dev:
+        by_dev[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / steps
+    for e in prof.key_averages():
+        by_host[e.key[:60]] += e.self_cpu_time_total / 1e3 / steps
+    path = ROOT / "build" / f"decode_profile_{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    top = lambda c: {k: round(v, 4) for k, v in c.most_common(8)}  # noqa
+    log(f"profile [{name}]: {steps} decode-only steps, {n} lanes: "
+        f"host clock {plain_ms:.3f} ms a step untraced ({wall_ms:.3f} "
+        f"traced), device busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / plain_ms:.3f}, "
+        f"{len(dev) / steps:.0f} device ops and {syncs:.0f} host syncs a "
+        f"step ({json.dumps(top(sync_by))}); top device ms a step "
+        f"{json.dumps(top(by_dev))}; top host self ms a step "
+        f"{json.dumps(top(by_host))}; trace {path}")
+
+
+def phase_dense_serves() -> dict:
+    """The dense configs at full width (DENSE_SERVES), then qwen3-4b
+    under cancellations and deadlines (QWEN3_FAULTS, the deadline half
+    the median e2e latency of qwen3_chunked_recall_index: the host's
+    speed moves between serves, and at the whole median a faster serve
+    reaped nothing), then the two-rung cascade under a fault plan with
+    a rung-1 stall over the first escalations (CASCADE_FAULTS).  Each
+    model is freed before the next serve builds its own."""
+    by_path = {}
+    e2e = []
+    for name, argv, must, must_not in DENSE_SERVES:
+        by_path[name], run = phase_serve(name, argv, must, must_not)
+        if name == "qwen3_chunked_recall_index":
+            e2e = [r.e2e for r in run.metrics.records.values()]
+        if name in PROFILED:
+            phase_decode_profile(name, run)
+        if run.controller is not None:
+            log(f"serve [{name}]: controller.stats() "
+                + json.dumps(run.controller.stats(), default=float))
+        del run
+        torch.cuda.empty_cache()
+    deadline_ms = 0.5e3 * float(np.median(e2e))
+    name, argv, must, must_not = QWEN3_FAULTS
+    by_path[name], run = phase_serve(
+        name, argv + ["--deadline-ms", f"{deadline_ms:.3f}"], must,
+        must_not, reaped=True)
+    s = run.metrics.summary()
+    if s["cancelled"] + s["timed_out"] < 1:
+        raise SystemExit(f"serve [{name}]: no request reaped at "
+                         f"--deadline-ms {deadline_ms:.3f}")
+    log(f"serve [{name}]: --deadline-ms {deadline_ms:.3f} (half the median "
+        f"e2e latency of qwen3_chunked_recall_index); "
+        + _pool_drained(name, run.stepper.pool))
+    del run
+    torch.cuda.empty_cache()
+    name, argv, must, must_not = CASCADE_FAULTS
+    plan = FaultPlan(seed=0, stalls=[(1, 0.0, 1.0)],
+                     deadline={rid: 60.0 for rid in range(256)})
+    path = ROOT / "build" / "cascade_faults_plan.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    plan.save(str(path))
+    by_path[name], run = phase_serve(name, argv + ["--faults", str(path)],
+                                     must, must_not)
+    cs = run.cascade_stats
+    if cs.get("governor_denied_stall", 0) < 1:
+        raise SystemExit(f"serve [{name}]: the governor denied no "
+                         f"escalation into the stalled rung: {cs}")
+    drained = "; ".join(f"{sp.name}: " + _pool_drained(name, st.pool)
+                        for sp, st in zip(run.stepper.bank.specs,
+                                          run.stepper.steppers))
+    log(f"serve [{name}]: governor "
+        + json.dumps({k: v for k, v in cs.items()
+                      if k.startswith("governor")}) + f"; {drained}")
+    del run
+    torch.cuda.empty_cache()
     return by_path
 
 
@@ -1695,11 +2203,15 @@ def main() -> None:
     phase_ssm_model_check(params, params_cpu, cfg)
     phase_calibration_timing(params, cfg, "use_ssd_kernel")
     del params, params_cpu
+    torch.cuda.empty_cache()
+    phase_dense_model_checks()
     times = phase_timing()
     floor = launch_floor_ms()
     log(f"launch_floor_ms {floor:.6f} (device, graph replay of an in-place "
         f"add on one element)")
     phase_sim_digest()
+    phase_control_sim()
+    phase_chaos_sim()
     # each path's own counts; each kernel's main path is MAIN_PATH's
     by_path = {DECISION: decision}
     by_path.update(phase_serves())

@@ -1,12 +1,15 @@
 """Architecture registry of the port: the paper's own early-exit
-workload and the SSM family's full-width model, selectable via
+workload, the SSM family's full-width model and the dense tied-embedding
+decoders (granite-3-2b, qwen3-4b, starcoder2-3b), selectable via
 ``--arch``."""
 
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_130m, paper_ee
+from repro_torch.configs import (granite_3_2b, mamba2_130m, paper_ee,
+                                 qwen3_4b, starcoder2_3b)
 
-REGISTRY = {paper_ee.ARCH_ID: paper_ee, mamba2_130m.ARCH_ID: mamba2_130m}
+REGISTRY = {m.ARCH_ID: m for m in (paper_ee, mamba2_130m, granite_3_2b,
+                                   qwen3_4b, starcoder2_3b)}
 
 
 def get_config(arch: str, smoke: bool = False):

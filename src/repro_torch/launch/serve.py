@@ -41,6 +41,22 @@ model it escalated to).  Rung m's weights come from seed ``--seed +
 m``; the calibration prompts from a ``torch.Generator`` seeded with
 ``--seed + 1``.
 
+``--adaptive`` serves a gear bank (``--gears name:lam,...``, each gear a
+``skip_recall`` strategy priced by a `GearPlanner` on 128 x 32
+calibration prompts drawn with numpy from ``--seed + 1``) under the
+`AdaptiveController`, which switches the gear new admissions use from
+the observed arrival rate; the engine stepper has no swappable array
+bank, so ``--recal-interval`` (online re-fits) applies to the sim
+steppers only, as in the reference.  The fault plane: ``--faults
+PLAN.json`` serves under a ``faults/v1`` chaos script (scripted
+cancellations, deadlines, rung stalls, page squeezes), ``--cancel-rate``
+and ``--deadline-ms`` draw seeded per-request cancellations and
+deadlines (``--seed + 7``; expired requests are reaped), the
+`DegradeGovernor` denies escalations a deadline cannot afford or a
+stalled rung cannot serve (``--no-governor`` turns it off), and
+``--kv-reclaim FRAC`` arms the paged pool's sliding-window reclamation
+above that occupancy.
+
 It runs on the card (``--device cuda``, the default) and refuses to go
 on when CUDA is missing; ``--device cpu`` runs the same path with the
 kernels' plain PyTorch versions.  ``--paged-kernel`` sends every paged
@@ -66,17 +82,23 @@ from repro_torch.configs import get_config
 from repro_torch.models import model as M
 from repro_torch.models.param import materialize
 from repro_torch.serving import runtime as rt
+from repro_torch.serving.control import (AdaptiveController, GearPlanner,
+                                         GearSpec)
 from repro_torch.serving.engine import Engine, GenerationStats
+from repro_torch.serving.faults import DegradeGovernor, FaultPlan
 from repro_torch.serving.obs.report import ServeReport, segments_saved_line
 from repro_torch.serving.runtime.workload import WorkloadSpec, make_workload
 
 __all__ = ["main", "ServeRun", "BatchRun", "ALIASES", "ONLINE",
-           "build_strategy"]
+           "build_strategy", "parse_gears"]
 
 CALIB_PROMPTS, CALIB_LEN, CALIB_K = 512, 64, 24
 # the cascade's calibration: prompts x length, support size (the JAX
 # launcher's _calibrate_multi)
 MULTI_PROMPTS, MULTI_LEN, MULTI_K = 128, 32, 16
+# the --adaptive gear bank's calibration: prompts x length, ring length,
+# support size (the JAX launcher's _build_adaptive)
+GEAR_PROMPTS, GEAR_LEN, GEAR_CACHE, GEAR_K = 128, 32, 40, 12
 
 # the reference launcher's aliases
 ALIASES = {
@@ -127,6 +149,8 @@ class ServeRun:
     stepper: object               # EngineStepper | CascadeEngineStepper
     cascade: strategy.Cascade
     cascade_stats: dict | None = None
+    controller: AdaptiveController | None = None
+    faults: FaultPlan | None = None
 
 
 @dataclasses.dataclass
@@ -235,6 +259,44 @@ def parse_args(argv=None):
                     help="run the calibration's line solve through the "
                          "Bellman-backup kernel: the port's handle on the "
                          "reference's solve_line(use_kernel=True)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="serve under the adaptive control plane: a gear "
+                         "bank of recall strategies selected from live "
+                         "load telemetry.  Implies --server")
+    ap.add_argument("--gears",
+                    default="quality:0.95,balanced:0.92,turbo:0.75",
+                    help="the --adaptive gear bank: comma-separated "
+                         "name:lam pairs (quality-first order is "
+                         "derived from solved work, not list order)")
+    ap.add_argument("--recal-interval", type=float, default=None,
+                    help="seconds of serve time between online table "
+                         "re-fits from observed outcomes (--adaptive; "
+                         "sim steppers only — the engine path serves "
+                         "gear switching without recalibration)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline budget from arrival: "
+                         "expired requests are reaped mid-stream "
+                         "(pages released, counted timed_out) and "
+                         "escalations the deadline cannot afford are "
+                         "denied by the degrade governor")
+    ap.add_argument("--cancel-rate", type=float, default=0.0,
+                    help="seeded per-request probability of a client "
+                         "cancellation shortly after arrival (chaos "
+                         "input; deterministic in --seed)")
+    ap.add_argument("--faults", default=None, metavar="PLAN.json",
+                    help="serve under a faults/v1 chaos script "
+                         "(FaultPlan.save): scripted cancellations, "
+                         "deadlines, rung-stall windows and KV page "
+                         "squeezes")
+    ap.add_argument("--kv-reclaim", type=float, default=None,
+                    metavar="FRAC",
+                    help="paged-KV occupancy watermark in (0,1]: above "
+                         "it admission pressure clips attention history "
+                         "off the longest lanes (sliding-window "
+                         "reclamation) instead of refusing admission")
+    ap.add_argument("--no-governor", action="store_true",
+                    help="serve faults WITHOUT the degrade governor "
+                         "(escalations park past their deadlines)")
     ap.add_argument("--json", default=None,
                     help="write runtime metrics JSON here")
     args = ap.parse_args(argv)
@@ -244,6 +306,11 @@ def parse_args(argv=None):
         args.cascade_lanes = max(1, args.lanes // 2)
     if args.cascade:
         args.server = True
+    if args.adaptive:
+        args.server = True
+        if args.cascade:
+            raise SystemExit("--adaptive and --cascade are separate "
+                             "serving modes; pick one")
     return args
 
 
@@ -284,6 +351,98 @@ def _workload(args, vocab: int, name: str) -> list:
     return requests
 
 
+def _fault_plan(args, requests):
+    """The fault plane's launch wiring: load the ``--faults`` chaos
+    script and/or draw seeded per-request faults from ``--deadline-ms``
+    / ``--cancel-rate``, then stamp the request-borne faults onto the
+    workload.  Returns ``(plan, stamped_requests)``; ``(None,
+    requests)`` when no fault flag is set."""
+    plan = None
+    if args.faults:
+        plan = FaultPlan.load(args.faults)
+    if args.cancel_rate or args.deadline_ms is not None:
+        gen = FaultPlan.generate(
+            requests, seed=args.seed + 7, cancel_rate=args.cancel_rate,
+            deadline=(args.deadline_ms / 1e3
+                      if args.deadline_ms is not None else None))
+        if plan is None:
+            plan = gen
+        else:
+            # a scripted plan wins per rid; flags fill the gaps
+            gen.cancel_at.update(plan.cancel_at)
+            gen.deadline.update(plan.deadline)
+            plan.cancel_at, plan.deadline = gen.cancel_at, gen.deadline
+    if plan is not None:
+        requests = plan.stamp(requests)
+    return plan, requests
+
+
+def _governor(args, plan):
+    """A `DegradeGovernor` when faults are active and not opted out."""
+    if plan is None or args.no_governor:
+        return None
+    return DegradeGovernor()
+
+
+def _set_reclaim(args, *pools) -> None:
+    """Arm ``--kv-reclaim`` on every paged pool the stepper built."""
+    if args.kv_reclaim is None:
+        return
+    if not 0.0 < args.kv_reclaim <= 1.0:
+        raise SystemExit(f"--kv-reclaim {args.kv_reclaim} outside (0, 1]")
+    for pool in pools:
+        if pool is not None:
+            pool.reclaim_watermark = float(args.kv_reclaim)
+
+
+def parse_gears(text: str):
+    """``--gears`` grammar: comma-separated ``name:lam`` pairs (a bare
+    ``lam`` gets an auto name), e.g. ``quality:0.95,turbo:0.75``."""
+    specs = []
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" in part:
+            gname, lam = part.split(":", 1)
+        else:
+            gname, lam = f"g{part}", part
+        specs.append(GearSpec(gname.strip(), float(lam)))
+    if not specs:
+        raise SystemExit(f"--gears {text!r} names no gears")
+    return tuple(specs)
+
+
+def _build_adaptive(args, cfg, params, device, *, mean_tokens, slo):
+    """The --adaptive control plane: gear traces from the model's own
+    losses on numpy-seeded prompts, the bank solved and priced, the
+    controller built.  Capacity is priced in the sim cost model's
+    virtual units (probes per token at nominal segment time) — gear
+    ORDER and the relative thresholds are what selection runs on."""
+    toks = np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, (GEAR_PROMPTS, GEAR_LEN))
+    with torch.no_grad():
+        _, _, node_losses, _ = M.prefill(
+            params, cfg, {"tokens": torch.as_tensor(toks, device=device)},
+            GEAR_CACHE, use_flash=args.flash,
+            use_ssd_kernel=args.ssd_kernel)
+    rows = node_losses.cpu().numpy().astype(np.float64)
+    n = rows.shape[1]
+    planner = GearPlanner(rows, np.full(n, 1.0 / n), k=GEAR_K,
+                          seg_time=0.01, overhead=0.002,
+                          n_lanes=args.lanes, mean_tokens=mean_tokens,
+                          device=device)
+    gear_bank = planner.plan(parse_gears(args.gears))
+    controller = AdaptiveController(
+        gear_bank, span=max(2.0, args.duration / 5), slo=slo,
+        recal_interval=args.recal_interval, planner=planner)
+    print("gear bank (quality-first): " + ", ".join(
+        f"{g.name}[slot {g.slot}] lam={g.spec.lam:g} "
+        f"work={g.work:.2f} max_rate={g.max_rate:.1f}/s"
+        for g in gear_bank))
+    return gear_bank, controller
+
+
 def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
     """The ``--server`` path: a seeded open-loop workload through the
     continuous-batching runtime."""
@@ -292,11 +451,26 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
     if not requests:
         return None
 
-    def make_strategy(sname, lam):
-        return build_strategy(sname, casc, threshold=args.threshold,
-                              patience=args.patience, lam=lam)
+    controller = None
+    slo = args.slo_ms / 1e3
+    if args.adaptive:
+        lo = max(1, min(4, args.tokens))
+        gear_bank, controller = _build_adaptive(
+            args, cfg, params, device, mean_tokens=(lo + args.tokens) / 2,
+            slo=slo)
+        bank, sid_of = gear_bank.strategies, controller.sid_of
+        if args.recal_interval is not None:
+            print("note: the engine stepper has no swappable array "
+                  "bank — --adaptive serves gear SWITCHING here; "
+                  "--recal-interval applies to sim steppers")
+    else:
 
-    bank, sid_of = rt.build_bank(requests, make_strategy, (name, None))
+        def make_strategy(sname, lam):
+            return build_strategy(sname, casc, threshold=args.threshold,
+                                  patience=args.patience, lam=lam)
+
+        bank, sid_of = rt.build_bank(requests, make_strategy, (name, None))
+    plan, requests = _fault_plan(args, requests)
     stepper = rt.EngineStepper(params, cfg, bank, n_lanes=args.lanes,
                                cache_len=args.cache_len,
                                prompt_len=args.prompt_len, kv=args.kv,
@@ -307,17 +481,25 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
                                prefill_budget=args.prefill_budget,
                                use_flash=args.flash,
                                use_ssd_kernel=args.ssd_kernel)
-    slo = args.slo_ms / 1e3
+    if plan is not None:
+        # single-model engine: request-borne faults plus page squeezes
+        # (the Server reads the plan off the stepper each step)
+        stepper.faults = plan
+    _set_reclaim(args, stepper.pool)
     server = rt.Server(stepper, rt.LaneScheduler(args.lanes), sid_of,
-                       order=args.order, slo=slo, eos=args.eos)
+                       order=args.order, slo=slo, eos=args.eos,
+                       controller=controller,
+                       enforce_deadlines=bool(plan and plan.deadline))
     kv_desc = args.kv if args.kv == "ring" else (
         f"paged ({stepper.pool.n_pages} pages x {args.page_size} tokens)")
     if args.prefill_chunk:
         kv_desc += (f", chunked prefill ({args.prefill_chunk}-token "
                     f"chunks, {stepper.planner.budget} tokens/step)")
+    policy_desc = (f"adaptive gears ({args.gears})" if controller
+                   else f"policy {name}")
     print(f"serving {len(requests)} {args.workload} requests "
           f"(rate {args.rate}/s x {args.duration}s) on {args.lanes} lanes, "
-          f"policy {name}, order {args.order}, kv {kv_desc}, device "
+          f"{policy_desc}, order {args.order}, kv {kv_desc}, device "
           f"{device}, paged kernels "
           f"{'on' if args.paged_kernel else 'off'}, flash "
           f"{'on' if args.flash else 'off'}, ssd kernel "
@@ -327,6 +509,8 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
         metrics = server.serve(requests)
     report = ServeReport()
     report.add_runtime(metrics.summary(slo=slo), slo_ms=args.slo_ms)
+    if controller is not None:
+        report.add_adaptive(controller.stats())
     report.add_segments(metrics.seg_batch, metrics.seg_policy,
                         steps=metrics.steps, n_seg=len(cfg.segments),
                         lane_steps=metrics.lane_steps)
@@ -342,6 +526,8 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
                  "kv": args.kv, "prefill_chunk": args.prefill_chunk,
                  "device": str(device), "paged_kernel": args.paged_kernel,
                  "flash": args.flash, "ssd_kernel": args.ssd_kernel}
+        if controller is not None:
+            extra["adaptive"] = controller.stats()
         if pool_stats is not None:
             extra["kv_pool"] = pool_stats
         if args.prefill_chunk:
@@ -349,7 +535,7 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
         metrics.to_json(args.json, slo=slo, extra=extra)
         print(f"wrote metrics JSON to {args.json}")
     return ServeRun(requests=requests, metrics=metrics, stepper=stepper,
-                    cascade=casc)
+                    cascade=casc, controller=controller, faults=plan)
 
 
 def _calibrate_multi(cfgs, params_list, tokens, lam, *,
@@ -432,6 +618,7 @@ def _serve_cascade(args, device) -> ServeRun | None:
         return build_strategy(sname, casc, threshold=args.threshold,
                               patience=args.patience, lam=lam)
 
+    plan, requests = _fault_plan(args, requests)
     strat_bank, sid_of = rt.build_bank(requests, make_strategy,
                                        (name, None))
     stepper = CascadeEngineStepper(
@@ -442,10 +629,13 @@ def _serve_cascade(args, device) -> ServeRun | None:
                  if args.prefill_budget else None),
         pages=([args.pages] * len(cfgs) if args.pages else None),
         policy=args.escalate_policy, patience=args.escalate_patience,
-        paged_kernel=args.paged_kernel)
+        paged_kernel=args.paged_kernel,
+        faults=plan, governor=_governor(args, plan))
+    _set_reclaim(args, *(st.pool for st in stepper.steppers))
     slo = args.slo_ms / 1e3
     server = rt.Server(stepper, rt.LaneScheduler(args.lanes), sid_of,
-                       order=args.order, slo=slo, eos=args.eos)
+                       order=args.order, slo=slo, eos=args.eos,
+                       enforce_deadlines=bool(plan and plan.deadline))
     print(f"serving {len(requests)} {args.workload} requests "
           f"(rate {args.rate}/s x {args.duration}s) on a "
           f"{'->'.join(arch_names)} cascade "
@@ -472,7 +662,7 @@ def _serve_cascade(args, device) -> ServeRun | None:
         metrics.to_json(args.json, slo=slo, extra=extra)
         print(f"wrote metrics JSON to {args.json}")
     return ServeRun(requests=requests, metrics=metrics, stepper=stepper,
-                    cascade=casc, cascade_stats=cs)
+                    cascade=casc, cascade_stats=cs, faults=plan)
 
 
 def main(argv=None) -> ServeRun | BatchRun | None:

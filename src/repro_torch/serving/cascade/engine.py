@@ -85,7 +85,7 @@ class CascadeEngineStepper:
                  cache_len: int, prompt_len: int, page_size: int = 16,
                  chunk: int = 8, budgets=None, pages=None,
                  policy: str = "recall", patience: int = 4,
-                 paged_kernel: bool = False):
+                 paged_kernel: bool = False, faults=None, governor=None):
         if any(sp.cfg is None or sp.params is None for sp in bank.specs):
             raise ValueError("CascadeEngineStepper needs real cfg+params "
                              "on every ModelSpec (sim specs drive "
@@ -113,6 +113,11 @@ class CascadeEngineStepper:
         if budgets is None:
             budgets = [self.chunk] * len(bank)
         self.budgets = [int(b) for b in budgets]
+        # fault plane: scripted chaos + the degrade governor (the Server
+        # stamps its clock on ``fault_now`` when either is attached)
+        self.faults = faults
+        self.fault_now = 0.0
+        self.governor = governor
         lane_pages = -(-int(cache_len) // self.page_size)
         self.steppers: list[EngineStepper] = []
         for m, sp in enumerate(bank.specs):
@@ -526,11 +531,28 @@ class CascadeEngineStepper:
     def _next_targets(self, slot: int, probed_models) -> list[int]:
         """The walk is active past the deepest rung it ran: the next
         ladder rung is the escalation target (rung-by-rung; a still-
-        deeper need surfaces after that rung's own step)."""
+        deeper need surfaces after that rung's own step).  With a
+        `DegradeGovernor` attached, a denied escalation returns no
+        targets — the slot then serves the walk's resident-depth
+        answer through the normal emit path (the same legal serve the
+        last rung uses), instead of parking past its deadline."""
         deepest = max(probed_models)
         if deepest + 1 >= len(self.bank):
             return []        # past the last head: nothing deeper exists
-        return self.router.escalation_targets(slot, [deepest + 1])
+        targets = self.router.escalation_targets(slot, [deepest + 1])
+        if targets and self.governor is not None:
+            req = self.lane_req[slot]
+            need = max(0, len(self.history[slot]) - 1)
+            cost = sum(need * self.bank[m].prefill_tok_time
+                       for m in targets)
+            stalled = self.faults is not None and any(
+                self.faults.stall_active(m, self.fault_now)
+                for m in targets)
+            if not self.governor.allow_escalation(
+                    now=self.fault_now, deadline=req.deadline,
+                    catchup_cost=cost, stalled=stalled):
+                return []
+        return targets
 
     def cascade_stats(self) -> dict:
         # deeper rungs only ever chunk-prefill catch-ups, so their chunk
@@ -546,4 +568,6 @@ class CascadeEngineStepper:
                         for sp, st in zip(self.bank.specs, self.steppers)}
         out["chunks"] = {sp.name: dict(st.chunk_stats)
                          for sp, st in zip(self.bank.specs, self.steppers)}
+        if self.governor is not None:
+            out.update(self.governor.stats())
         return out

@@ -23,6 +23,10 @@ the catch-up finishes and the pending token resolves.  Tokens and
 served losses are attributed to the model that SERVED them
 (`metrics.CascadeStats`), and an escalating slot is occupied-but-silent
 until its pending token emits, so TTFT reflects real emission time.
+
+Under a `FaultPlan` (``faults``) a rung frozen by a stall window does no
+work; a `DegradeGovernor` (``governor``) may deny an escalation, and the
+slot then serves the best node it observed on a resident rung.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from repro_torch.serving.cascade.scheduler import EscalationScheduler
 from repro_torch.serving.engine import bank_observe, bank_serve
 from repro_torch.serving.runtime.request import Request
 from repro_torch.serving.runtime.server import arrays_to
-from repro_torch.strategy.base import dynamic_arrays, with_arrays
+from repro_torch.strategy.base import (array_leaves, dynamic_arrays,
+                                       with_arrays)
 
 __all__ = ["CascadeSimStepper", "make_cascade_decide"]
 
@@ -133,12 +138,20 @@ class CascadeSimStepper:
     last_loss = None
     last_escalated = None
     last_deepest = None
+    fault_now = 0.0         # the server's clock, stamped under faults
 
     def __init__(self, bank: ModelBank, strategies: tuple, trace_bank, *,
                  overhead: float = 0.25, policy: str = "recall",
                  patience: int = 4, chunk: int = 16, budgets=None,
-                 device="cuda"):
+                 pool=None, faults=None, governor=None, device="cuda"):
         self.device = torch.device(device)
+        # optional rung-0 paged-KV admission gate: the host-side
+        # `KVPool` bookkeeping the single-model sim can carry
+        self.pool = pool
+        # fault plane: scripted chaos windows + the degrade governor
+        # that turns deadline pressure into demotion
+        self.faults = faults
+        self.governor = governor
         self.bank = bank
         self.strategies = strategies
         self.traces = np.asarray(trace_bank, np.float32)
@@ -158,12 +171,38 @@ class CascadeSimStepper:
         self.bank_source = None    # control-plane hot-swap override
         self.row_tap = None        # observed-outcome tap
         self._decide = make_cascade_decide(bank, strategies)
+        # the data_ptrs of every set of bank storages a serving step
+        # decided with (one set while publishes copy in place)
+        self.storages: set = set()
         self.alloc()
 
     def bank_arrays(self) -> tuple:
         if self.bank_source is not None:
             return self.bank_source.bank_arrays()
         return self._bank_arrays
+
+    def decide_cache_size(self) -> int:
+        """The number of distinct sets of bank storages the serving steps
+        have handed the walk (the JAX package counts jit cache entries
+        here); 1 across `BankSwap` swaps and publishes."""
+        return len(self.storages)
+
+    def apply_gear(self, gear) -> None:
+        """Host-side gear knobs: escalate patience, per-model catch-up
+        budgets, per-rung lane caps.  All step-boundary swaps — granted
+        residencies and in-flight escalations are never revoked."""
+        spec = getattr(gear, "spec", gear)
+        patience = getattr(spec, "patience", None)
+        if patience is not None:
+            self.router.set_patience(patience)
+            self.patience = int(patience)
+        budgets = getattr(spec, "esc_budgets", None)
+        if budgets is not None:
+            self.esc.set_budgets(budgets)
+            self.budgets = list(budgets)
+        lane_split = getattr(spec, "lane_split", None)
+        if lane_split is not None:
+            self.esc.set_lane_caps(lane_split)
 
     # ------------------------------------------------------------------
 
@@ -181,6 +220,8 @@ class CascadeSimStepper:
         # slot -> {model: the catch-up's full length} (planner buckets)
         self.catchup_total: dict[int, dict[int, int]] = {}
         self.stats = CascadeStats(len(self.bank))
+        if self.pool is not None:
+            self.pool.reset()
 
     def warmup(self) -> None:
         n, dev = self.n_lanes, self.device
@@ -191,14 +232,23 @@ class CascadeSimStepper:
                      torch.zeros((n,), dtype=torch.int32, device=dev))
         self.alloc()
 
+    def reserve(self, req: Request) -> bool:
+        if self.pool is None:
+            return True
+        return self.pool.reserve(req.prompt, req.max_tokens)
+
     def admit(self, slot: int, req: Request) -> None:
         self.lane_req[slot] = req
         self.lane_tidx[slot] = 0
         lp = len(req.prompt)
+        if self.pool is not None:
+            self.pool.admit(slot, req.prompt, req.max_tokens)
         self.prefill0[slot] = lp
         self.router.admit(slot, lp)
 
     def release(self, slot: int) -> None:
+        if self.pool is not None:
+            self.pool.release(slot)
         self.router.release(slot)
         # free EVERY granted deep lane, resident or not: a reaped slot
         # may hold lanes granted to escalation targets that never
@@ -238,6 +288,29 @@ class CascadeSimStepper:
         cu = self.catchup.get(slot, {})
         return all(m in cu and cu[m] == 0 for m in tr.pending["targets"])
 
+    def _demoted_node(self, slot: int, probed, resident, probes,
+                      losses, floor: int) -> int:
+        """Denied escalation: the best (lowest-loss) node the walk
+        actually observed on a RESIDENT rung this token.  The walk
+        stops early on the node line instead of crossing to the target
+        model — a legal T-Tamer stop, paid for with recall."""
+        cand = []
+        for m in probed:
+            if m not in resident:
+                continue
+            start = max(self.bank.offset(m), floor)
+            cand.extend(range(start, start + int(probes[m, slot])))
+        if not cand:
+            # degenerate (no observed resident probes): the floor node
+            return int(floor)
+        return min(cand, key=lambda n: float(losses[slot, n]))
+
+    def _stalled_models(self) -> set:
+        if self.faults is None:
+            return set()
+        return {m for m in range(len(self.bank))
+                if self.faults.stall_active(m, self.fault_now)}
+
     def step(self, occupied: np.ndarray, sid: np.ndarray):
         """Returns ``(emitted, served, seg_batch, seg_policy, cost,
         emit_mask)`` — the SimStepper contract; ``emitted`` carries the
@@ -252,15 +325,21 @@ class CascadeSimStepper:
         self.last_loss = np.full(self.n_lanes, np.nan)
         self.last_escalated = np.zeros(self.n_lanes, bool)
         self.last_deepest = np.full(self.n_lanes, -1)
+        # fault plane: rungs frozen by a scripted stall window do no
+        # work this step — no grants, no prefill, no catch-up, no
+        # decode on their lanes.  The clock still advances (cost >=
+        # overhead), so a finite window always passes.
+        stalled = self._stalled_models()
 
-        # 0. lanes freed since last step go to FIFO waiters
-        for slot, m, _lane in self.esc.grants():
+        # 0. lanes freed since last step go to FIFO waiters (waiters on
+        #    a stalled rung hold their FIFO position)
+        for slot, m, _lane in self.esc.grants(skip=stalled):
             self._start_catchup(slot, m)
 
         # 1. initial model-0 admission prefill (chunked, budgeted)
         prefilling = occupied & (self.prefill0 > 0)
         emit &= ~prefilling
-        if prefilling.any():
+        if prefilling.any() and 0 not in stalled:
             widths = self.esc.plan_catchup(0, {
                 int(s): (int(self.prefill0[s]),
                          len(self.lane_req[s].prompt))
@@ -271,6 +350,8 @@ class CascadeSimStepper:
 
         # 2. escalation catch-up chunks, per target model, budgeted
         for m in range(1, m_count):
+            if m in stalled:
+                continue
             lanes = {slot: (cu[m], self.catchup_total[slot][m])
                      for slot, cu in self.catchup.items()
                      if occupied[slot] and cu.get(m, 0) > 0}
@@ -287,7 +368,13 @@ class CascadeSimStepper:
             pend = (occupied[slot]
                     and self.router.slots[slot] is not None
                     and self.router.slots[slot].pending is not None)
-            if not occupied[slot] or not self._escalation_ready(slot):
+            # a ready escalation whose target rung is stalled cannot
+            # resolve this step — it stays silent until the window ends
+            target_stalled = pend and stalled and any(
+                m in stalled
+                for m in self.router.slots[slot].pending["targets"])
+            if (not occupied[slot] or not self._escalation_ready(slot)
+                    or target_stalled):
                 if pend:
                     emit[slot] = False      # escalating: silent
                 continue
@@ -326,6 +413,15 @@ class CascadeSimStepper:
         # 4. the walk for every normally decoding slot (one batched fold
         #    over the combined ladder on the device)
         decode = [s for s in np.flatnonzero(emit) if s not in resolved]
+        if stalled and decode:
+            # a slot whose resident rung is frozen decodes nothing — its
+            # row is not consumed, so the decision stream is untouched
+            # by where the stall landed
+            frozen = [s for s in decode
+                      if set(self.router.resident(s)) & stalled]
+            for s in frozen:
+                emit[s] = False
+            decode = [s for s in decode if s not in frozen]
         if decode:
             losses = np.zeros((self.n_lanes, self.bank.n_total),
                               np.float32)
@@ -337,8 +433,11 @@ class CascadeSimStepper:
             mask = np.zeros(self.n_lanes, bool)
             mask[decode] = True
             dev = self.device
+            arrays = self.bank_arrays()
+            self.storages.add(tuple(t.data_ptr() for a in arrays
+                                     for t in array_leaves(a)))
             out = self._decide(
-                self.bank_arrays(), torch.as_tensor(losses, device=dev),
+                arrays, torch.as_tensor(losses, device=dev),
                 torch.as_tensor(mask, device=dev),
                 torch.as_tensor(np.asarray(sid, np.int32), device=dev),
                 torch.as_tensor(floor, device=dev))
@@ -357,7 +456,23 @@ class CascadeSimStepper:
                 for m in probed:
                     if m in resident:
                         probes_paid[m] += int(probes[m, slot])
-                if targets:
+                denied = False
+                if targets and self.governor is not None:
+                    # the degrade governor denies the escalation when the
+                    # targets' catch-up prefill cannot fit the request's
+                    # remaining deadline budget, or when a target rung is
+                    # frozen by a stall window — the slot serves its best
+                    # shallow (recalled) answer instead of parking
+                    req = self.lane_req[slot]
+                    cost = sum(
+                        self.router.catchup_need(slot, m, lp)
+                        * self.bank[m].prefill_tok_time
+                        for m in targets)
+                    denied = not self.governor.allow_escalation(
+                        now=self.fault_now, deadline=req.deadline,
+                        catchup_cost=cost,
+                        stalled=any(m in stalled for m in targets))
+                if targets and not denied:
                     # the token cannot finish on the resident rungs:
                     # stash the handoff, request deeper lanes, go silent
                     emit[slot] = False
@@ -374,8 +489,18 @@ class CascadeSimStepper:
                             self._start_catchup(slot, m)
                 else:
                     sv = int(served[slot])
+                    if denied:
+                        # demotion: serve the best node the walk actually
+                        # OBSERVED on a resident rung — a legal earlier
+                        # stop on the node line (recall)
+                        sv = self._demoted_node(slot, probed, resident,
+                                                probes, losses,
+                                                int(floor[slot]))
+                        deepest = max((m for m in probed
+                                       if m in resident), default=0)
+                    else:
+                        deepest = max(probed) if probed else 0
                     served_out[slot] = sv
-                    deepest = max(probed) if probed else 0
                     sm = self.bank.model_of(sv)
                     self.stats.on_served(sm, deepest,
                                          loss=float(losses[slot, sv]))
@@ -384,6 +509,12 @@ class CascadeSimStepper:
                     for m in self.router.note_emit(slot, probed, sv, lp):
                         self.esc.release(slot, m)
                         self.stats.deescalations += 1
+
+        if self.pool is not None and emit.any():
+            # rung-0 paged bookkeeping per emitted token (fresh tail
+            # pages from the reserved budget, COW on shared tails)
+            self.pool.prepare_step(emit)
+            self.pool.note_written(emit)
 
         # 5. the virtual clock: serial across models, piggyback
         #    roofline within each (catch-up hides under decode)
@@ -402,4 +533,6 @@ class CascadeSimStepper:
         out["models"] = [s.name for s in self.bank.specs]
         out["peak_lanes"] = {f"m{m}": v
                              for m, v in self.esc.peak_in_use.items()}
+        if self.governor is not None:
+            out.update(self.governor.stats())
         return out

@@ -2,10 +2,11 @@
 
 The report builds a `MetricsRegistry` first — every number it shows
 lands as a labelled gauge — and renders its lines *from the registry*.
-The port keeps the sections its launcher fills (runtime, segments,
-cascade, kv pool — one per cascade rung —, chunked prefill), with the
-reference's wording; the control and observability sections come with
-the slices that port their producers.
+The port keeps the sections its launcher fills (runtime with its
+reaped requests and deadline slack, adaptive, segments, cascade, kv
+pool — one per cascade rung —, chunked prefill), with the reference's
+wording; the observability sections come with the slice that ports
+their producers.
 
 Sections are added for whatever subsystems actually ran; `lines()`
 renders only what was added, in a stable order.
@@ -44,6 +45,8 @@ class ServeReport:
         self._sections: list[str] = []
         self._models: list[str] = []        # cascade rung names, in order
         self._pool_models: list[str | None] = []
+        self._switches: list[dict] = []     # human log, not a metric
+        self._gear: str | None = None
 
     # -------------------------------------------------------- sections
     def add_runtime(self, summary: Mapping[str, Any], *,
@@ -80,6 +83,14 @@ class ServeReport:
             self.add_pool(pool, model=m)
         self._sections.append("cascade")
 
+    def add_adaptive(self, st: Mapping[str, Any]) -> None:
+        self._gear = st.get("gear")
+        self._switches = list(st.get("switches", ()))
+        self.registry.absorb("adaptive", {
+            k: v for k, v in st.items()
+            if k not in ("switches", "gear")})
+        self._sections.append("adaptive")
+
     def add_chunked_prefill(self, cs: Mapping[str, Any]) -> None:
         self.registry.absorb("chunked_prefill", cs)
         self._sections.append("chunk")
@@ -94,6 +105,11 @@ class ServeReport:
                 f"{v('runtime_requests', 0):.0f} requests, "
                 f"{v('runtime_tokens', 0):.0f} tokens in "
                 f"{v('runtime_duration', 0.0):.2f}s")
+        ncan = v("runtime_cancelled", 0)
+        nmiss = v("runtime_timed_out", 0)
+        if ncan or nmiss:
+            head += (f" (cancelled {ncan:.0f}, "
+                     f"deadline-missed {nmiss:.0f})")
         lines = [
             head,
             (f"throughput: {v('runtime_throughput_tok_s', 0.0):.1f} tok/s "
@@ -113,6 +129,11 @@ class ServeReport:
                          f"(attainment {100 * att:.0f}%)")
         else:
             lines.append("goodput: n/a")
+        slack50 = v("runtime_deadline_slack_p50")
+        if slack50 is not None:
+            lines.append(f"deadline slack: p50 {_ms(slack50)} "
+                         f"p95 {_ms(v('runtime_deadline_slack_p95'))} "
+                         f"p99 {_ms(v('runtime_deadline_slack_p99'))}")
         return lines
 
     def _segments_lines(self) -> list[str]:
@@ -158,6 +179,16 @@ class ServeReport:
              f"{v('cascade_repin_tokens', 0):.0f}"),
         ]
 
+    def _adaptive_lines(self) -> list[str]:
+        v = self._v
+        lines = [(f"adaptive: final gear {self._gear}, "
+                  f"{v('adaptive_gear_switches', 0):.0f} gear switches, "
+                  f"{v('adaptive_recalibrations', 0):.0f} online "
+                  f"recalibrations")]
+        for sw in self._switches:
+            lines.append(f"  t={sw['t']:6.2f}s  {sw['from']} -> {sw['to']}")
+        return lines
+
     def _chunk_lines(self) -> list[str]:
         v = self._v
         computed = v("chunked_prefill_tokens_computed", 0)
@@ -171,6 +202,7 @@ class ServeReport:
 
     def lines(self) -> list[str]:
         render = {"runtime": self._runtime_lines,
+                  "adaptive": self._adaptive_lines,
                   "segments": self._segments_lines,
                   "cascade": self._cascade_lines,
                   "pool": self._pool_lines,

@@ -21,9 +21,11 @@ where work is the launched depth (``cost="batch"``, what the masked
 batch engine pays) or the mean per-lane probes (``cost="lane"``, what a
 lane-granular dispatch would pay).
 
-The JAX package's observability, control and fault planes are not part
-of the port yet: the loop reads their hooks off the stepper with
-``getattr`` (``faults``, ``governor``), so they slot in when they come.
+The control plane (`serving.control`) drives the loop through the
+``controller`` hooks; the fault plane (`serving.faults`) rides the
+stepper (``faults``, ``governor``, read with ``getattr``) and the
+requests (``cancel_at``, ``deadline``).  The JAX package's
+observability plane is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from repro_torch.serving.engine import bank_observe, bank_serve
 from repro_torch.serving.runtime.metrics import RuntimeMetrics
 from repro_torch.serving.runtime.request import Request, RequestQueue
 from repro_torch.serving.runtime.scheduler import ChunkPlanner, LaneScheduler
-from repro_torch.strategy.base import dynamic_arrays, with_arrays
+from repro_torch.strategy.base import (array_leaves, dynamic_arrays,
+                                       with_arrays)
 
 __all__ = ["Server", "SimStepper", "build_bank", "cascade_factory",
            "arrays_to"]
@@ -115,8 +118,14 @@ class SimStepper:
     occupied lanes' rows, then ``bank_serve`` — runs on ``device`` with
     the bank's dynamic arrays (`strategy.dynamic_arrays`) as its
     argument; ``bank_source`` overrides them (the control plane's
-    hot-swap point) and ``row_tap`` receives each step's observed
-    (loss rows, served nodes).
+    hot-swap point: a `serving.control.BankSwap`, whose publishes copy
+    into the same tensors) and ``row_tap`` receives each step's
+    observed (loss rows, served nodes).
+
+    ``pool`` is an optional host-side `KVPool` admission gate (the same
+    reservation, prefix sharing, page growth and COW bookkeeping the
+    engine does, with no device tensors behind it); ``faults`` is an
+    optional `FaultPlan` whose rung-0 stall windows freeze the step.
 
     Prefill cost model: ``prefill_tok_time`` prices one prompt token.
     By default admission is STOP-THE-WORLD — the whole prompt's cost
@@ -136,15 +145,19 @@ class SimStepper:
     emits_tokens = False   # `emitted` carries served nodes, not token ids
     last_loss = None       # per-lane served-node loss of the last step
     last_deepest = None    # per-lane deepest PROBED node (-1 = silent)
+    fault_now = 0.0        # the server's clock, stamped with a FaultPlan
 
     def __init__(self, strategies: tuple, trace_bank, *, n_lanes: int,
                  seg_time: float = 1.0, overhead: float = 0.25,
                  cost: str = "lane", prefill_tok_time: float = 0.0,
                  prefill_chunk: int | None = None,
-                 prefill_budget: int | None = None, device="cuda"):
+                 prefill_budget: int | None = None, pool=None,
+                 faults=None, device="cuda"):
         if cost not in ("lane", "batch"):
             raise ValueError(f"unknown cost model {cost!r}")
         self.device = torch.device(device)
+        self.pool = pool
+        self.faults = faults
         self.prefill_tok_time = float(prefill_tok_time)
         prefill_chunk = prefill_chunk or None      # 0 == disabled
         self.prefill_chunk = None if prefill_chunk is None \
@@ -173,6 +186,9 @@ class SimStepper:
                                   for s in strategies)
         self.bank_source = None
         self.row_tap = None
+        # the data_ptrs of every set of bank storages a serving step
+        # decided with (one set while publishes copy in place)
+        self.storages: set = set()
         self.alloc()
 
     def _decide(self, arrays, losses, occupied, sid):
@@ -211,19 +227,51 @@ class SimStepper:
             return self.bank_source.bank_arrays()
         return self._bank_arrays
 
+    def decide_cache_size(self) -> int:
+        """The number of distinct sets of bank storages the serving steps
+        have handed the decision program (the JAX package counts jit
+        cache entries here).  A `BankSwap` publish copies into the same
+        storages, so this stays 1 across swaps and publishes."""
+        return len(self.storages)
+
+    def apply_gear(self, gear) -> None:
+        """Host-side gear knobs outside the strategy tables: the
+        chunked-prefill budget.  Routing (which slot new admissions
+        use) and tables (recalibration) swap through ``bank_source``."""
+        budget = getattr(getattr(gear, "spec", gear),
+                         "prefill_budget", None)
+        if budget is not None and self.planner is not None:
+            self.planner.budget = int(budget)
+
     def alloc(self) -> None:
         self.lane_req: list[Request | None] = [None] * self.n_lanes
         self.lane_tidx = np.zeros(self.n_lanes, np.int64)
         self.lane_prefill = np.zeros(self.n_lanes, np.int64)
         self._stall = 0.0          # stop-the-world prefill debt
+        # served-loss accumulator: the trace loss of every served node
+        self.served_loss_sum = 0.0
+        self.served_loss_n = 0
+        if self.pool is not None:
+            self.pool.reset()
+
+    def reserve(self, req: Request) -> bool:
+        """Admission gate: with a pool attached, reserve the request's
+        worst-case page need (or leave it queued); gate-free otherwise."""
+        if self.pool is None:
+            return True
+        return self.pool.reserve(req.prompt, req.max_tokens)
 
     def release(self, lane: int) -> None:
         self.lane_prefill[lane] = 0     # reaped mid-prefill: drop debt
+        if self.pool is not None:
+            self.pool.release(lane)
 
     def admit(self, lane: int, req: Request) -> None:
         self.lane_req[lane] = req
         self.lane_tidx[lane] = 0
         lp = len(req.prompt)
+        if self.pool is not None:
+            self.pool.admit(lane, req.prompt, req.max_tokens)
         if self.prefill_chunk is not None:
             self.lane_prefill[lane] = lp
         elif self.prefill_tok_time > 0.0:
@@ -248,6 +296,16 @@ class SimStepper:
         emit_mask)`` — lanes mid-prefill are occupied but emit nothing
         and consume no trace row."""
         occupied = np.asarray(occupied, bool)
+        if (self.faults is not None
+                and self.faults.stall_active(0, self.fault_now)):
+            # the single sim rung is frozen: no rows consumed, no
+            # tokens, no prefill progress — only the clock moves, so a
+            # finite window always passes (liveness)
+            self.last_loss = np.full(self.n_lanes, np.nan)
+            self.last_deepest = np.full(self.n_lanes, -1)
+            served = np.zeros(self.n_lanes, np.int64)
+            return (served, served, 0, 0, self.overhead,
+                    np.zeros(self.n_lanes, bool))
         emit = occupied.copy()
         stall = self._stall                 # stop-the-world: serial
         self._stall = 0.0
@@ -263,17 +321,28 @@ class SimStepper:
                 for lane, w in widths.items():
                     self.lane_prefill[lane] -= w
                     chunk_cost += w * self.prefill_tok_time
+        if self.pool is not None and emit.any():
+            # paged bookkeeping per decode token: fresh tail pages from
+            # the reserved budget, COW splits on shared tails
+            self.pool.prepare_step(emit)
+            self.pool.note_written(emit)
         losses = np.zeros((self.n_lanes, self.n_nodes), np.float32)
         for lane in np.flatnonzero(emit):
             losses[lane] = self._row(self.lane_req[lane],
                                      int(self.lane_tidx[lane]))
             self.lane_tidx[lane] += 1
+        arrays = self.bank_arrays()
+        self.storages.add(tuple(t.data_ptr() for a in arrays
+                                 for t in array_leaves(a)))
         served, depth, policy, deepest = self._decide(
-            self.bank_arrays(), torch.as_tensor(losses, device=self.device),
+            arrays, torch.as_tensor(losses, device=self.device),
             torch.as_tensor(emit, device=self.device),
             torch.as_tensor(np.asarray(sid, np.int32), device=self.device))
         served = served.cpu().numpy()
         depth, policy = int(depth), int(policy)
+        for lane in np.flatnonzero(emit):
+            self.served_loss_sum += float(losses[lane, served[lane]])
+            self.served_loss_n += 1
         # per-lane served-node loss (NaN = no emission) and deepest
         # probed node, for per-token decision attribution
         self.last_loss = np.where(
@@ -292,6 +361,12 @@ class SimStepper:
         # sim tokens have no content; the served node stands in
         return served, served, depth, policy, cost, emit
 
+    @property
+    def mean_served_loss(self) -> float | None:
+        if not self.served_loss_n:
+            return None
+        return self.served_loss_sum / self.served_loss_n
+
 
 class Server:
     """Open-loop continuous-batching server over any stepper.
@@ -302,12 +377,16 @@ class Server:
     ``eos`` ends a stream early on that token (token-emitting steppers
     only), and ``enforce_deadlines`` reaps requests past their
     ``deadline``; a request's ``cancel_at`` is always enforced.
+    ``controller`` (a `serving.control.AdaptiveController`) is bound to
+    the run by ``begin``, fed arrivals by ``on_arrivals``, and called at
+    every step boundary by ``on_step_end`` — the one instant a gear swap
+    or a table publish may land.
     """
 
     def __init__(self, stepper, scheduler: LaneScheduler, sid_of, *,
                  order: str = "fifo", slo: float | None = None,
                  static_batching: bool = False, eos: int | None = None,
-                 enforce_deadlines: bool = False):
+                 controller=None, enforce_deadlines: bool = False):
         self.stepper = stepper
         self.scheduler = scheduler
         self.sid_of = sid_of
@@ -316,6 +395,7 @@ class Server:
         self.static_batching = static_batching
         self.eos = eos
         self.enforce_deadlines = bool(enforce_deadlines)
+        self.controller = controller
         self._vt = 0.0
         self._t0 = 0.0
 
@@ -362,9 +442,11 @@ class Server:
             sched.release(int(lane))
             metrics.on_reap(req, now, status)
 
-    def _fault_wake(self, queue, reaping: bool, now: float) -> float | None:
-        """Earliest future instant at which the picture changes for a
-        queue that cannot admit right now: a queued request's reap time."""
+    def _fault_wake(self, queue, faults, reaping: bool,
+                    now: float) -> float | None:
+        """Earliest future instant at which the fault plane changes the
+        picture for a queue that cannot admit right now: a queued
+        request's reap time, or a scripted stall/squeeze boundary."""
         wake = None
         if reaping:
             for r in queue.requests():
@@ -373,6 +455,10 @@ class Server:
                     if t is not None and t > now and (wake is None
                                                       or t < wake):
                         wake = t
+        if faults is not None:
+            nc = faults.next_change(now)
+            if nc is not None and (wake is None or nc < wake):
+                wake = nc
         return wake
 
     # ---- the loop ------------------------------------------------------
@@ -387,12 +473,18 @@ class Server:
         stepper = self.stepper
         stepper.warmup()
         metrics = RuntimeMetrics(stepper.full_depth, sched.n_lanes)
+        if self.controller is not None:
+            self.controller.begin(metrics, stepper)
         deadline_of = None
         if self.order == "edf" and self.slo is not None:
             deadline_of = lambda r: r.arrival + self.slo  # noqa: E731
         queue = RequestQueue(self.order, deadline_of=deadline_of)
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
-        clocked = (getattr(stepper, "faults", None) is not None
+        # the fault plan's serve-borne windows (rung stalls, page
+        # squeezes) are read off the clock each iteration; the degrade
+        # governor reads the clock too, plan or not
+        faults = getattr(stepper, "faults", None)
+        clocked = (faults is not None
                    or getattr(stepper, "governor", None) is not None)
         reaping = self.enforce_deadlines or any(
             r.cancel_at is not None for r in pending)
@@ -408,8 +500,17 @@ class Server:
             now = self._now()
             if clocked:
                 stepper.fault_now = now
+            if faults is not None:
+                pool = getattr(stepper, "pool", None)
+                if pool is not None:
+                    pool.set_squeeze(faults.squeeze_pages(now))
+            pushed = []
             while pending and pending[0].arrival <= now:
-                queue.push(pending.pop(0))
+                req = pending.pop(0)
+                queue.push(req)
+                pushed.append(req.arrival)
+            if self.controller is not None and pushed:
+                self.controller.on_arrivals(pushed)
             if reaping:
                 self._reap(queue, metrics, release, now)
             for lane, req in sched.admit(
@@ -425,7 +526,8 @@ class Server:
                     # request that can NEVER be admitted, unless a queued
                     # request is about to be reaped: then jump there.
                     if len(queue):
-                        wake = self._fault_wake(queue, reaping, now)
+                        wake = self._fault_wake(queue, faults, reaping,
+                                                now)
                         if wake is not None and wake > now:
                             self._advance_to(wake)
                             continue
@@ -462,6 +564,10 @@ class Server:
                     if release is not None:
                         release(lane)   # paged KV: pages back to the pool
                     sched.release(lane)
+            if self.controller is not None:
+                # step boundary: no lane is mid-token — the one atomic
+                # instant a gear swap / table publish may land
+                self.controller.on_step_end(self._now(), len(queue))
 
         metrics.t_end = self._now()
         return metrics

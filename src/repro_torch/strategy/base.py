@@ -34,7 +34,7 @@ from typing import Protocol, Tuple, runtime_checkable
 import torch
 
 __all__ = ["State", "PolicyResult", "Strategy", "evaluate", "reset_lanes",
-           "init_lane", "dynamic_arrays", "with_arrays"]
+           "init_lane", "dynamic_arrays", "array_leaves", "with_arrays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +94,19 @@ def dynamic_arrays(strategy: Strategy) -> dict:
     name (``{}`` for strategies without ``swap_attrs``: the oracles)."""
     return {name: getattr(strategy, name)
             for name in getattr(strategy, "swap_attrs", ())}
+
+
+def array_leaves(arrays: dict) -> list:
+    """The tensors of a strategy's dynamic arrays (a dict of tensors or
+    of dataclasses of tensors), in a fixed order."""
+    out = []
+    for value in arrays.values():
+        if isinstance(value, torch.Tensor):
+            out.append(value)
+        else:
+            out += [getattr(value, f.name)
+                    for f in dataclasses.fields(value)]
+    return out
 
 
 def with_arrays(strategy: Strategy, arrays: dict) -> Strategy:

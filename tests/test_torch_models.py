@@ -1,6 +1,9 @@
 """The port's early-exit decoder (repro_torch.models) against the JAX
 package's, on the smoke config (and a windowed GQA config whose prompt
-outruns the ring) with weights carried over by the bridge.
+outruns the ring) and on the smoke sizes of the dense tied configs
+granite-3-2b, qwen3-4b (qk-norm) and starcoder2-3b (GeLU, GQA 4:1, a
+64-token window its 80-token ring prompt outruns), with weights —
+qk-norm scales included — carried over by the bridge.
 
 Tolerances: f32 tensors that never pass through the bf16 KV pool agree
 within atol = rtol = 1e-5; tensors downstream of the pool within 1e-3,
@@ -61,7 +64,10 @@ def test_ramp_readout_matches(setup):
 
 
 def test_prefill_matches(setup):
-    cfg, params, tparams = setup
+    _check_prefill(*setup)
+
+
+def _check_prefill(cfg, params, tparams):
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (4, 12))
     lj, _, nlj, npj = M.prefill(params, cfg,
                                 {"tokens": jnp.asarray(toks, jnp.int32)},
@@ -131,7 +137,10 @@ def test_prefill_chunks_then_decode_match(setup, kernel):
     page) through every segment, then one decode token per lane with one
     lane masked out — the port (gather path, or the kernel switch, which
     runs the plain versions on CPU) against the JAX gather path."""
-    cfg, params, tparams = setup
+    _check_chunks_then_decode(*setup, kernel)
+
+
+def _check_chunks_then_decode(cfg, params, tparams, kernel):
     table, jcaches, tcaches = _paged_setup(cfg)
     toks = np.random.default_rng(2).integers(0, cfg.vocab, (B, 2 * C))
     active = (True, True, False)
@@ -264,7 +273,11 @@ def test_prefill_ring_caches_match(ring_setup, use_flash):
     """Port prefill (einsum path, or the flash route, which runs the
     kernel's plain version on the CPU) against the JAX package's own
     CPU path, prefill(use_flash=False)."""
-    cfg, params, tparams, prompt_len, cache_len = ring_setup
+    _check_prefill_ring(*ring_setup, use_flash)
+
+
+def _check_prefill_ring(cfg, params, tparams, prompt_len, cache_len,
+                        use_flash):
     toks = np.random.default_rng(4).integers(0, cfg.vocab, (3, prompt_len))
     lj, cj, nlj, npj = M.prefill(params, cfg,
                                  {"tokens": jnp.asarray(toks, jnp.int32)},
@@ -302,7 +315,10 @@ def _first_divergence(tt, jt, tl, jl):
 def test_ring_decode_step_matches(ring_setup):
     """Greedy full-depth decode on the ring caches, 6 tokens: logits
     within 1e-3, tokens equal, ring caches within a bf16 ulp."""
-    cfg, params, tparams, prompt_len, cache_len = ring_setup
+    _check_ring_decode(*ring_setup)
+
+
+def _check_ring_decode(cfg, params, tparams, prompt_len, cache_len):
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (3, prompt_len))
     lj, cj, _, pj = M.prefill(params, cfg,
                               {"tokens": jnp.asarray(toks, jnp.int32)},
@@ -390,3 +406,51 @@ def test_classifier_matches(ring_setup, name):
     for key in ("segments_run_batch", "segments_run_policy",
                 "segments_full"):
         assert tr[key] == jr[key], key
+
+
+# --------------------------------------------------------------------------
+# the dense tied-embedding configs (smoke size): qk-norm, SwiGLU / GeLU,
+# GQA, a 64-token window
+# --------------------------------------------------------------------------
+
+# arch: (prompt_len, cache_len) of the ring cases; starcoder2's prompt
+# outruns its 64-token window
+DENSE = {"granite-3-2b": (12, 16), "qwen3-4b": (12, 16),
+         "starcoder2-3b": (80, 96)}
+
+
+@pytest.fixture(scope="module", params=sorted(DENSE))
+def dense_setup(request):
+    """(cfg, jax params, port params) of a dense config's smoke size; the
+    port's registry holds the reference's config."""
+    from repro_torch.configs import get_config as t_get_config
+    torch.set_num_threads(2)
+    cfg = get_config(request.param, smoke=True)
+    assert repr(t_get_config(request.param, smoke=True)) == repr(cfg)
+    assert repr(t_get_config(request.param)) == \
+        repr(get_config(request.param))
+    params = materialize(M.model_defs(cfg), jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params))
+    return cfg, params, tparams
+
+
+def test_dense_prefill_matches(dense_setup):
+    _check_prefill(*dense_setup)
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["gather", "kernel"])
+def test_dense_prefill_chunks_then_decode_match(dense_setup, kernel):
+    _check_chunks_then_decode(*dense_setup, kernel)
+
+
+@pytest.mark.parametrize("use_flash", [False, True],
+                         ids=["sdpa", "flash"])
+def test_dense_prefill_ring_caches_match(dense_setup, use_flash):
+    cfg = dense_setup[0]
+    _check_prefill_ring(*dense_setup, *DENSE[cfg.name.removesuffix(
+        "-smoke")], use_flash)
+
+
+def test_dense_ring_decode_step_matches(dense_setup):
+    cfg = dense_setup[0]
+    _check_ring_decode(*dense_setup, *DENSE[cfg.name.removesuffix("-smoke")])

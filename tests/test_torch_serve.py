@@ -26,8 +26,9 @@ against the JAX package's, end to end on the smoke config.
     --ssd-kernel --dp-kernel`` on both, the reference's aliases and
     knobs — and refuses to run without CUDA otherwise; its ``--policy``
     choices are the reference launcher's, hindsight oracles refused.
-  * Nothing under src/repro_torch/, nor chip_smoke.py, imports jax or
-    the JAX package.
+  * Nothing under src/repro_torch/ (the control and fault planes and the
+    dense configs included), nor chip_smoke.py, imports jax or the JAX
+    package.
 """
 
 import ast
@@ -176,8 +177,12 @@ def reference_run(chunked_reference):
     ids=["kernel", "gather"] + [f"kernel-{p}" for p in POLICIES])
 def test_port_serves_what_the_reference_serves(setup, chunked_reference,
                                                kernel, policy):
+    _check_chunked_serve(setup, chunked_reference(policy), kernel, policy)
+
+
+def _check_chunked_serve(setup, reference, kernel, policy):
     cfg, _, _, tparams, tcasc = setup
-    jreqs, jm, jnodes, jstats, _ = chunked_reference(policy)
+    jreqs, jm, jnodes, jstats, _ = reference
     requests = _requests(TRequest, cfg, policy=policy)
     bank, sid_of = trt.build_bank(requests, _factory(tserve, tcasc),
                                   (policy, None))
@@ -199,6 +204,35 @@ def test_port_serves_what_the_reference_serves(setup, chunked_reference,
         n for nodes in jnodes.values() for n in nodes)
     assert (tm.steps, tm.seg_batch, tm.seg_policy, tm.lane_steps) == \
         (jm.steps, jm.seg_batch, jm.seg_policy, jm.lane_steps)
+
+
+@pytest.fixture(scope="module", params=["granite-3-2b", "qwen3-4b",
+                                        "starcoder2-3b"])
+def dense_setup(request):
+    """A dense tied-embedding config's smoke size (qk-norm, SwiGLU or
+    GeLU, GQA, a 64-token window), its weights and tables bridged, and
+    the reference's chunked paged serve under recall_index."""
+    setup = _setup(request.param)
+    cfg, params, casc, _, _ = setup
+    requests = _requests(JRequest, cfg)
+    bank, sid_of = jrt.build_bank(requests, _factory(jserve, casc),
+                                  ("recall_index", None))
+    stepper = jrt.EngineStepper(params, cfg, bank, n_lanes=2, cache_len=32,
+                                prompt_len=PROMPT_LEN, kv="paged",
+                                page_size=8, prefill_chunk=5,
+                                prefill_budget=8)
+    metrics, nodes = _serve_logged(jrt, stepper, sid_of, requests)
+    return setup, (requests, metrics, nodes, dict(stepper.chunk_stats),
+                   stepper.pool.stats())
+
+
+@pytest.mark.parametrize("kernel", [True, False], ids=["kernel", "gather"])
+def test_dense_port_serves_what_the_reference_serves(dense_setup, kernel):
+    """`test_port_serves_what_the_reference_serves` on granite-3-2b,
+    qwen3-4b and starcoder2-3b: tokens, served nodes, chunk stats and
+    segment counters equal."""
+    setup, reference = dense_setup
+    _check_chunked_serve(setup, reference, kernel, "recall_index")
 
 
 @pytest.fixture(scope="module")
@@ -480,7 +514,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "kernels/ssd_chunk", "models/ssm", "configs/mamba2_130m",
                 "kernels/ramp_exit", "core/skip_dp", "core/tree_dp",
                 "core/traces", "core/brute_force", "core/impossibility",
-                "core/pareto", "strategy/oracle", "strategy/skip"):
+                "core/pareto", "strategy/oracle", "strategy/skip",
+                "configs/granite_3_2b", "configs/qwen3_4b",
+                "configs/starcoder2_3b", "serving/control/telemetry",
+                "serving/control/gears", "serving/control/swap",
+                "serving/control/recalibrate", "serving/control/controller",
+                "bench/adaptive", "serving/faults/plan",
+                "serving/faults/governor"):
         assert f"src/repro_torch/{mod}.py" in names
     bad = []
     for path in files:
