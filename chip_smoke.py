@@ -120,22 +120,25 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      through ``Server`` + ``SimStepper`` under recall_index, FIFO with
      chunked prefill and again EDF with static batching, then a
      two-rung ``CascadeSimStepper`` (6 + 6 nodes) under skip_recall
-     with the recall policy; every request's served nodes, token
-     count, virtual TTFT and finish, and the cascade's stats, must be
-     EQUAL on the two devices (a sha256 of the records is printed);
+     with the recall policy, each under an ``Observability``; every
+     request's served nodes, token count, virtual TTFT and finish, the
+     cascade's stats, and each serve's span digest and decision digest
+     must be EQUAL on the two devices (a sha256 of the records and the
+     digests are printed);
      then the control plane's adaptive leg (`bench.adaptive`: the
      reference bench's diurnal workload, gear bank and controller, with
      online recalibration) — at least 2 gear switches and 1
      recalibration, every request finished, one set of bank storages
      decided with across every publish (``decide_cache_size() == 1``,
-     the reserved tensors' data_ptrs kept), records and switch/publish
-     logs EQUAL on the two devices; and a chaos serve of the two-rung
+     the reserved tensors' data_ptrs kept), records, switch/publish
+     logs and the leg's decision attribution (read off its tracer)
+     EQUAL on the two devices; and a chaos serve of the two-rung
      cascade sim under a seeded FaultPlan (cancellations, deadlines, a
      rung-1 stall, a page squeeze) with the degrade governor and a
      rung-0 pool — requests reaped and completed, escalations denied,
      the pool drained, records and governor stats EQUAL;
   6. serves at full width through ``repro_torch.launch.serve.main``
-     twenty-two times — paper-ee-100m chunked paged under recall_index and
+     twenty-four times — paper-ee-100m chunked paged under recall_index and
      under always_last (the paged pair's path), the ring server with
      --flash --dp-kernel under recall_index (flash and Bellman's path),
      the one-shot batch with --flash --dp-kernel; mamba2-130m's ring
@@ -171,6 +174,35 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      kernel once a line solve on the --dp-kernel serves), and the
      kernels of other paths (ramp_exit in every serve: no serve calls
      it) must not;
+     Every server serve but ``chunked_recall_index`` runs under a tracer
+     (``--trace-out build/obs/<name>.json``): each serve's line gives
+     the calibration's synchronized host time (``ServeRun.calib_s``),
+     the serve loop's time (the metrics' start and end) and its steps
+     split from the tracer's events — a step ends with its ``counter``
+     event and carried a prefill chunk if a ``prefill_chunk`` event
+     falls inside it; their count must equal the metrics' steps.  Right
+     after ``chunked_recall_index`` the same serve runs again under
+     ``--obs-dir build/obs/obs_chunked_recall_index --regret``
+     (``obs_chunked_recall_index``): its streams must equal the
+     untraced serve's, the paged pair must launch, the ledger must
+     report no violation, every request's span must run queued ->
+     admitted -> prefill_chunk... -> token... -> finish, the token
+     events must count the served tokens and the chunk widths the
+     computed prompt tokens, and trace, events, metrics, ledger, regret
+     and pareto JSON must parse; it prints the tracer's stats, the
+     regret headline, the loss map's top causes and the tracer's host
+     cost a step (the serve's events re-emitted through a fresh tracer
+     with the ledger, flight recorder and regret meter bound); then the
+     same serve for 0.5 s under ``--profile-dir build/profile``
+     (``profiled_chunked_recall_index``), whose Chrome trace gives the
+     capture's device busy time, idle share, device ops, host syncs
+     and top device ops.  ``phase_decode_profile`` traces, after the
+     two qwen3-4b serves, three decode-only steps through the serve's
+     own stepper, and after ``qwen3_chunked_recall_index`` also three
+     steps that carry a prefill chunk (lane 0 decoding, lanes 1-7
+     prefilling fresh 32-token prompts); each set is traced twice, the
+     second time with a ``SpanTracer`` on the stepper, and the host
+     syncs a step must be the same;
   7. prints a ``kernels`` JSON line (``launches`` is each kernel's
      count on its own main path — for ramp_exit the decision check;
      ``launches_by_path`` holds every path's; the times are the first
@@ -187,10 +219,12 @@ the repository's sources are not beside it, or when any check fails.
 from __future__ import annotations
 
 import collections
+import gc
 import hashlib
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -230,6 +264,11 @@ from repro_torch.bench import adaptive as legs                 # noqa: E402
 from repro_torch.serving.faults import (DegradeGovernor,      # noqa: E402
                                         FaultPlan)
 from repro_torch.serving.kvpool import KVPool                 # noqa: E402
+from repro_torch.serving.obs import (FlightRecorder,          # noqa: E402
+                                     InvariantLedger, Observability,
+                                     RegretMeter, SpanTracer)
+from repro_torch.serving.obs.export import PROFILE_TRACE      # noqa: E402
+from repro_torch.serving.obs.lossmap import goodput_lossmap   # noqa: E402
 from repro_torch.strategy.base import array_leaves            # noqa: E402
 from repro_torch.serving.runtime.request import Request       # noqa: E402
 from repro_torch.serving.runtime.server import arrays_to      # noqa: E402
@@ -341,8 +380,30 @@ CASCADE_FAULTS = ("cascade_faults",
                   CASCADE_ARGS + ["--policy", "skip_recall",
                                   "--escalate-policy", "recall"],
                   PAGED, NEW + ("ssd_chunk",) + EXIT)
-# the serves whose decode-only steps are traced after they end
+# the main path again under the whole observability plane (--obs-dir:
+# Perfetto trace, event log, metrics, ledger; --regret: regret and
+# Pareto), held to the untraced chunked_recall_index serve's streams;
+# then once more for 0.5 s under torch.profiler (--profile-dir)
+OBS_ROOT = ROOT / "build" / "obs"
+UNTRACED = "chunked_recall_index"
+OBS_SERVE = ("obs_chunked_recall_index",
+             SERVE_ARGS + ["--policy", "recall_index", "--regret",
+                           "--obs-dir",
+                           str(OBS_ROOT / "obs_chunked_recall_index")],
+             PAGED, NEW + ("ssd_chunk",) + EXIT)
+PROFILE_SERVE = ("profiled_chunked_recall_index",
+                 SERVE_ARGS + ["--policy", "recall_index", "--duration",
+                               "0.5", "--profile-dir",
+                               str(ROOT / "build" / "profile")],
+                 PAGED, NEW + ("ssd_chunk",) + EXIT)
+OBS_FILES = ("trace.json", "events.json", "metrics.json", "ledger.json",
+             "regret.json", "pareto.json")
+SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+            "cudaEventSynchronize")
+# the serves whose decode-only steps are traced after they end, and the
+# one whose chunk steps are traced too
 PROFILED = ("qwen3_chunked_recall_index", "qwen3_chunked_always_last")
+CHUNK_PROFILED = "qwen3_chunked_recall_index"
 DECISION = "decision_check"
 SIM_DEVICES = ("cuda", "cpu")   # the sim digest's two devices
 MAIN_PATH = {"paged_attention": "chunked_recall_index",
@@ -1567,7 +1628,10 @@ def phase_sim_digest():
     chunked prefill; then EDF with static batching — and a two-rung
     CascadeSimStepper under skip_recall with the recall policy.  Every
     record (served nodes, token count, virtual TTFT and finish) and the
-    cascade's stats must be EQUAL on the two devices."""
+    cascade's stats must be EQUAL on the two devices, and so must each
+    serve's span digest and decision digest (an `Observability` rides
+    every serve: the virtual clock makes the whole trace
+    deterministic)."""
     rng = np.random.default_rng(0)
     losses, _, flops = traces.ee_like_traces(rng, 3_000, 6)
     casc = Cascade.from_traces(losses[:1_500], 0.4 * flops, k=12, lam=0.6)
@@ -1583,11 +1647,11 @@ def phase_sim_digest():
     ccasc = Cascade.from_traces(closses[:1_500], 0.1 * ccosts, k=10,
                                 lam=0.9, boundaries=bounds)
     ccasc.solve_skip("cascade")
-    digests, out = {}, {}
+    digests, out, spans = {}, {}, {}
     for dev in SIM_DEVICES:
         t0 = time.perf_counter()
         c = arrays_to(casc, dev)
-        runs = []
+        runs, obs = [], []
         for order, static in (("fifo", False), ("edf", True)):
             reqs = rt.make_workload("poisson", spec)
             strategies, sid_of = rt.build_bank(
@@ -1596,9 +1660,10 @@ def phase_sim_digest():
                                     seg_time=0.002, overhead=0.0005,
                                     prefill_tok_time=0.0001,
                                     prefill_chunk=C, device=dev)
+            obs.append(Observability())
             m = rt.Server(stepper, rt.LaneScheduler(8), sid_of,
-                          order=order, slo=0.2,
-                          static_batching=static).serve(reqs)
+                          order=order, slo=0.2, static_batching=static,
+                          obs=obs[-1]).serve(reqs)
             if m.summary()["completed"] != len(reqs):
                 raise SystemExit(f"sim_digest [{dev}]: {order} serve did "
                                  "not complete")
@@ -1614,8 +1679,9 @@ def phase_sim_digest():
         stepper = CascadeSimStepper(mbank, strat, closses[1_500:],
                                     overhead=0.0005, policy="recall",
                                     chunk=C, device=dev)
+        obs.append(Observability())
         m = rt.Server(stepper, rt.LaneScheduler(8), lambda r: 0,
-                      slo=0.2).serve(reqs)
+                      slo=0.2, obs=obs[-1]).serve(reqs)
         cs = stepper.cascade_stats()
         if m.summary()["completed"] != len(reqs) or cs["escalations"] <= 0:
             raise SystemExit(f"sim_digest [{dev}]: cascade sim did not "
@@ -1624,16 +1690,25 @@ def phase_sim_digest():
         out[dev] = runs
         digests[dev] = hashlib.sha256(
             repr(runs).encode()).hexdigest()
+        spans[dev] = [(o.tracer.span_digest(), o.tracer.decision_digest(),
+                       o.tracer.n_emitted, o.tracer.dropped) for o in obs]
         log(f"sim_digest [{dev}]: {len(runs[0])} + {len(runs[1])} + "
             f"{len(runs[2][0])} requests, cascade escalations "
             f"{cs['escalations']}, de-escalations {cs['deescalations']}, "
             f"tokens by rung {cs['tokens_served']}, sha256 "
-            f"{digests[dev]}, {time.perf_counter() - t0:.1f} s")
+            f"{digests[dev]}, span / decision digests (events, dropped) "
+            f"{[(a[:16], b[:16], n, d) for a, b, n, d in spans[dev]]}, "
+            f"{time.perf_counter() - t0:.1f} s")
     if out[SIM_DEVICES[0]] != out[SIM_DEVICES[1]]:
         raise SystemExit("sim_digest: the records differ between "
                          f"{' and '.join(SIM_DEVICES)}")
+    if spans[SIM_DEVICES[0]] != spans[SIM_DEVICES[1]]:
+        raise SystemExit("sim_digest: the span or decision digests differ "
+                         f"between {' and '.join(SIM_DEVICES)}: {spans}")
     log(f"sim_digest: records equal on {' and '.join(SIM_DEVICES)} "
-        f"(sha256 {digests[SIM_DEVICES[0]]})")
+        f"(sha256 {digests[SIM_DEVICES[0]]}), span digests equal "
+        f"({', '.join(d for d, _, _, _ in spans[SIM_DEVICES[0]])}), "
+        f"decision digests equal")
 
 
 def phase_dense_model_checks():
@@ -1685,10 +1760,11 @@ def phase_control_sim():
     the two devices."""
     requests = legs.adaptive_requests()
     rows = legs.adaptive_serve_mix()
-    out = {}
+    out, attribution = {}, {}
     for dev in SIM_DEVICES:
         t0 = time.perf_counter()
-        m, stepper, ctl, _ = legs.leg(requests, rows, device=dev)
+        m, stepper, ctl, _, attribution[dev] = legs.leg(requests, rows,
+                                                        device=dev)
         st = ctl.stats()
         done = sum(1 for r in m.records.values() if r.finished is not None)
         reserved = [t for a in ctl.swap.bank_arrays()
@@ -1715,7 +1791,12 @@ def phase_control_sim():
     if out[SIM_DEVICES[0]] != out[SIM_DEVICES[1]]:
         raise SystemExit("control_sim: records or switch/publish logs "
                          f"differ between {' and '.join(SIM_DEVICES)}")
-    log(f"control_sim: records and switch/publish logs equal on "
+    if attribution[SIM_DEVICES[0]] != attribution[SIM_DEVICES[1]]:
+        raise SystemExit("control_sim: the decision attribution differs "
+                         f"between {' and '.join(SIM_DEVICES)}")
+    log(f"control_sim: records, switch/publish logs and the decision "
+        f"attribution ({len(attribution[SIM_DEVICES[0]])} rows, sha256 "
+        f"{_digest(attribution[SIM_DEVICES[0]])}) equal on "
         f"{' and '.join(SIM_DEVICES)}")
 
 
@@ -1865,77 +1946,60 @@ def _cascade_check(name, run, commit):
 
 
 
-class _SetupClock:
-    """Host-clock times inside one launcher call: the calibration
-    (`Cascade.calibrate`, synchronized), the serve (`Server.serve`), and
-    each single-model `EngineStepper.step` — which ends on the host, its
-    outputs copied back — split by whether it carried a prefill chunk.
-    It patches those three methods on their classes for the call, so a
-    renamed method stops being timed; it stays only until the tracer's
-    step spans carry the same split (ROADMAP A7)."""
+def _step_split(events):
+    """Server step times read off the tracer's events: a step ends with
+    its `counter` event and starts at the counter before it — or, when
+    that counter left every lane idle (the server then waits for an
+    arrival), at the admission that ends the wait.  A step carried a
+    prefill chunk if a `prefill_chunk` event falls inside it.  Returns
+    the chunk steps' and the decode-only steps' times in seconds."""
+    chunk, decode = [], []
+    occ, start, idle, carried = 0, None, True, False
+    for ev in events:
+        if ev.kind == "admitted":
+            occ += 1
+            if idle:
+                start = ev.t
+        elif ev.kind in ("finish", "cancel", "deadline_miss"):
+            occ -= ev.lane >= 0
+            idle = idle or (occ == 0 and ev.kind != "finish")
+        elif ev.kind in ("prefill_chunk", "token"):
+            idle = False
+            carried = carried or ev.kind == "prefill_chunk"
+        elif ev.kind == "counter":
+            (chunk if carried else decode).append(ev.t - start)
+            start, idle, carried = ev.t, occ == 0, False
+    return chunk, decode
 
-    def __enter__(self):
-        self.calib, self.serve, self.chunk, self.decode = [], [], [], []
-        self._orig = (Cascade.calibrate.__func__, rt.Server.serve,
-                      rt.EngineStepper.step)
-        calibrate, serve_fn, step_fn = self._orig
-        clock = self
 
-        def timed_calibrate(cls, *a, **k):
-            t0 = time.perf_counter()
-            out = calibrate(cls, *a, **k)
-            torch.cuda.synchronize()
-            clock.calib.append(time.perf_counter() - t0)
-            return out
-
-        def timed_serve(server, *a, **k):
-            t0 = time.perf_counter()
-            out = serve_fn(server, *a, **k)
-            clock.serve.append(time.perf_counter() - t0)
-            return out
-
-        def timed_step(stepper, *a, **k):
-            n0 = stepper.chunk_stats["chunk_steps"]
-            t0 = time.perf_counter()
-            out = step_fn(stepper, *a, **k)
-            (clock.chunk if stepper.chunk_stats["chunk_steps"] > n0
-             else clock.decode).append(time.perf_counter() - t0)
-            return out
-
-        Cascade.calibrate = classmethod(timed_calibrate)
-        rt.Server.serve = timed_serve
-        rt.EngineStepper.step = timed_step
-        return self
-
-    def __exit__(self, *exc):
-        calibrate, rt.Server.serve, rt.EngineStepper.step = self._orig
-        Cascade.calibrate = classmethod(calibrate)
-
-    def line(self) -> str:
-        def p50(xs):
-            return f"{1e3 * float(np.median(xs)):.2f} ms" if xs else "n/a"
-        return (f"calibration {sum(self.calib):.2f} s, serve loop "
-                f"{sum(self.serve):.2f} s, engine steps (every rung's, "
-                f"warmup included): {len(self.chunk)} with a prefill "
-                f"chunk (p50 {p50(self.chunk)}), {len(self.decode)} "
-                f"without (p50 {p50(self.decode)})")
+def _p50_ms(xs) -> str:
+    return f"{1e3 * float(np.median(xs)):.2f} ms" if xs else "n/a"
 
 
 def phase_serve(name, argv, must, must_not, eos=None, reaped=False):
     """One full-width serve; every kernel's launch counter is zeroed
-    just before and read just after.  Returns the launches and the
-    run."""
+    just before and read just after.  Every server serve but UNTRACED
+    runs under a tracer (``--trace-out``, unless an observability flag
+    is given), whose events split its step times into chunk and
+    decode-only steps.  Returns the launches and the run."""
     args = serve.parse_args(argv)
+    if args.server and name != UNTRACED and not (args.trace_out
+                                                 or args.obs_dir):
+        OBS_ROOT.mkdir(parents=True, exist_ok=True)
+        argv = argv + ["--trace-out", str(OBS_ROOT / f"{name}.json")]
     cfgs = [get_config(a) for a in (args.cascade.split(":")
                                     if args.cascade else [args.arch])]
     n_nodes = sum(c.n_ramps + 1 for c in cfgs)
+    # the tracer's clock is a bound method of its server (a reference
+    # cycle): collect earlier serves so their models leave the card
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for kern in KERNELS.values():
         kern.launches = 0
     t0 = time.perf_counter()
-    with _SetupClock() as clock:
-        run = serve.main(argv)
-        torch.cuda.synchronize()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: kern.launches for k, kern in KERNELS.items()}
     summary = _check_serve_run(name, argv, run, n_nodes, cfgs[0].vocab,
@@ -1960,10 +2024,143 @@ def phase_serve(name, argv, must, must_not, eos=None, reaped=False):
             raise SystemExit(f"serve [{name}]: {k} launched "
                              f"{launches[k]} times off its path")
     peak = torch.cuda.max_memory_allocated() / 2**20
+    setup = f"calibration {run.calib_s:.2f} s"
+    if isinstance(run, serve.ServeRun):
+        m = run.metrics
+        setup += f", serve loop {m.t_end - m.t_start:.2f} s"
+        if run.obs is not None:
+            chunk, decode = _step_split(run.obs.tracer.events)
+            if len(chunk) + len(decode) != m.steps:
+                raise SystemExit(f"serve [{name}]: the tracer shows "
+                                 f"{len(chunk) + len(decode)} steps, the "
+                                 f"metrics {m.steps}")
+            setup += (f", server steps from the tracer: {len(chunk)} with "
+                      f"a prefill chunk (p50 {_p50_ms(chunk)}), "
+                      f"{len(decode)} without (p50 {_p50_ms(decode)})")
     log(f"serve [{name}]: {summary}, launches {launches}, peak memory "
-        f"{peak:.0f} MiB, wall {wall:.1f} s (calibration and warmup "
-        f"included: {clock.line()})")
+        f"{peak:.0f} MiB, wall {wall:.1f} s ({setup})")
     return launches, run
+
+
+def _chrome_device_stats(path: Path, steps: int) -> str:
+    """Device busy time, idle share, device ops, host syncs and top
+    device ops of a `torch.profiler` Chrome trace: busy is the union of
+    its kernels, copies and sets; the window runs from its first event
+    to its last."""
+    with open(path) as f:
+        evs = [e for e in json.load(f)["traceEvents"]
+               if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in evs if str(e.get("cat", "")).lower()
+           in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        raise SystemExit(f"profile {path}: the trace holds no device "
+                         "event")
+    t0 = min(e["ts"] for e in evs)
+    t1 = max(e["ts"] + e["dur"] for e in evs)
+    busy = _merged_us((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    syncs = sum(1 for e in evs if e.get("cat") == "cuda_runtime"
+                and e.get("name") in SYNC_OPS)
+    by_dev = collections.Counter()
+    for e in dev:
+        by_dev[e["name"][:60]] += e["dur"] / 1e3
+    top = {k: round(v, 3) for k, v in by_dev.most_common(8)}
+    return (f"window {(t1 - t0) / 1e3:.3f} ms (the serve, its warmup "
+            f"step included), device busy {busy / 1e3:.3f} ms, idle share "
+            f"{1 - busy / (t1 - t0):.3f}, {len(dev)} device ops and "
+            f"{syncs} host syncs ({len(dev) / max(steps, 1):.0f} and "
+            f"{syncs / max(steps, 1):.1f} a step over {steps} steps), top "
+            f"device ms {json.dumps(top)}")
+
+
+def phase_obs_serves(streams) -> dict:
+    """OBS_SERVE: the main path under --obs-dir and --regret.  Its
+    streams must equal the untraced serve's (``streams``), the paged
+    pair must launch, the ledger must report no violation, every
+    request's span must run queued -> admitted -> prefill_chunk... ->
+    token... -> finish, the token events must count the metrics' tokens
+    and the chunk widths the stepper's computed prompt tokens, and the
+    six artifacts must parse.  Prints the tracer's stats, the regret
+    headline, the loss map's top causes and the tracer's host cost a
+    step (the serve's events re-emitted through a fresh tracer with the
+    same listeners).  Then PROFILE_SERVE: the same serve for 0.5 s under
+    --profile-dir, read back from its Chrome trace."""
+    by_path = {}
+    name, argv, must, must_not = OBS_SERVE
+    by_path[name], run = phase_serve(name, argv, must, must_not)
+    tr, ledger, meter = run.obs.tracer, run.obs.ledger, run.obs.regret
+    bad = [rid for rid, rec in run.metrics.records.items()
+           if rec.tokens != streams.get(rid)]
+    if bad or set(streams) != set(run.metrics.records):
+        raise SystemExit(f"obs [{name}]: streams differ from the untraced "
+                         f"serve's for requests {bad}")
+    rep = ledger.report()
+    if rep["total_violations"] or tr.dropped:
+        raise SystemExit(f"obs [{name}]: ledger violations "
+                         f"{rep['violations']}, ring dropped {tr.dropped}")
+    code = {"queued": "Q", "page_blocked": "B", "admitted": "A",
+            "prefill_chunk": "C", "token": "T", "finish": "F"}
+    for req in run.requests:
+        kinds = "".join(code.get(ev.kind, "?")
+                        for ev in tr.request_span(req.rid))
+        if not re.fullmatch("QB*AC+T+F", kinds):
+            raise SystemExit(f"obs [{name}]: request {req.rid}'s span "
+                             f"runs {kinds}")
+    s = run.metrics.summary()
+    n_tok = sum(1 for ev in tr.events if ev.kind == "token")
+    width = sum(dict(ev.data)["width"] for ev in tr.events
+                if ev.kind == "prefill_chunk")
+    computed = run.stepper.chunk_stats["tokens_computed"]
+    if n_tok != s["tokens"] or width != computed:
+        raise SystemExit(f"obs [{name}]: {n_tok} token events for "
+                         f"{s['tokens']} tokens, chunk widths {width} for "
+                         f"{computed} computed prompt tokens")
+    out_dir = OBS_ROOT / name
+    sizes = {}
+    for f in OBS_FILES:
+        with open(out_dir / f) as fh:
+            json.load(fh)
+        sizes[f] = (out_dir / f).stat().st_size
+    reg = meter.report()
+    lm = goodput_lossmap(tr.events, slo=serve.parse_args(argv).slo_ms / 1e3)
+    causes = {c: round(v, 3) for c, v in sorted(
+        lm["loss_tok_s"].items(), key=lambda kv: -kv[1])[:3]}
+    # the tracer's host cost: the serve's events once more through a
+    # fresh tracer with the ledger (auditing the serve's pool), flight
+    # recorder and regret meter bound, as the serve had them
+    fresh = SpanTracer()
+    InvariantLedger().bind(fresh, pool=run.stepper.pool)
+    FlightRecorder().bind(fresh)
+    RegretMeter(run.cascade).bind(fresh)
+    events = list(tr.events)
+    steps = sum(1 for ev in events if ev.kind == "counter")
+    t0 = time.perf_counter()
+    for ev in events:
+        fresh.emit(ev.kind, t=ev.t, rid=ev.rid, lane=ev.lane,
+                   model=ev.model, **dict(ev.data))
+    cost = time.perf_counter() - t0
+    log(f"obs [{name}]: streams equal the untraced {UNTRACED} serve's; "
+        f"every span queued -> admitted -> prefill_chunk... -> token... "
+        f"-> finish; {n_tok} token events = {s['tokens']} tokens; chunk "
+        f"widths {width} = {computed} computed prompt tokens; tracer "
+        f"{json.dumps(tr.stats())}; ledger {len(rep['contracts'])} "
+        f"contracts, {sum(c['checks'] for c in rep['contracts'].values())} "
+        f"checks, 0 violations; regret ({reg['mode']}) mean "
+        f"{reg['regret_mean']:.6f} p99 {reg['regret_p99']:.6f} over "
+        f"{reg['requests']} requests; lossmap goodput "
+        f"{lm['goodput_tok_s']:.1f} of {lm['ceiling_tok_s']:.1f} tok/s, "
+        f"top causes {json.dumps(causes)}; files {json.dumps(sizes)}; "
+        f"tracer host cost {1e3 * cost:.3f} ms for {len(events)} events "
+        f"({1e6 * cost / max(steps, 1):.1f} us a step over {steps} "
+        f"steps, {1e6 * cost / max(len(events), 1):.2f} us an event)")
+    del run
+    name, argv, must, must_not = PROFILE_SERVE
+    by_path[name], run = phase_serve(name, argv, must, must_not)
+    steps = sum(1 for ev in run.obs.tracer.events if ev.kind == "counter")
+    path = Path(serve.parse_args(argv).profile_dir) / PROFILE_TRACE
+    log(f"profile [{name}]: {path} ({path.stat().st_size} bytes): "
+        + _chrome_device_stats(path, steps))
+    del run
+    return by_path
 
 
 def phase_serves() -> dict:
@@ -1972,10 +2169,12 @@ def phase_serves() -> dict:
     by_path, streams = {}, {}
     for name, argv, must, must_not in SERVES + CASCADE_SERVES:
         by_path[name], run = phase_serve(name, argv, must, must_not)
-        if name == "chunked_recall_index":
+        if name == UNTRACED:
             streams = {rid: rec.tokens
                        for rid, rec in run.metrics.records.items()}
         del run
+        if name == UNTRACED:
+            by_path.update(phase_obs_serves(streams))
     # the EDF serve's eos: the token the recall_index serve emits most
     # often before a stream's last token, so some stream must end early
     counts = collections.Counter(t for toks in streams.values()
@@ -2024,94 +2223,166 @@ def _merged_us(spans) -> float:
     return total
 
 
-def phase_decode_profile(name, run, steps=3):
-    """One `torch.profiler` trace of decode-only steps of a served model,
-    driven through the serve's own `EngineStepper` after its serve: every
-    lane takes a 32-token request, chunk steps run until no lane
-    prefills, two decode-only steps warm up, ``steps`` are timed on the
-    host clock untraced and ``steps`` more traced.  Prints the host-clock
-    time a step (untraced, and traced: the profiler slows the host), the
-    device's busy time (the union of its kernels and copies in the
-    trace), the idle share against the untraced clock, device ops and
-    host syncs a step (by the ops they sit in), and the top device and
-    host ops; the Chrome trace goes to build/decode_profile_<name>.json."""
-    st = run.stepper
-    n = st.n_lanes
-    rng = np.random.default_rng(11)
-    occ, sid = np.ones(n, bool), np.zeros(n, np.int32)
-    for lane in range(n):
-        req = Request(rid=10_000 + lane, max_tokens=16,
-                      prompt=rng.integers(0, st.cfg.vocab, 32, np.int32))
-        if not st.reserve(req):
-            raise SystemExit(f"profile [{name}]: the pool refused lane "
-                             f"{lane}")
-        st.admit(lane, req)
-    for _ in range(2 * 32):
-        if st.step(occ, sid)[4].all():
-            break
-    else:
-        raise SystemExit(f"profile [{name}]: lanes still prefilling")
-    for _ in range(2):
-        st.step(occ, sid)
-    plain = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        st.step(occ, sid)
-        plain.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
+def _profile_steps(name, st, occ, sid, steps, chunk):
+    """``steps`` steps of stepper ``st`` under `torch.profiler`, each
+    required to carry a prefill chunk (``chunk``) or not.  Returns the
+    profiler and the steps' host-clock times."""
     walls = []
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
-            t0 = time.perf_counter()
-            if not st.step(occ, sid)[4].all():
-                raise SystemExit(f"profile [{name}]: a traced step "
-                                 "carried a prefill chunk")
-            walls.append(time.perf_counter() - t0)
+            walls.append(_timed_step(name, st, occ, sid, chunk))
         torch.cuda.synchronize()
-    for lane in range(n):
-        st.release(lane)
+    return prof, walls
+
+
+def _timed_step(name, st, occ, sid, chunk) -> float:
+    """One step on the host clock; it must carry a chunk iff ``chunk``."""
+    n0 = st.chunk_stats["chunk_steps"]
+    t0 = time.perf_counter()
+    st.step(occ, sid)
+    wall = time.perf_counter() - t0
+    if (st.chunk_stats["chunk_steps"] > n0) != chunk:
+        raise SystemExit(f"profile [{name}]: a timed step "
+                         f"{'lacked' if chunk else 'carried'} a prefill "
+                         "chunk")
+    return wall
+
+
+def _trace_counts(prof, steps):
+    """Device events, device busy ms a step, host syncs (a count over
+    the ``steps``) by the ops they sit in (innermost first), device and
+    host self ms a step by op."""
     events = prof.events()
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        raise SystemExit(f"profile [{name}]: the trace holds no device "
-                         "event")
+        raise SystemExit("profile: the trace holds no device event")
     busy_ms = _merged_us((e.time_range.start, e.time_range.end)
                          for e in dev) / 1e3 / steps
-    wall_ms = 1e3 * sum(walls) / steps
-    plain_ms = 1e3 * sum(plain) / steps
-    host = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CPU]
-    # each host sync by the ops it sits in, innermost first
     sync_by = collections.Counter()
-    for e in host:
-        if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                      "cudaEventSynchronize"):
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name in SYNC_OPS):
             chain, op = [], e.cpu_parent
             while op is not None and len(chain) < 3:
                 chain.append(op.name)
                 op = op.cpu_parent
-            sync_by[" < ".join(chain)] += 1 / steps
-    syncs = sum(sync_by.values())
+            sync_by[" < ".join(chain)] += 1
     by_dev, by_host = collections.Counter(), collections.Counter()
     for e in dev:
         by_dev[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / steps
     for e in prof.key_averages():
         by_host[e.key[:60]] += e.self_cpu_time_total / 1e3 / steps
-    path = ROOT / "build" / f"decode_profile_{name}.json"
+    return dev, busy_ms, sync_by, by_dev, by_host
+
+
+def _profile_report(name, label, st, steps, chunk, setup, path):
+    """The same measurement twice, without and then with a `SpanTracer`
+    on the stepper: ``setup()`` admits fresh prompts of the same lengths
+    (so both runs step through the same page and chunk operations) and
+    returns ``(occ, sid)``; then ``steps`` steps on the host clock and
+    ``steps`` more under `torch.profiler`.  The host syncs of the traced
+    steps must equal the untraced ones.  Logs the untraced run's host
+    clock, device busy, idle share, device ops, syncs and top ops a
+    step, and the traced run's host clock; the untraced Chrome trace
+    goes to ``path``."""
+    runs = {}
+    for traced in (False, True):
+        st.tracer = SpanTracer() if traced else None
+        occ, sid = setup()
+        plain = [_timed_step(name, st, occ, sid, chunk)
+                 for _ in range(steps)]
+        prof, walls = _profile_steps(name, st, occ, sid, steps, chunk)
+        runs[traced] = (plain, prof, walls,
+                        st.tracer.n_emitted if traced else 0)
+        for lane in range(st.n_lanes):
+            st.release(lane)
+    st.tracer = None
+    plain, prof, walls, _ = runs[False]
+    plain_t, prof_t, _, emitted = runs[True]
+    dev, busy_ms, sync_by, by_dev, by_host = _trace_counts(prof, steps)
+    _, _, sync_t, _, _ = _trace_counts(prof_t, steps)
+    if sync_by != sync_t:
+        raise SystemExit(f"profile [{name}]: host syncs over {steps} "
+                         f"{label} steps moved with a tracer attached: "
+                         f"{dict(sync_by)} untraced, {dict(sync_t)} traced")
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
+    wall_ms = 1e3 * sum(walls) / steps
+    plain_ms = 1e3 * sum(plain) / steps
     top = lambda c: {k: round(v, 4) for k, v in c.most_common(8)}  # noqa
-    log(f"profile [{name}]: {steps} decode-only steps, {n} lanes: "
+    syncs = collections.Counter({k: v / steps for k, v in sync_by.items()})
+    log(f"profile [{name}]: {steps} {label} steps, {st.n_lanes} lanes: "
         f"host clock {plain_ms:.3f} ms a step untraced ({wall_ms:.3f} "
-        f"traced), device busy {busy_ms:.3f} ms, idle share "
-        f"{1 - busy_ms / plain_ms:.3f}, "
-        f"{len(dev) / steps:.0f} device ops and {syncs:.0f} host syncs a "
-        f"step ({json.dumps(top(sync_by))}); top device ms a step "
+        f"under the profiler; {1e3 * sum(plain_t) / steps:.3f} with a "
+        f"SpanTracer on the stepper), device busy {busy_ms:.3f} ms, idle "
+        f"share {1 - busy_ms / plain_ms:.3f}, "
+        f"{len(dev) / steps:.0f} device ops and "
+        f"{sum(syncs.values()):.0f} host syncs a step "
+        f"({json.dumps(top(syncs))}), the same with the tracer on the "
+        f"stepper ({emitted} events); top device ms a step "
         f"{json.dumps(top(by_dev))}; top host self ms a step "
         f"{json.dumps(top(by_host))}; trace {path}")
+
+
+def phase_decode_profile(name, run, steps=3, chunk=False):
+    """`torch.profiler` traces of a served model's steps, driven through
+    the serve's own `EngineStepper` after its serve (`_profile_report`:
+    each measurement twice, without and with a tracer on the stepper).
+    Decode-only: every lane takes a fresh 32-token request, chunk steps
+    run until no lane prefills, and two decode-only steps warm up.  With
+    ``chunk``, steps that carry a prefill chunk as well: lane 0 takes a
+    fresh request and prefills, lanes 1-7 take fresh 32-token requests,
+    and one chunk step warms up; the measured steps run lanes 1-7's
+    chunks beside lane 0's decode.  Chrome traces go to
+    build/decode_profile_<name>.json and build/chunk_profile_<name>.json."""
+    st = run.stepper
+    n = st.n_lanes
+    rng = np.random.default_rng(11)
+    sid = np.zeros(n, np.int32)
+
+    def admit(lanes, rid0):
+        for lane in lanes:
+            req = Request(rid=rid0 + lane, max_tokens=32,
+                          prompt=rng.integers(0, st.cfg.vocab, 32, np.int32))
+            if not st.reserve(req):
+                raise SystemExit(f"profile [{name}]: the pool refused lane "
+                                 f"{lane}")
+            st.admit(lane, req)
+
+    def until_decoding(occ):
+        for _ in range(2 * 32):
+            if st.step(occ, sid)[4][occ].all():
+                return
+        raise SystemExit(f"profile [{name}]: lanes still prefilling")
+
+    def decode_only():
+        occ = np.ones(n, bool)
+        admit(range(n), 10_000)
+        until_decoding(occ)
+        for _ in range(2):
+            _timed_step(name, st, occ, sid, False)
+        return occ, sid
+
+    def with_chunks():
+        one = np.zeros(n, bool)
+        one[0] = True
+        admit([0], 20_000)
+        until_decoding(one)
+        admit(range(1, n), 20_000)
+        occ = np.ones(n, bool)
+        _timed_step(name, st, occ, sid, True)
+        return occ, sid
+
+    st.tracer = None
+    _profile_report(name, "decode-only", st, steps, False, decode_only,
+                    ROOT / "build" / f"decode_profile_{name}.json")
+    if chunk:
+        _profile_report(name, "chunk", st, steps, True, with_chunks,
+                        ROOT / "build" / f"chunk_profile_{name}.json")
 
 
 def phase_dense_serves() -> dict:
@@ -2129,7 +2400,7 @@ def phase_dense_serves() -> dict:
         if name == "qwen3_chunked_recall_index":
             e2e = [r.e2e for r in run.metrics.records.values()]
         if name in PROFILED:
-            phase_decode_profile(name, run)
+            phase_decode_profile(name, run, chunk=name == CHUNK_PROFILED)
         if run.controller is not None:
             log(f"serve [{name}]: controller.stats() "
                 + json.dumps(run.controller.stats(), default=float))

@@ -2,14 +2,16 @@
 end on the model-free `SimStepper`.
 
 The JAX package's ``benchmarks.bench_runtime.adaptive_vs_frozen``,
-rebuilt on the port without the observability plane: the same numpy
+rebuilt on the port: the same numpy
 calibration traces (`adaptive_setup`), drifted serve mix
 (`adaptive_serve_mix`), seeded diurnal workload (peak 12.5 req/s over
 30 s, period 15 s) and controller settings (telemetry span 1.5 s, hold
 20 steps, slope lead 1.5 s, recalibration every 2.5 s once 192 rows are
-in).  `leg` serves the adaptive leg (``slot=None``) or one frozen gear;
-`adaptive_vs_frozen` returns the reference's row keys, which its
-``benchmarks.adaptive_smoke.check`` reads.  The decision program runs
+in).  `leg` serves the adaptive leg (``slot=None``) or one frozen gear
+under a tracer, whose token events give each row its decision
+attribution (tokens, latency and served loss by exit node, gear and
+escalation); `adaptive_vs_frozen` returns the reference's row keys,
+which its ``benchmarks.adaptive_smoke.check`` reads.  The decision program runs
 on ``device``; tables are solved on the CPU, so two devices decide from
 the same bits.
 """
@@ -22,6 +24,7 @@ from repro_torch.core import traces
 from repro_torch.serving import runtime as rt
 from repro_torch.serving.control.controller import AdaptiveController
 from repro_torch.serving.control.gears import GearPlanner, GearSpec
+from repro_torch.serving.obs import Observability, decision_attribution
 from repro_torch.serving.runtime.workload import WorkloadSpec, make_workload
 
 __all__ = ["adaptive_setup", "adaptive_serve_mix", "adaptive_requests",
@@ -79,7 +82,8 @@ def adaptive_requests():
 
 def leg(requests, serve_rows, *, slot=None, device="cuda"):
     """One leg: the adaptive controller (``slot=None``) or the frozen
-    gear ``slot``.  Returns ``(metrics, stepper, controller, bank)``."""
+    gear ``slot``, traced.  Returns ``(metrics, stepper, controller,
+    bank, attribution)``."""
     planner, bank = adaptive_setup()
     ctl = None
     if slot is None:
@@ -91,9 +95,15 @@ def leg(requests, serve_rows, *, slot=None, device="cuda"):
                             seg_time=SEG_TIME, overhead=OVERHEAD,
                             device=device)
     sid_of = ctl.sid_of if ctl else (lambda r: slot)
+    obs = Observability()
     server = rt.Server(stepper, rt.LaneScheduler(LANES), sid_of, slo=SLO,
-                       controller=ctl)
-    return server.serve(requests), stepper, ctl, bank
+                       controller=ctl, obs=obs)
+    metrics = server.serve(requests)
+    # sids ARE gear-bank slots here, so attribution names each token's
+    # gear
+    attribution = decision_attribution(
+        obs.tracer.events, gear_of=lambda sid: bank[int(sid)].name)
+    return metrics, stepper, ctl, bank, attribution
 
 
 def _row(metrics, stepper, n_requests, **extra) -> dict:
@@ -110,8 +120,8 @@ def adaptive_vs_frozen(device="cuda") -> tuple[list[dict], tuple]:
     adaptive leg's ``(metrics, stepper, controller)``."""
     requests = adaptive_requests()
     rows_in = adaptive_serve_mix()
-    metrics_ad, stepper_ad, ctl, bank = leg(requests, rows_in,
-                                            device=device)
+    metrics_ad, stepper_ad, ctl, bank, attribution = leg(
+        requests, rows_in, device=device)
     stats = ctl.stats()
     rows = [_row(metrics_ad, stepper_ad, len(requests),
                  name=f"runtime_sim_adaptive_r{PEAK:g}",
@@ -119,12 +129,13 @@ def adaptive_vs_frozen(device="cuda") -> tuple[list[dict], tuple]:
                  gear_switches=stats["gear_switches"],
                  recalibrations=stats["recalibrations"],
                  decide_cache_size=stepper_ad.decide_cache_size(),
-                 controller=stats)]
+                 controller=stats, attribution=attribution)]
     for slot, gear in enumerate(bank):
-        metrics, stepper, _, _ = leg(requests, rows_in, slot=slot,
-                                     device=device)
+        metrics, stepper, _, _, attribution = leg(requests, rows_in,
+                                                  slot=slot, device=device)
         rows.append(_row(metrics, stepper, len(requests),
                          name=f"runtime_sim_frozen_{gear.name}_r{PEAK:g}",
                          adaptive=f"frozen_{gear.name}", gear=gear.name,
-                         gear_switches=0, recalibrations=0))
+                         gear_switches=0, recalibrations=0,
+                         attribution=attribution))
     return rows, (metrics_ad, stepper_ad, ctl)

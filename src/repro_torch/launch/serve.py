@@ -57,6 +57,16 @@ stalled rung cannot serve (``--no-governor`` turns it off), and
 ``--kv-reclaim FRAC`` arms the paged pool's sliding-window reclamation
 above that occupancy.
 
+Every ``--server`` mode can be observed (`repro_torch.serving.obs`):
+``--trace-out`` writes a Chrome/Perfetto trace of the request lifecycle
+and every per-token decision, ``--metrics-out`` the metrics registry
+the console report renders from, ``--flight-recorder DIR`` arms anomaly
+post-mortem bundles, ``--obs-dir DIR`` writes all of those plus the
+lossless event log and the invariant ledger's report into DIR,
+``--regret`` arms the regret meter and the Pareto frontier, and
+``--profile-dir DIR`` captures a ``torch.profiler`` trace (host, and
+the card's kernels and copies) around the serve loop.
+
 It runs on the card (``--device cuda``, the default) and refuses to go
 on when CUDA is missing; ``--device cpu`` runs the same path with the
 kernels' plain PyTorch versions.  ``--paged-kernel`` sends every paged
@@ -72,6 +82,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import time
 
 import numpy as np
@@ -86,6 +98,11 @@ from repro_torch.serving.control import (AdaptiveController, GearPlanner,
                                          GearSpec)
 from repro_torch.serving.engine import Engine, GenerationStats
 from repro_torch.serving.faults import DegradeGovernor, FaultPlan
+from repro_torch.serving.obs import (FlightRecorder, InvariantLedger,
+                                     Observability, RegretMeter)
+from repro_torch.serving.obs.export import (profiler_capture, write_events,
+                                            write_trace)
+from repro_torch.serving.obs.lossmap import goodput_lossmap
 from repro_torch.serving.obs.report import ServeReport, segments_saved_line
 from repro_torch.serving.runtime.workload import WorkloadSpec, make_workload
 
@@ -142,7 +159,10 @@ def build_strategy(name: str, casc: strategy.Cascade, *, threshold: float,
 @dataclasses.dataclass
 class ServeRun:
     """What one ``main`` call served, for callers that check it
-    (``cascade_stats`` only for ``--cascade``)."""
+    (``cascade_stats`` only for ``--cascade``; ``obs`` when an
+    observability flag was given).  ``calib_s`` is the calibration's
+    host time, synchronized with the device (0 when nothing was
+    calibrated)."""
 
     requests: list
     metrics: rt.RuntimeMetrics
@@ -151,6 +171,8 @@ class ServeRun:
     cascade_stats: dict | None = None
     controller: AdaptiveController | None = None
     faults: FaultPlan | None = None
+    obs: Observability | None = None
+    calib_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -159,6 +181,17 @@ class BatchRun:
 
     prompts: np.ndarray            # (batch, prompt_len) i32
     stats: GenerationStats
+    calib_s: float = 0.0           # as `ServeRun.calib_s`
+
+
+def _timed(device, fn, *a, **k):
+    """``fn(*a, **k)`` and its host time, synchronized with ``device``
+    so device work the call queued is inside the time."""
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
 
 
 def _device(name: str) -> torch.device:
@@ -299,6 +332,41 @@ def parse_args(argv=None):
                          "(escalations park past their deadlines)")
     ap.add_argument("--json", default=None,
                     help="write runtime metrics JSON here")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome/Perfetto trace-event JSON of "
+                         "the serve here (open in ui.perfetto.dev; "
+                         "--server modes only)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the metrics-registry snapshot JSON "
+                         "here (every number the console report "
+                         "shows, as labelled series)")
+    ap.add_argument("--flight-recorder", default=None, metavar="DIR",
+                    help="arm the anomaly flight recorder: post-mortem "
+                         "bundles (triggering request's span history + "
+                         "last events + metrics) land in DIR on TTFT-"
+                         "SLO breach bursts, page exhaustion, stuck "
+                         "escalation waiters, or gear thrash")
+    ap.add_argument("--obs-dir", default=None, metavar="DIR",
+                    help="one-flag observability bundle: write the "
+                         "Perfetto trace, the lossless obs_trace/v1 "
+                         "event log, the metrics snapshot, flight "
+                         "bundles, AND the invariant-ledger report "
+                         "into DIR (arms the audit ledger; subsumes "
+                         "--trace-out/--metrics-out/--flight-recorder, "
+                         "which still win for their own sink)")
+    ap.add_argument("--regret", action="store_true",
+                    help="arm the decision-quality regret meter: "
+                         "per-request regret against the offline-optimal "
+                         "walk over the calibrated tables, decomposed by "
+                         "cause, plus the streaming accuracy-latency "
+                         "Pareto frontier.  Report sections always; "
+                         "regret.json + pareto.json under --obs-dir; a "
+                         "regret counter track in --trace-out")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace (host, and on "
+                         "the card its kernels and copies) around the "
+                         "serve loop into DIR/profile_trace.json; fails "
+                         "rather than writing an empty capture")
     args = ap.parse_args(argv)
     if args.lanes is None:
         args.lanes = args.batch
@@ -395,6 +463,93 @@ def _set_reclaim(args, *pools) -> None:
             pool.reclaim_watermark = float(args.kv_reclaim)
 
 
+def _build_obs(args, *, policy=None, boundaries=None, casc=None,
+               ) -> Observability | None:
+    """The observability plane, built only when asked — a ``None`` obs
+    keeps every producer guard dead and the serve loop as it is without
+    tracing.
+
+    ``--obs-dir DIR`` is the one-flag bundle: it defaults every sink
+    the separate flags name into DIR (trace.json, events.json,
+    metrics.json, flight bundles) and additionally arms the
+    `InvariantLedger` (audit contracts + ledger.json); explicit flags
+    still win for their own sink.  ``--regret`` arms the `RegretMeter`
+    against the serve's calibrated `Cascade` — another pure tracer
+    listener, like the ledger.
+    """
+    if args.obs_dir:
+        os.makedirs(args.obs_dir, exist_ok=True)
+        args.trace_out = args.trace_out or \
+            os.path.join(args.obs_dir, "trace.json")
+        args.metrics_out = args.metrics_out or \
+            os.path.join(args.obs_dir, "metrics.json")
+        args.flight_recorder = args.flight_recorder or args.obs_dir
+    if not (args.trace_out or args.metrics_out or args.flight_recorder
+            or args.profile_dir or args.regret):
+        return None
+    flight = None
+    if args.flight_recorder:
+        os.makedirs(args.flight_recorder, exist_ok=True)
+        flight = FlightRecorder(out_dir=args.flight_recorder)
+    ledger = None
+    if args.obs_dir:
+        ledger = InvariantLedger(policy=policy, boundaries=boundaries,
+                                 out_dir=args.obs_dir)
+    regret = RegretMeter(casc) if args.regret else None
+    return Observability(flight=flight, ledger=ledger, regret=regret,
+                         profile_dir=args.profile_dir)
+
+
+def _finish_obs(args, obs: Observability | None,
+                report: ServeReport, *, faults=None) -> None:
+    """Render the report, then the sinks: trace stats fold into the
+    report first (so they land in the metrics snapshot too), then the
+    Perfetto trace and the registry snapshot, if asked for.  A
+    `FaultPlan` the serve ran under is embedded in the trace and events
+    artifacts (``faults/v1``) so a replay reproduces the chaos."""
+    if obs is not None:
+        report.add_trace(obs.tracer, obs.flight)
+        if obs.ledger is not None:
+            report.add_ledger(obs.ledger.report())
+        # always rendered, even for an empty or overflowed ring: an
+        # explicit zero over silence
+        report.add_lossmap(goodput_lossmap(
+            obs.tracer.events, slo=args.slo_ms / 1e3))
+        if obs.regret is not None:
+            # listeners see every emission — a ring overflow does not
+            # taint the meter, so the report stays asserted
+            report.add_regret(obs.regret.report())
+            report.add_pareto(obs.regret.pareto.as_doc())
+    report.print()
+    if obs is not None and args.trace_out:
+        write_trace(obs.tracer, args.trace_out, faults=faults,
+                    regret=obs.regret)
+        print(f"wrote Perfetto trace to {args.trace_out} "
+              "(load in ui.perfetto.dev)")
+    if args.metrics_out:
+        report.registry.to_json(args.metrics_out)
+        print(f"wrote metrics snapshot to {args.metrics_out}")
+    if obs is not None and args.obs_dir:
+        write_events(obs.tracer, os.path.join(args.obs_dir, "events.json"),
+                     faults=faults)
+        if obs.ledger is not None:
+            with open(os.path.join(args.obs_dir, "ledger.json"), "w") as f:
+                json.dump(obs.ledger.report(), f, indent=1, default=float)
+        if obs.regret is not None:
+            with open(os.path.join(args.obs_dir, "regret.json"), "w") as f:
+                json.dump(obs.regret.report(), f, indent=1, default=float)
+            with open(os.path.join(args.obs_dir, "pareto.json"), "w") as f:
+                json.dump(obs.regret.pareto.as_doc(), f, indent=1,
+                          default=float)
+        print(f"wrote observability bundle to {args.obs_dir} "
+              "(trace + events + metrics + ledger"
+              + (" + regret + pareto" if obs.regret is not None else "")
+              + ")")
+    if obs is not None and obs.flight is not None and obs.flight.bundles:
+        print(f"flight recorder: {len(obs.flight.bundles)} anomaly "
+              f"bundle(s) in {args.flight_recorder}")
+
+
 def parse_gears(text: str):
     """``--gears`` grammar: comma-separated ``name:lam`` pairs (a bare
     ``lam`` gets an auto name), e.g. ``quality:0.95,turbo:0.75``."""
@@ -486,9 +641,10 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
         # (the Server reads the plan off the stepper each step)
         stepper.faults = plan
     _set_reclaim(args, stepper.pool)
+    obs = _build_obs(args, casc=casc)
     server = rt.Server(stepper, rt.LaneScheduler(args.lanes), sid_of,
                        order=args.order, slo=slo, eos=args.eos,
-                       controller=controller,
+                       controller=controller, obs=obs,
                        enforce_deadlines=bool(plan and plan.deadline))
     kv_desc = args.kv if args.kv == "ring" else (
         f"paged ({stepper.pool.n_pages} pages x {args.page_size} tokens)")
@@ -505,7 +661,7 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
           f"{'on' if args.flash else 'off'}, ssd kernel "
           f"{'on' if args.ssd_kernel else 'off'}, "
           f"SLO ttft<={args.slo_ms:.0f}ms ...")
-    with torch.no_grad():
+    with torch.no_grad(), profiler_capture(args.profile_dir, device):
         metrics = server.serve(requests)
     report = ServeReport()
     report.add_runtime(metrics.summary(slo=slo), slo_ms=args.slo_ms)
@@ -520,7 +676,7 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
         report.add_pool(pool_stats)
     if args.prefill_chunk:
         report.add_chunked_prefill(stepper.chunk_stats)
-    report.print()
+    _finish_obs(args, obs, report, faults=plan)
     if args.json:
         extra = {"policy": name, "rate": args.rate, "lanes": args.lanes,
                  "kv": args.kv, "prefill_chunk": args.prefill_chunk,
@@ -535,7 +691,8 @@ def _serve_traffic(args, cfg, params, casc, device) -> ServeRun | None:
         metrics.to_json(args.json, slo=slo, extra=extra)
         print(f"wrote metrics JSON to {args.json}")
     return ServeRun(requests=requests, metrics=metrics, stepper=stepper,
-                    cascade=casc, controller=controller, faults=plan)
+                    cascade=casc, controller=controller, faults=plan,
+                    obs=obs)
 
 
 def _calibrate_multi(cfgs, params_list, tokens, lam, *,
@@ -595,8 +752,10 @@ def _serve_cascade(args, device) -> ServeRun | None:
         gen = torch.Generator(device=device).manual_seed(args.seed + 1)
         tokens = torch.randint(0, cfgs[0].vocab, (MULTI_PROMPTS, MULTI_LEN),
                                generator=gen, device=device)
-        casc = _calibrate_multi(cfgs, params_list, tokens, args.lam)
+        casc, calib_s = _timed(device, _calibrate_multi, cfgs,
+                               params_list, tokens, args.lam)
     else:
+        calib_s = 0.0
         casc = strategy.Cascade.uniform(
             n_total, lam=args.lam,
             boundaries=tuple(cfg.n_ramps + 1 for cfg in cfgs),
@@ -633,8 +792,10 @@ def _serve_cascade(args, device) -> ServeRun | None:
         faults=plan, governor=_governor(args, plan))
     _set_reclaim(args, *(st.pool for st in stepper.steppers))
     slo = args.slo_ms / 1e3
+    obs = _build_obs(args, policy=args.escalate_policy,
+                     boundaries=casc.boundaries, casc=casc)
     server = rt.Server(stepper, rt.LaneScheduler(args.lanes), sid_of,
-                       order=args.order, slo=slo, eos=args.eos,
+                       order=args.order, slo=slo, eos=args.eos, obs=obs,
                        enforce_deadlines=bool(plan and plan.deadline))
     print(f"serving {len(requests)} {args.workload} requests "
           f"(rate {args.rate}/s x {args.duration}s) on a "
@@ -644,7 +805,7 @@ def _serve_cascade(args, device) -> ServeRun | None:
           f"(patience {args.escalate_patience}), device {device}, paged "
           f"kernels {'on' if args.paged_kernel else 'off'}, "
           f"SLO ttft<={args.slo_ms:.0f}ms ...")
-    with torch.no_grad():
+    with torch.no_grad(), profiler_capture(args.profile_dir, device):
         metrics = server.serve(requests)
     cs = stepper.cascade_stats()
     report = ServeReport()
@@ -653,7 +814,7 @@ def _serve_cascade(args, device) -> ServeRun | None:
                         steps=metrics.steps, n_seg=bank.n_total,
                         lane_steps=metrics.lane_steps)
     report.add_cascade(cs)
-    report.print()
+    _finish_obs(args, obs, report, faults=plan)
     if args.json:
         extra = {"policy": name, "rate": args.rate, "lanes": args.lanes,
                  "cascade": args.cascade, "device": str(device),
@@ -662,7 +823,8 @@ def _serve_cascade(args, device) -> ServeRun | None:
         metrics.to_json(args.json, slo=slo, extra=extra)
         print(f"wrote metrics JSON to {args.json}")
     return ServeRun(requests=requests, metrics=metrics, stepper=stepper,
-                    cascade=casc, cascade_stats=cs, faults=plan)
+                    cascade=casc, cascade_stats=cs, faults=plan, obs=obs,
+                    calib_s=calib_s)
 
 
 def main(argv=None) -> ServeRun | BatchRun | None:
@@ -682,12 +844,13 @@ def main(argv=None) -> ServeRun | BatchRun | None:
         # solve runs when the strategy is built
         tokens = np.random.default_rng(args.seed).integers(
             0, cfg.vocab, (CALIB_PROMPTS, CALIB_LEN))
-        casc = strategy.Cascade.calibrate(params, cfg, tokens, args.lam,
-                                          k=CALIB_K, solve=False,
-                                          use_flash=args.flash,
-                                          use_ssd_kernel=args.ssd_kernel,
-                                          use_kernel=args.dp_kernel)
+        casc, calib_s = _timed(device, strategy.Cascade.calibrate, params,
+                               cfg, tokens, args.lam, k=CALIB_K,
+                               solve=False, use_flash=args.flash,
+                               use_ssd_kernel=args.ssd_kernel,
+                               use_kernel=args.dp_kernel)
     else:
+        calib_s = 0.0
         # topology/costs-only strategies skip the calibration prefill
         casc = strategy.Cascade.uniform(cfg.n_ramps + 1, lam=args.lam,
                                         device=device)
@@ -700,11 +863,21 @@ def main(argv=None) -> ServeRun | BatchRun | None:
     print(f"strategy: {name} (registry: {', '.join(strategy.available())})")
 
     if args.server:
-        return _serve_traffic(args, cfg, params, casc, device)
-    if args.kv != "ring":
-        print("note: --kv paged applies to --server traffic mode; "
-              "the one-shot batch path always uses ring caches")
-    return _serve_batch(args, cfg, params, strat, device)
+        run = _serve_traffic(args, cfg, params, casc, device)
+    else:
+        if args.kv != "ring":
+            print("note: --kv paged applies to --server traffic mode; "
+                  "the one-shot batch path always uses ring caches")
+        if (args.trace_out or args.metrics_out or args.flight_recorder
+                or args.obs_dir or args.regret):
+            print("note: --trace-out/--metrics-out/--flight-recorder/"
+                  "--obs-dir/--regret observe --server traffic "
+                  "sessions; the one-shot batch path has no request "
+                  "lifecycle to trace")
+        run = _serve_batch(args, cfg, params, strat, device)
+    if run is not None:
+        run.calib_s = calib_s
+    return run
 
 
 if __name__ == "__main__":

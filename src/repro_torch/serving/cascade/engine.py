@@ -80,6 +80,21 @@ class CascadeEngineStepper:
 
     virtual_time = False
     emits_tokens = True
+    _tracer = None
+    last_escalated = None  # per-slot: emitted via escalation resolution
+
+    # installing the tracer here also fans it out to every rung's
+    # EngineStepper, so their chunked prefills (initial + catch-up) land
+    # on the same event stream
+    @property
+    def tracer(self):
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, t) -> None:
+        self._tracer = t
+        for st in self.steppers:
+            st.tracer = t
 
     def __init__(self, bank: ModelBank, strategies: tuple, *,
                  cache_len: int, prompt_len: int, page_size: int = 16,
@@ -253,11 +268,17 @@ class CascadeEngineStepper:
         sb = sp = 0
         chunk_before = sum(st.chunk_stats["tokens_computed"]
                            for st in self.steppers)
+        otr = self._tracer
+        if otr is not None:
+            self.last_escalated = np.zeros(n, bool)
 
         # 0. freed rungs go to FIFO waiters; page-blocked admissions
         #    retry (pages may have been released since)
         for slot, m, lane in self.esc.grants():
             self._admit_catchup(slot, m, lane)
+            if otr is not None:
+                otr.emit("esc_grant", rid=self.lane_req[slot].rid,
+                         lane=slot, model=m)
         retry, self.page_wait = self.page_wait, []
         for slot, m, lane in retry:
             self._admit_catchup(slot, m, lane)
@@ -448,6 +469,12 @@ class CascadeEngineStepper:
                 continue
             lp = len(self.lane_req[slot].prompt)
             if slot in resume:
+                if otr is not None:
+                    for m in tr.pending["targets"]:
+                        otr.emit("esc_resolve",
+                                 rid=self.lane_req[slot].rid,
+                                 lane=slot, model=m)
+                    self.last_escalated[slot] = True
                 for m in self.router.finish_escalation(slot, lp):
                     if m == 0:
                         self.steppers[0].release(slot)
@@ -471,9 +498,21 @@ class CascadeEngineStepper:
                     })
                     self.stats.escalations += len(targets)
                     for m in targets:
+                        if otr is not None:
+                            otr.emit("escalate",
+                                     rid=self.lane_req[slot].rid,
+                                     lane=slot, model=m)
                         lane = self.esc.request(slot, m)
                         if lane is not None:
                             self._admit_catchup(slot, m, lane)
+                            if otr is not None:
+                                otr.emit("esc_grant",
+                                         rid=self.lane_req[slot].rid,
+                                         lane=slot, model=m)
+                        elif otr is not None:
+                            otr.emit("esc_wait",
+                                     rid=self.lane_req[slot].rid,
+                                     lane=slot, model=m)
                     continue
             token = final_tok[slot]
             served = final_served[slot]
@@ -483,6 +522,10 @@ class CascadeEngineStepper:
             sm = self.bank.model_of(served)
             deepest = max(probed[slot])
             self.stats.on_served(sm, deepest)
+            if otr is not None and deepest > sm:
+                otr.emit("recall", rid=self.lane_req[slot].rid,
+                         lane=slot, model=sm, node=served,
+                         deepest=deepest)
             for m in self.router.resident(slot):
                 lane = slot if m == 0 else self._rung_lane(slot, m)
                 tok_override[m][lane] = token
@@ -494,6 +537,9 @@ class CascadeEngineStepper:
                 self.steppers[m].release(self._rung_lane(slot, m))
                 self.esc.release(slot, m)
                 self.stats.deescalations += 1
+                if otr is not None:
+                    otr.emit("deescalate", rid=self.lane_req[slot].rid,
+                             lane=slot, model=m)
 
         for m, over in enumerate(tok_override):
             if over:

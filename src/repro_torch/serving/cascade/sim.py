@@ -133,8 +133,11 @@ class CascadeSimStepper:
 
     virtual_time = True
     emits_tokens = False
-    # per-lane attribution of the last step: served-node loss (NaN =
-    # silent), emitted through an escalation, deepest PROBED node
+    # the server installs a `SpanTracer` here when one is attached; the
+    # per-lane attribution of the last step — served-node loss (NaN =
+    # silent), emitted through an escalation, deepest PROBED node — is
+    # kept only under a tracer, for its token events
+    tracer = None
     last_loss = None
     last_escalated = None
     last_deepest = None
@@ -220,6 +223,7 @@ class CascadeSimStepper:
         # slot -> {model: the catch-up's full length} (planner buckets)
         self.catchup_total: dict[int, dict[int, int]] = {}
         self.stats = CascadeStats(len(self.bank))
+        self._stall_seen: set = set()   # (model, window-start) emitted
         if self.pool is not None:
             self.pool.reset()
 
@@ -305,11 +309,25 @@ class CascadeSimStepper:
             return int(floor)
         return min(cand, key=lambda n: float(losses[slot, n]))
 
+    def _note_stall(self, model: int) -> None:
+        """Emit one `rung_stall` span per scripted window edge."""
+        win = self.faults.stall_window(model, self.fault_now)
+        if win is None or (model, win[0]) in self._stall_seen:
+            return
+        self._stall_seen.add((model, win[0]))
+        if self.tracer is not None:
+            self.tracer.emit("rung_stall", model=model,
+                             t0=round(win[0], 9), until=round(win[1], 9))
+
     def _stalled_models(self) -> set:
         if self.faults is None:
             return set()
-        return {m for m in range(len(self.bank))
-                if self.faults.stall_active(m, self.fault_now)}
+        out = set()
+        for m in range(len(self.bank)):
+            if self.faults.stall_active(m, self.fault_now):
+                out.add(m)
+                self._note_stall(m)
+        return out
 
     def step(self, occupied: np.ndarray, sid: np.ndarray):
         """Returns ``(emitted, served, seg_batch, seg_policy, cost,
@@ -322,9 +340,11 @@ class CascadeSimStepper:
         probes_paid = np.zeros(m_count, np.int64)
         chunk_cost = np.zeros(m_count, np.float64)
         seg_batch = 0
-        self.last_loss = np.full(self.n_lanes, np.nan)
-        self.last_escalated = np.zeros(self.n_lanes, bool)
-        self.last_deepest = np.full(self.n_lanes, -1)
+        otr = self.tracer
+        if otr is not None:
+            self.last_loss = np.full(self.n_lanes, np.nan)
+            self.last_escalated = np.zeros(self.n_lanes, bool)
+            self.last_deepest = np.full(self.n_lanes, -1)
         # fault plane: rungs frozen by a scripted stall window do no
         # work this step — no grants, no prefill, no catch-up, no
         # decode on their lanes.  The clock still advances (cost >=
@@ -335,6 +355,9 @@ class CascadeSimStepper:
         #    a stalled rung hold their FIFO position)
         for slot, m, _lane in self.esc.grants(skip=stalled):
             self._start_catchup(slot, m)
+            if otr is not None:
+                otr.emit("esc_grant", rid=self.lane_req[slot].rid,
+                         lane=slot, model=m)
 
         # 1. initial model-0 admission prefill (chunked, budgeted)
         prefilling = occupied & (self.prefill0 > 0)
@@ -347,6 +370,11 @@ class CascadeSimStepper:
             for slot, w in widths.items():
                 self.prefill0[slot] -= w
                 chunk_cost[0] += w * self.bank[0].prefill_tok_time
+                if otr is not None:
+                    otr.emit("prefill_chunk",
+                             rid=self.lane_req[slot].rid, lane=slot,
+                             model=0, width=int(w),
+                             left=int(self.prefill0[slot]))
 
         # 2. escalation catch-up chunks, per target model, budgeted
         for m in range(1, m_count):
@@ -359,6 +387,11 @@ class CascadeSimStepper:
                 self.catchup[slot][m] -= w
                 chunk_cost[m] += w * self.bank[m].prefill_tok_time
                 self.stats.catchup_tokens[m] += w
+                if otr is not None:
+                    otr.emit("prefill_chunk",
+                             rid=self.lane_req[slot].rid, lane=slot,
+                             model=m, width=int(w),
+                             left=int(self.catchup[slot][m]))
 
         # 3. escalations whose every target is granted + caught up:
         #    the pending token resolves and emits NOW, paying the
@@ -398,14 +431,24 @@ class CascadeSimStepper:
             sm = self.bank.model_of(served)
             deepest = max(handoff["probed_models"])
             self.stats.on_served(sm, deepest, loss=handoff["loss"])
-            self.last_loss[slot] = handoff["loss"]
-            self.last_escalated[slot] = True
-            self.last_deepest[slot] = int(handoff["deepest_node"])
+            if otr is not None:
+                rid = self.lane_req[slot].rid
+                for m in targets:
+                    otr.emit("esc_resolve", rid=rid, lane=slot, model=m)
+                if deepest > sm:
+                    otr.emit("recall", rid=rid, lane=slot, model=sm,
+                             node=served, deepest=deepest)
+                self.last_loss[slot] = handoff["loss"]
+                self.last_escalated[slot] = True
+                self.last_deepest[slot] = int(handoff["deepest_node"])
             for m in self.router.note_emit(slot,
                                            handoff["probed_models"],
                                            served, lp):
                 self.esc.release(slot, m)
                 self.stats.deescalations += 1
+                if otr is not None:
+                    otr.emit("deescalate", rid=self.lane_req[slot].rid,
+                             lane=slot, model=m)
             for m in targets:
                 self.catchup.get(slot, {}).pop(m, None)
                 self.catchup_total.get(slot, {}).pop(m, None)
@@ -485,8 +528,20 @@ class CascadeSimStepper:
                     })
                     self.stats.escalations += len(targets)
                     for m in targets:
+                        if otr is not None:
+                            otr.emit("escalate",
+                                     rid=self.lane_req[slot].rid,
+                                     lane=slot, model=m)
                         if self.esc.request(slot, m) is not None:
                             self._start_catchup(slot, m)
+                            if otr is not None:
+                                otr.emit("esc_grant",
+                                         rid=self.lane_req[slot].rid,
+                                         lane=slot, model=m)
+                        elif otr is not None:
+                            otr.emit("esc_wait",
+                                     rid=self.lane_req[slot].rid,
+                                     lane=slot, model=m)
                 else:
                     sv = int(served[slot])
                     if denied:
@@ -504,11 +559,26 @@ class CascadeSimStepper:
                     sm = self.bank.model_of(sv)
                     self.stats.on_served(sm, deepest,
                                          loss=float(losses[slot, sv]))
-                    self.last_loss[slot] = float(losses[slot, sv])
-                    self.last_deepest[slot] = int(deepest_arr[slot])
+                    if otr is not None:
+                        self.last_loss[slot] = float(losses[slot, sv])
+                        self.last_deepest[slot] = int(deepest_arr[slot])
+                        if denied:
+                            otr.emit("recall",
+                                     rid=self.lane_req[slot].rid,
+                                     lane=slot, model=sm, node=sv,
+                                     deepest=deepest, denied=True)
+                        elif deepest > sm:
+                            otr.emit("recall",
+                                     rid=self.lane_req[slot].rid,
+                                     lane=slot, model=sm, node=sv,
+                                     deepest=deepest)
                     for m in self.router.note_emit(slot, probed, sv, lp):
                         self.esc.release(slot, m)
                         self.stats.deescalations += 1
+                        if otr is not None:
+                            otr.emit("deescalate",
+                                     rid=self.lane_req[slot].rid,
+                                     lane=slot, model=m)
 
         if self.pool is not None and emit.any():
             # rung-0 paged bookkeeping per emitted token (fresh tail

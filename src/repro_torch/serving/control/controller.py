@@ -39,7 +39,7 @@ class AdaptiveController:
     """Telemetry -> gear selection -> swap/publish, between steps."""
 
     # observability plane: gear switches and recalibrations land as
-    # events on a tracer when one is installed (none is yet in the port)
+    # events on the tracer the server installs with its obs bundle
     tracer = None
 
     def __init__(self, bank: GearBank, *, span: float,

@@ -1,12 +1,12 @@
 """`ServeReport` — the one serve report (DESIGN.md §12).
 
-The report builds a `MetricsRegistry` first — every number it shows
-lands as a labelled gauge — and renders its lines *from the registry*.
-The port keeps the sections its launcher fills (runtime with its
-reaped requests and deadline slack, adaptive, segments, cascade, kv
-pool — one per cascade rung —, chunked prefill), with the reference's
-wording; the observability sections come with the slice that ports
-their producers.
+`launch/serve.py` used to stitch each serve's closing report out of
+bespoke ``print()`` blocks, three of which had drifted into near-
+copies (the latency block, and two flavours of the "kv pool: peak …"
+line).  The report now builds a `MetricsRegistry` first — every
+number the old prints showed lands as a labelled gauge — and renders
+its lines *from the registry*, so ``--metrics-out`` and the console
+report can never disagree.
 
 Sections are added for whatever subsystems actually ran; `lines()`
 renders only what was added, in a stable order.
@@ -83,6 +83,10 @@ class ServeReport:
             self.add_pool(pool, model=m)
         self._sections.append("cascade")
 
+    def add_chunked_prefill(self, cs: Mapping[str, Any]) -> None:
+        self.registry.absorb("chunked_prefill", cs)
+        self._sections.append("chunk")
+
     def add_adaptive(self, st: Mapping[str, Any]) -> None:
         self._gear = st.get("gear")
         self._switches = list(st.get("switches", ()))
@@ -91,9 +95,47 @@ class ServeReport:
             if k not in ("switches", "gear")})
         self._sections.append("adaptive")
 
-    def add_chunked_prefill(self, cs: Mapping[str, Any]) -> None:
-        self.registry.absorb("chunked_prefill", cs)
-        self._sections.append("chunk")
+    def add_trace(self, tracer, flight=None) -> None:
+        self.registry.absorb("trace", tracer.stats())
+        if flight is not None:
+            self.registry.absorb("flight", flight.stats())
+        self._sections.append("trace")
+
+    def add_ledger(self, report: Mapping[str, Any]) -> None:
+        """Invariant-ledger verdicts (audit.py's ``ledger_report/v1``)."""
+        self._ledger = dict(report)
+        self.registry.absorb("ledger", {
+            "events_seen": report.get("events_seen", 0),
+            "total_violations": report.get("total_violations", 0),
+            "checks": sum(c.get("checks", 0) for c in
+                          report.get("contracts", {}).values()),
+        })
+        self._sections.append("ledger")
+
+    def add_lossmap(self, lm: Mapping[str, Any]) -> None:
+        """Goodput-loss attribution (lossmap.py's ``obs_lossmap/v1``)."""
+        self._lossmap = dict(lm)
+        self.registry.absorb("lossmap", {
+            k: v for k, v in lm.items()
+            if k not in ("schema", "stalls_s")})
+        self._sections.append("lossmap")
+
+    def add_regret(self, doc: Mapping[str, Any]) -> None:
+        """Decision-quality regret (regret.py's ``obs_regret/v1``)."""
+        self._regret = dict(doc)
+        self.registry.absorb("regret", {
+            k: v for k, v in doc.items()
+            if k in ("requests", "tokens", "regret_mean", "regret_p99",
+                     "regret_max", "regret_total") and v is not None})
+        self._sections.append("regret")
+
+    def add_pareto(self, doc: Mapping[str, Any]) -> None:
+        """Streaming frontier (pareto.py's ``obs_pareto/v1``)."""
+        self._pareto = dict(doc)
+        self.registry.absorb("pareto", {
+            "points": doc.get("points", 0),
+            "frontier_size": doc.get("frontier_size", 0)})
+        self._sections.append("pareto")
 
     # -------------------------------------------------------- renderers
     def _v(self, name: str, default=None, **labels):
@@ -179,16 +221,6 @@ class ServeReport:
              f"{v('cascade_repin_tokens', 0):.0f}"),
         ]
 
-    def _adaptive_lines(self) -> list[str]:
-        v = self._v
-        lines = [(f"adaptive: final gear {self._gear}, "
-                  f"{v('adaptive_gear_switches', 0):.0f} gear switches, "
-                  f"{v('adaptive_recalibrations', 0):.0f} online "
-                  f"recalibrations")]
-        for sw in self._switches:
-            lines.append(f"  t={sw['t']:6.2f}s  {sw['from']} -> {sw['to']}")
-        return lines
-
     def _chunk_lines(self) -> list[str]:
         v = self._v
         computed = v("chunked_prefill_tokens_computed", 0)
@@ -200,15 +232,101 @@ class ServeReport:
                  f"{max(total, 1):.0f} skipped via prefix cache "
                  f"({v('chunked_prefill_prefills', 0):.0f} admissions)")]
 
+    def _adaptive_lines(self) -> list[str]:
+        v = self._v
+        lines = [(f"adaptive: final gear {self._gear}, "
+                  f"{v('adaptive_gear_switches', 0):.0f} gear switches, "
+                  f"{v('adaptive_recalibrations', 0):.0f} online "
+                  f"recalibrations")]
+        for sw in self._switches:
+            lines.append(f"  t={sw['t']:6.2f}s  {sw['from']} -> {sw['to']}")
+        return lines
+
+    def _trace_lines(self) -> list[str]:
+        v = self._v
+        line = (f"trace: {v('trace_events', 0):.0f} events buffered "
+                f"({v('trace_emitted', 0):.0f} emitted, "
+                f"{v('trace_dropped', 0):.0f} dropped)")
+        bundles = v("flight_bundles")
+        if bundles is not None:
+            line += f"; flight recorder bundles: {bundles:.0f}"
+        return [line]
+
+    def _ledger_lines(self) -> list[str]:
+        rep = getattr(self, "_ledger", {})
+        contracts = rep.get("contracts", {})
+        total = rep.get("total_violations", 0)
+        checks = sum(c.get("checks", 0) for c in contracts.values())
+        verdict = "PASS" if total == 0 else "VIOLATED"
+        if any(c.get("verdict") == "unverifiable"
+               for c in contracts.values()):
+            verdict = "UNVERIFIABLE"
+        lines = [f"ledger: {len(contracts)} contracts, {checks} checks, "
+                 f"{total} violations ({verdict})"]
+        for v in rep.get("violations", ())[:5]:
+            lines.append(f"  {v['contract']} @ t={v['t']:.2f}s: "
+                         f"{v['detail']}")
+        return lines
+
+    def _lossmap_lines(self) -> list[str]:
+        lm = getattr(self, "_lossmap", {})
+        loss = lm.get("loss_tok_s", {})
+        gap = lm.get("loss_total_tok_s", 0.0)
+        head = (f"lossmap: ceiling {lm.get('ceiling_tok_s', 0.0):.1f} "
+                f"tok/s, goodput {lm.get('goodput_tok_s', 0.0):.1f} "
+                f"tok/s (gap {gap:.1f})")
+        parts = [f"{c} {v:.2f}" for c, v in sorted(
+            loss.items(), key=lambda kv: -kv[1]) if v > 0]
+        if parts:
+            head += ": " + ", ".join(parts)
+        return [head]
+
+    def _regret_lines(self) -> list[str]:
+        rep = getattr(self, "_regret", {})
+        verdict = rep.get("verdict", "exact")
+        if verdict == "unverifiable":
+            return [(f"regret: UNVERIFIABLE over "
+                     f"{rep.get('requests', 0)} requests "
+                     f"(ring dropped events; numbers demoted)")]
+        mean = rep.get("regret_mean") or 0.0
+        p99 = rep.get("regret_p99") or 0.0
+        head = (f"regret: mean {mean:.4f} p99 {p99:.4f} over "
+                f"{rep.get('requests', 0)} requests ({verdict})")
+        parts = [f"{c} {v:.4f}" for c, v in sorted(
+            rep.get("causes", {}).items(), key=lambda kv: -kv[1])
+            if v > 0]
+        if parts:
+            head += ": " + ", ".join(parts)
+        return [head]
+
+    def _pareto_lines(self) -> list[str]:
+        rep = getattr(self, "_pareto", {})
+        head = (f"pareto: {rep.get('frontier_size', 0)} frontier points "
+                f"/ {rep.get('points', 0)} served")
+        parts = [f"{g} {s['frontier']}/{s['points']}"
+                 for g, s in sorted(rep.get("by_gear", {}).items())
+                 if s.get("frontier")]
+        if parts:
+            head += " (" + ", ".join(parts) + ")"
+        return [head]
+
     def lines(self) -> list[str]:
+        order = ("runtime", "adaptive", "segments", "cascade", "pool",
+                 "chunk", "trace", "ledger", "lossmap", "regret",
+                 "pareto")
         render = {"runtime": self._runtime_lines,
                   "adaptive": self._adaptive_lines,
                   "segments": self._segments_lines,
                   "cascade": self._cascade_lines,
                   "pool": self._pool_lines,
-                  "chunk": self._chunk_lines}
+                  "chunk": self._chunk_lines,
+                  "trace": self._trace_lines,
+                  "ledger": self._ledger_lines,
+                  "lossmap": self._lossmap_lines,
+                  "regret": self._regret_lines,
+                  "pareto": self._pareto_lines}
         out: list[str] = []
-        for section in render:
+        for section in order:
             if section in self._sections:
                 out.extend(render[section]())
         return out

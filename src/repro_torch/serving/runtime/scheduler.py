@@ -214,6 +214,9 @@ class EngineStepper:
 
     virtual_time = False
     emits_tokens = True    # `emitted` really is token ids (EOS applies)
+    # the server installs a `SpanTracer` here when one is attached: each
+    # prefill chunk lands as an event, from host values only
+    tracer = None
 
     def __init__(self, params, cfg, strategies: tuple, *, n_lanes: int,
                  cache_len: int, prompt_len: int, kv: str = "ring",
@@ -427,7 +430,7 @@ class EngineStepper:
         self.chunk_stats["prefills"] += 1
         self._prefilling[lane] = {
             "prompt": np.asarray(req.prompt, np.int32),
-            "plan": plan, "cursor": cursor, "lp": lp}
+            "plan": plan, "cursor": cursor, "lp": lp, "rid": req.rid}
         # the recycled lane starts from fresh strategy state no matter
         # what its predecessor observed
         self.states = tuple(init_lane(s, st, lane)
@@ -496,6 +499,11 @@ class EngineStepper:
                 emit[lane] = True
                 finished.append(lane)
             self.chunk_stats["tokens_computed"] += w
+            if self.tracer is not None:
+                self.tracer.emit(
+                    "prefill_chunk", lane=int(lane),
+                    rid=int(st.get("rid", -1)), width=int(w),
+                    left=int(st["lp"] - st["cursor"]))
         chunk = PrefillChunk(
             tok=self._dev(tok), pos=self._dev(pos), dest_page=self._dev(dp),
             dest_slot=self._dev(ds), start=self._dev(start),

@@ -24,8 +24,11 @@ lane-granular dispatch would pay).
 The control plane (`serving.control`) drives the loop through the
 ``controller`` hooks; the fault plane (`serving.faults`) rides the
 stepper (``faults``, ``governor``, read with ``getattr``) and the
-requests (``cancel_at``, ``deadline``).  The JAX package's
-observability plane is not part of the port yet.
+requests (``cancel_at``, ``deadline``).  The observability plane
+(`serving.obs`) rides an ``obs`` bundle: the server binds its clock to
+the tracer and hands the tracer to the stepper and the controller; every
+producer guards on ``tracer is not None``, so an untraced serve does no
+extra work.
 """
 
 from __future__ import annotations
@@ -143,6 +146,9 @@ class SimStepper:
 
     virtual_time = True
     emits_tokens = False   # `emitted` carries served nodes, not token ids
+    # the server installs a `SpanTracer` here when one is attached; the
+    # per-lane attribution below is built only under a tracer
+    tracer = None
     last_loss = None       # per-lane served-node loss of the last step
     last_deepest = None    # per-lane deepest PROBED node (-1 = silent)
     fault_now = 0.0        # the server's clock, stamped with a FaultPlan
@@ -251,8 +257,19 @@ class SimStepper:
         # served-loss accumulator: the trace loss of every served node
         self.served_loss_sum = 0.0
         self.served_loss_n = 0
+        self._stall_seen: set = set()   # (model, window-start) emitted
         if self.pool is not None:
             self.pool.reset()
+
+    def _note_stall(self, model: int) -> None:
+        """Emit one `rung_stall` span per scripted window edge."""
+        win = self.faults.stall_window(model, self.fault_now)
+        if win is None or (model, win[0]) in self._stall_seen:
+            return
+        self._stall_seen.add((model, win[0]))
+        if self.tracer is not None:
+            self.tracer.emit("rung_stall", model=model,
+                             t0=round(win[0], 9), until=round(win[1], 9))
 
     def reserve(self, req: Request) -> bool:
         """Admission gate: with a pool attached, reserve the request's
@@ -301,8 +318,10 @@ class SimStepper:
             # the single sim rung is frozen: no rows consumed, no
             # tokens, no prefill progress — only the clock moves, so a
             # finite window always passes (liveness)
-            self.last_loss = np.full(self.n_lanes, np.nan)
-            self.last_deepest = np.full(self.n_lanes, -1)
+            self._note_stall(0)
+            if self.tracer is not None:
+                self.last_loss = np.full(self.n_lanes, np.nan)
+                self.last_deepest = np.full(self.n_lanes, -1)
             served = np.zeros(self.n_lanes, np.int64)
             return (served, served, 0, 0, self.overhead,
                     np.zeros(self.n_lanes, bool))
@@ -321,6 +340,11 @@ class SimStepper:
                 for lane, w in widths.items():
                     self.lane_prefill[lane] -= w
                     chunk_cost += w * self.prefill_tok_time
+                    if self.tracer is not None:
+                        self.tracer.emit(
+                            "prefill_chunk", lane=lane,
+                            rid=self.lane_req[lane].rid, width=int(w),
+                            left=int(self.lane_prefill[lane]))
         if self.pool is not None and emit.any():
             # paged bookkeeping per decode token: fresh tail pages from
             # the reserved budget, COW splits on shared tails
@@ -343,12 +367,14 @@ class SimStepper:
         for lane in np.flatnonzero(emit):
             self.served_loss_sum += float(losses[lane, served[lane]])
             self.served_loss_n += 1
-        # per-lane served-node loss (NaN = no emission) and deepest
-        # probed node, for per-token decision attribution
-        self.last_loss = np.where(
-            emit, losses[np.arange(self.n_lanes),
-                         np.clip(served, 0, self.n_nodes - 1)], np.nan)
-        self.last_deepest = np.where(emit, deepest.cpu().numpy(), -1)
+        if self.tracer is not None:
+            # per-lane served-node loss (NaN = no emission) and deepest
+            # probed node, picked up by the server's token events for
+            # decision attribution (the one copy of ``deepest`` back)
+            self.last_loss = np.where(
+                emit, losses[np.arange(self.n_lanes),
+                             np.clip(served, 0, self.n_nodes - 1)], np.nan)
+            self.last_deepest = np.where(emit, deepest.cpu().numpy(), -1)
         if self.row_tap is not None and emit.any():
             idx = np.flatnonzero(emit)
             self.row_tap(losses[idx], served[idx])
@@ -380,13 +406,18 @@ class Server:
     ``controller`` (a `serving.control.AdaptiveController`) is bound to
     the run by ``begin``, fed arrivals by ``on_arrivals``, and called at
     every step boundary by ``on_step_end`` — the one instant a gear swap
-    or a table publish may land.
+    or a table publish may land.  ``obs`` (a `serving.obs.Observability`)
+    traces the serve: lifecycle and per-token events on the server's
+    clock (virtual in sim mode, so the trace is deterministic), with its
+    flight recorder, invariant ledger and regret meter riding the
+    tracer's listener hook.
     """
 
     def __init__(self, stepper, scheduler: LaneScheduler, sid_of, *,
                  order: str = "fifo", slo: float | None = None,
                  static_batching: bool = False, eos: int | None = None,
-                 controller=None, enforce_deadlines: bool = False):
+                 controller=None, obs=None,
+                 enforce_deadlines: bool = False):
         self.stepper = stepper
         self.scheduler = scheduler
         self.sid_of = sid_of
@@ -395,6 +426,7 @@ class Server:
         self.static_batching = static_batching
         self.eos = eos
         self.enforce_deadlines = bool(enforce_deadlines)
+        self.obs = obs
         self.controller = controller
         self._vt = 0.0
         self._t0 = 0.0
@@ -425,13 +457,20 @@ class Server:
             return "timed_out"
         return None
 
-    def _reap(self, queue, metrics, release, now: float) -> None:
+    def _reap(self, queue, metrics, tracer, release, now: float) -> None:
         """Sweep cancelled / expired requests out of the queue and off
-        their lanes between steps (lane resources released first)."""
+        their lanes between steps.  Lane teardown runs release-first so
+        the span events land on an already-clean pool — the ledger's
+        `cancel_releases_pages` probe reads pool state at the event."""
         sched = self.scheduler
         for req in queue.reap(
                 lambda r: self._reap_status(r, now) is not None):
-            metrics.on_reap(req, now, self._reap_status(req, now))
+            status = self._reap_status(req, now)
+            metrics.on_reap(req, now, status)
+            if tracer is not None:
+                kind = ("cancel" if status == "cancelled"
+                        else "deadline_miss")
+                tracer.emit(kind, rid=req.rid)
         for lane in np.flatnonzero(sched.occupied_mask()):
             req = sched.lane_req[lane]
             status = self._reap_status(req, now)
@@ -441,6 +480,10 @@ class Server:
                 release(int(lane))  # KV pages + escalation lanes freed
             sched.release(int(lane))
             metrics.on_reap(req, now, status)
+            if tracer is not None:
+                kind = ("cancel" if status == "cancelled"
+                        else "deadline_miss")
+                tracer.emit(kind, rid=req.rid, lane=int(lane))
 
     def _fault_wake(self, queue, faults, reaping: bool,
                     now: float) -> float | None:
@@ -475,6 +518,9 @@ class Server:
         metrics = RuntimeMetrics(stepper.full_depth, sched.n_lanes)
         if self.controller is not None:
             self.controller.begin(metrics, stepper)
+        tracer = self.obs.tracer if self.obs is not None else None
+        if tracer is not None:
+            self._bind_obs(tracer, metrics)
         deadline_of = None
         if self.order == "edf" and self.slo is not None:
             deadline_of = lambda r: r.arrival + self.slo  # noqa: E731
@@ -495,6 +541,12 @@ class Server:
         # (reserve-at-pop); a blocked request waits at the queue head
         gate = getattr(stepper, "reserve", None)
         release = getattr(stepper, "release", None)
+        if gate is not None and tracer is not None:
+            def gate(req, _inner=gate):
+                ok = _inner(req)
+                if not ok:
+                    tracer.emit("page_blocked", rid=req.rid)
+                return ok
 
         while pending or len(queue) or sched.busy():
             now = self._now()
@@ -509,16 +561,21 @@ class Server:
                 req = pending.pop(0)
                 queue.push(req)
                 pushed.append(req.arrival)
+                if tracer is not None:
+                    self._emit_queued(tracer, req)
             if self.controller is not None and pushed:
                 self.controller.on_arrivals(pushed)
             if reaping:
-                self._reap(queue, metrics, release, now)
+                self._reap(queue, metrics, tracer, release, now)
             for lane, req in sched.admit(
                     queue, self.sid_of,
                     static_batching=self.static_batching,
                     can_admit=gate):
                 stepper.admit(lane, req)
                 metrics.on_admit(req, self._now())
+                if tracer is not None:
+                    tracer.emit("admitted", rid=req.rid, lane=lane,
+                                sid=int(sched.sid[lane]))
             if not sched.busy():
                 if not pending:
                     # nothing running, nothing arriving — the queue may
@@ -554,6 +611,9 @@ class Server:
                 req = sched.lane_req[lane]
                 metrics.on_token(req.rid, int(served[lane]), tnow,
                                  token=int(emitted[lane]))
+                if tracer is not None:
+                    self._emit_token(tracer, metrics, req, lane, emitted,
+                                     served)
                 done = sched.consume_token(lane)
                 if (not done and self.eos is not None
                         and getattr(stepper, "emits_tokens", True)
@@ -564,10 +624,90 @@ class Server:
                     if release is not None:
                         release(lane)   # paged KV: pages back to the pool
                     sched.release(lane)
+                    if tracer is not None:
+                        tracer.emit("finish", rid=req.rid, lane=int(lane))
+            if tracer is not None:
+                data = {"queue": len(queue)}
+                pool = getattr(stepper, "pool", None)
+                if pool is not None:
+                    data["pages_in_use"] = int(pool.pages_in_use)
+                tracer.emit("counter", **data)
             if self.controller is not None:
                 # step boundary: no lane is mid-token — the one atomic
                 # instant a gear swap / table publish may land
                 self.controller.on_step_end(self._now(), len(queue))
 
         metrics.t_end = self._now()
+        if self.obs is not None:
+            if self.obs.ledger is not None:
+                self.obs.ledger.finalize(self._now())
+            if self.obs.regret is not None:
+                self.obs.regret.finalize(self._now())
         return metrics
+
+    # ---- observability -------------------------------------------------
+    def _bind_obs(self, tracer, metrics) -> None:
+        """Bind the tracer to this serve: the server's clock, the stepper
+        and the controller as producers, and the flight recorder, ledger
+        and regret meter as listeners (they never emit or sync)."""
+        stepper = self.stepper
+        tracer.bind_clock(self._now)
+        stepper.tracer = tracer
+        if self.controller is not None:
+            self.controller.tracer = tracer
+        flight = self.obs.flight
+        if flight is not None:
+            if flight.slo is None:
+                flight.slo = self.slo
+            flight.bind(tracer,
+                        snapshot_fn=lambda: metrics.summary(self.slo))
+        if self.obs.ledger is not None:
+            self.obs.ledger.bind(tracer,
+                                 pool=getattr(stepper, "pool", None))
+        if self.obs.regret is not None:
+            self.obs.regret.bind(tracer, stepper=stepper, flight=flight,
+                                 controller=self.controller)
+
+    @staticmethod
+    def _emit_queued(tracer, req) -> None:
+        """The queued event carries everything needed to rebuild the
+        request (`obs.replay`) — prompt bytes included, since paged
+        admission and prefix sharing key on content."""
+        extra = {"plen": len(req.prompt), "ntok": int(req.max_tokens),
+                 "prompt": np.asarray(req.prompt,
+                                      np.uint32).tobytes().hex()}
+        if req.strategy is not None:
+            extra["strategy"] = req.strategy
+        if req.lam is not None:
+            extra["lam"] = float(req.lam)
+        if req.deadline is not None:
+            extra["deadline"] = float(req.deadline)
+        if req.cancel_at is not None:
+            extra["cancel_at"] = float(req.cancel_at)
+        tracer.emit("queued", t=req.arrival, rid=req.rid, **extra)
+
+    def _emit_token(self, tracer, metrics, req, lane, emitted,
+                    served) -> None:
+        """One token event: the served node and bank slot, the TTFT on
+        a request's first token, and the stepper's per-lane attribution
+        (served loss, escalated, deepest probed node) where it has it —
+        all host values the step already returned."""
+        stepper = self.stepper
+        extra = {}
+        rec = metrics.records[req.rid]
+        if rec.n_tokens == 1 and rec.ttft is not None:
+            extra["ttft"] = round(rec.ttft, 9)
+        ll = getattr(stepper, "last_loss", None)
+        if ll is not None and not np.isnan(ll[lane]):
+            extra["loss"] = round(float(ll[lane]), 6)
+        le = getattr(stepper, "last_escalated", None)
+        if le is not None and le[lane]:
+            extra["esc"] = True
+        ld = getattr(stepper, "last_deepest", None)
+        if ld is not None and ld[lane] >= 0:
+            extra["deepest"] = int(ld[lane])
+        if getattr(stepper, "emits_tokens", True):
+            extra["tok"] = int(emitted[lane])
+        tracer.emit("token", rid=req.rid, lane=int(lane),
+                    node=int(served[lane]),
+                    sid=int(self.scheduler.sid[lane]), **extra)

@@ -19,9 +19,10 @@ packages with the same numpy traces, tables and workloads:
     EQUAL to the reference's;
   * the adaptive leg of the reference's ``bench_runtime.
     adaptive_vs_frozen`` (`repro_torch.bench.adaptive`): switch times,
-    publish times and records EQUAL to the reference's leg built
-    directly with no observability, and ``benchmarks.adaptive_smoke.check``'s claims
-    hold on the port's rows.
+    publish times, records and the row's decision ``attribution`` EQUAL
+    to the reference's leg built directly from the reference bench's
+    setup under a tracer, and ``benchmarks.adaptive_smoke.check``'s
+    claims hold on the port's rows.
 
 Tolerances: 1e-9 on the planner's float64 prices (the same float32
 evaluation in both packages); 1e-5 on refit tables (f32 solves).
@@ -35,6 +36,8 @@ from repro import strategy as jstrategy
 from repro.core import traces as jtraces
 from repro.serving import control as jcontrol
 from repro.serving import runtime as jrt
+from repro.serving.obs import Observability as JObs
+from repro.serving.obs import decision_attribution as j_attribution
 from repro.serving.runtime.metrics import RuntimeMetrics as JMetrics
 from repro.serving.runtime.metrics import SlidingWindow as JWindow
 from repro.serving.runtime.workload import WorkloadSpec as JSpec
@@ -479,8 +482,9 @@ def test_admission_order_invariance_across_swap_boundary():
 @pytest.fixture(scope="module")
 def adaptive():
     """The port's four legs (`legs.adaptive_vs_frozen` on the CPU) and
-    the reference's adaptive leg, built directly with no observability
-    plane from the reference bench's own setup."""
+    the reference's adaptive leg, built directly from the reference
+    bench's own setup under a tracer, with its decision attribution as
+    the reference bench computes it."""
     from benchmarks import bench_runtime as B
     torch.set_num_threads(2)
     rows, (tm, tst, tctl) = legs.adaptive_vs_frozen(device=CPU)
@@ -497,10 +501,13 @@ def adaptive():
         recal_min_rows=B.ADAPT_RECAL_MIN_ROWS, planner=planner)
     jst = jrt.SimStepper(jbank.strategies, serve_rows, n_lanes=B.LANES,
                          seg_time=B.SEG_TIME, overhead=B.OVERHEAD)
+    jobs = JObs()
     jm = jrt.Server(jst, jrt.LaneScheduler(B.LANES), jctl.sid_of,
-                    slo=B.SLO, controller=jctl).serve(jreqs)
+                    slo=B.SLO, controller=jctl, obs=jobs).serve(jreqs)
+    jattr = j_attribution(jobs.tracer.events,
+                          gear_of=lambda sid: jbank[int(sid)].name)
     return dict(rows=rows, tm=tm, tst=tst, tctl=tctl, jm=jm, jst=jst,
-                jctl=jctl)
+                jctl=jctl, jattr=jattr)
 
 
 def test_adaptive_leg_matches_reference(adaptive):
@@ -516,6 +523,22 @@ def test_adaptive_leg_matches_reference(adaptive):
     assert a["tst"].decide_cache_size() == 1
     [seen] = a["tst"].storages
     assert list(seen) == _ptrs(tctl.swap)
+
+
+def test_adaptive_leg_attribution_matches_reference(adaptive):
+    """Each row carries its decision attribution, as the reference bench's
+    rows do; the adaptive leg's equals the reference's, and every row's
+    accounts for every token its leg served."""
+    rows = adaptive["rows"]
+    ad = next(r for r in rows if r["adaptive"] == "adaptive")
+    assert ad["attribution"] == adaptive["jattr"]
+    names = {g.name for g in legs.adaptive_setup()[1]}
+    for row in rows:
+        attr = row["attribution"]
+        assert sum(c["tokens"] for c in attr) == row["summary"]["tokens"]
+        assert {c["gear"] for c in attr} <= names
+        if row["adaptive"] != "adaptive":
+            assert {c["gear"] for c in attr} == {row["gear"]}
 
 
 def test_adaptive_smoke_acceptance_claims(adaptive):

@@ -1,7 +1,7 @@
 """The port's fault plane (repro_torch.serving.faults and its hooks in
 `Server`, `SimStepper`, `CascadeSimStepper`, the launcher) against the
-JAX package's, mirroring the tests of tests/serving/test_faults.py that
-read no span, ledger, lossmap, events doc, Perfetto trace or soak run:
+JAX package's, mirroring every test of tests/serving/test_faults.py but
+the chaos soak leg (its `benchmarks.soak` run imports the JAX package):
 
   * `FaultPlan`: seeded generation is deterministic and its
     ``faults/v1`` doc EQUAL to the reference's on the same requests;
@@ -23,7 +23,13 @@ read no span, ledger, lossmap, events doc, Perfetto trace or soak run:
     EQUAL end states;
   * the launcher serves ``--faults`` / ``--cancel-rate`` /
     ``--deadline-ms`` / ``--kv-reclaim`` on the CPU, and a cascade under
-    a plan that stalls rung 1, whose governor denies every escalation.
+    a plan that stalls rung 1, whose governor denies every escalation;
+  * the observability plane under faults: the chaos serve's span
+    digest, ledger report and events doc (plan embedded), the cancel
+    tests' ledger probes, the governor's ``denied`` recall spans and
+    its one ``rung_stall`` span, the loss map's cancelled and stall
+    causes, the three fault-plane ledger contracts and a reaped
+    request's Perfetto span — each EQUAL to the reference's.
 
 Decisions are exact (tables bridged from the reference), so every
 compared record is EQUAL.
@@ -42,7 +48,10 @@ from repro.serving import cascade as jcascade
 from repro.serving import runtime as jrt
 from repro.serving.faults import DegradeGovernor as JGovernor
 from repro.serving.faults import FaultPlan as JPlan
+from repro.serving import obs as jobs
 from repro.serving.kvpool import KVPool as JPool
+from repro.serving.obs import export as jexport
+from repro.serving.obs import lossmap as jlossmap
 from repro.serving.runtime.metrics import RuntimeMetrics as JMetrics
 from repro.serving.runtime.request import Request as JRequest
 from repro.serving.runtime.workload import WorkloadSpec as JSpec
@@ -55,7 +64,10 @@ from repro_torch.serving import runtime as trt
 from repro_torch.serving.cascade import (CascadeSimStepper, ModelBank,
                                          ModelSpec)
 from repro_torch.serving.faults import DegradeGovernor, FaultPlan
+from repro_torch.serving import obs as tobs
 from repro_torch.serving.kvpool import KVPool
+from repro_torch.serving.obs import export as texport
+from repro_torch.serving.obs import lossmap as tlossmap
 from repro_torch.serving.runtime.metrics import RuntimeMetrics
 from repro_torch.serving.runtime.request import Request
 from repro_torch.serving.runtime.workload import WorkloadSpec
@@ -95,11 +107,12 @@ def sim_cascade():
 
 PKG = {"jax": dict(rt=jrt, plan=JPlan, pool=JPool, req=JRequest,
                    spec=JSpec, strategy=jstrategy, gov=JGovernor,
-                   metrics=JMetrics, kw={}),
+                   metrics=JMetrics, obs=jobs, export=jexport,
+                   lossmap=jlossmap, kw={}),
        "torch": dict(rt=trt, plan=FaultPlan, pool=KVPool, req=Request,
                      spec=WorkloadSpec, strategy=tstrategy,
-                     gov=DegradeGovernor, metrics=RuntimeMetrics,
-                     kw={"device": CPU})}
+                     gov=DegradeGovernor, metrics=RuntimeMetrics, obs=tobs,
+                     export=texport, lossmap=tlossmap, kw={"device": CPU})}
 
 
 def _records(metrics):
@@ -191,10 +204,10 @@ def test_fault_plan_serve_queries():
 # --------------------------------------------------------------------------
 
 def _chaos_serve(pkg, casc, bank, *, prompt_len=4, n_pages=24,
-                 reclaim=None):
+                 reclaim=None, obs=None):
     """Cancellation storm + deadline squeeze + rung stall + page squeeze
     through one pool-gated sim serve; ``reclaim`` arms the pool's
-    sliding-window reclamation at that watermark."""
+    sliding-window reclamation at that watermark, ``obs`` observes."""
     p = PKG[pkg]
     spec = p["spec"](rate=3.0, duration=8.0, prompt_len=prompt_len,
                      max_tokens=(5, 25), seed=7)
@@ -212,7 +225,7 @@ def _chaos_serve(pkg, casc, bank, *, prompt_len=4, n_pages=24,
                                  overhead=0.01, pool=pool, faults=plan,
                                  **p["kw"])
     server = p["rt"].Server(stepper, p["rt"].LaneScheduler(3), sid_of,
-                            slo=5.0, enforce_deadlines=True)
+                            slo=5.0, obs=obs, enforce_deadlines=True)
     return server.serve(requests), plan, pool
 
 
@@ -254,6 +267,58 @@ def test_chaos_serve_reclaims_like_the_reference(sim_cascade):
     _pool_clean(pool)
 
 
+def _chaos_obs(sim_cascade, ledger=False):
+    """The chaos serve under an `Observability` (with an invariant
+    ledger if ``ledger``) in each package: {pkg: (metrics, plan, pool,
+    obs)}."""
+    jcasc, tcasc, bank = sim_cascade
+    out = {}
+    for pkg, casc in (("jax", jcasc), ("torch", tcasc)):
+        o = PKG[pkg]["obs"]
+        obs = o.Observability(ledger=o.InvariantLedger() if ledger
+                              else None)
+        out[pkg] = _chaos_serve(pkg, casc, bank, obs=obs) + (obs,)
+    return out
+
+
+def test_chaos_serve_span_digest_reproducible(sim_cascade):
+    runs = [_chaos_obs(sim_cascade) for _ in range(2)]
+    o1, o2 = runs[0]["torch"][3], runs[1]["torch"][3]
+    assert o1.tracer.span_digest() == o2.tracer.span_digest()
+    assert o1.tracer.span_digest() == runs[0]["jax"][3].tracer.span_digest()
+    kinds = {ev.kind for ev in o1.tracer.events}
+    assert "cancel" in kinds
+    assert "rung_stall" in kinds
+
+
+def test_chaos_serve_ledger_clean_and_pool_empty(sim_cascade):
+    out = _chaos_obs(sim_cascade, ledger=True)
+    reps = {pkg: run[3].ledger.report() for pkg, run in out.items()}
+    assert reps["torch"] == reps["jax"]
+    rep = reps["torch"]
+    assert rep["total_violations"] == 0, rep["violations"]
+    assert rep["contracts"]["cancel_halts_stream"]["checks"] > 0
+    _pool_clean(out["torch"][2])
+
+
+def test_chaos_events_doc_carries_plan(sim_cascade):
+    from benchmarks.check_trace import validate_events
+    out = _chaos_obs(sim_cascade)
+    docs = {}
+    for pkg, (_, plan, _, obs) in out.items():
+        docs[pkg] = json.loads(json.dumps(
+            PKG[pkg]["export"].events_doc(obs.tracer, faults=plan),
+            default=float))
+    assert docs["torch"] == docs["jax"]
+    doc, plan = docs["torch"], out["torch"][1]
+    assert doc["faults"]["schema"] == "faults/v1"
+    assert FaultPlan.from_doc(doc["faults"]).as_doc() == plan.as_doc()
+    assert validate_events(doc) == []
+    bad = json.loads(json.dumps(doc))
+    bad["faults"]["squeezes"] = [[3.0, 1.0, 2]]    # t1 < t0
+    assert validate_events(bad) != []
+
+
 # --------------------------------------------------------------------------
 # cancellation releases pages (COW-shared prefixes)
 # --------------------------------------------------------------------------
@@ -271,9 +336,10 @@ def _cow_serve(pkg, casc, bank):
         requests, p["rt"].cascade_factory(casc), ("recall_index", None))
     stepper = p["rt"].SimStepper(strategies, bank, n_lanes=2, seg_time=0.05,
                                  overhead=0.01, pool=pool, **p["kw"])
+    obs = p["obs"].Observability(ledger=p["obs"].InvariantLedger())
     server = p["rt"].Server(stepper, p["rt"].LaneScheduler(2), sid_of,
-                            slo=5.0)
-    return server.serve(requests), pool
+                            slo=5.0, obs=obs)
+    return server.serve(requests), pool, obs.ledger
 
 
 def test_cancel_mid_stream_releases_pages_under_cow(sim_cascade):
@@ -281,9 +347,15 @@ def test_cancel_mid_stream_releases_pages_under_cow(sim_cascade):
     splits; cancelling one mid-decode leaves its lane page-clean without
     disturbing the survivor or the shared prefix chain."""
     jcasc, tcasc, bank = sim_cascade
-    metrics, pool = _cow_serve("torch", tcasc, bank)
-    jm, _ = _cow_serve("jax", jcasc, bank)
+    metrics, pool, ledger = _cow_serve("torch", tcasc, bank)
+    jm, _, jledger = _cow_serve("jax", jcasc, bank)
     assert _records(metrics) == _records(jm)
+    # the ledger probed the pool AT the cancel event and found it clean
+    rep = ledger.report()
+    assert rep == jledger.report()
+    assert rep["contracts"]["cancel_releases_pages"]["checks"] >= 1
+    assert rep["contracts"]["cancel_halts_stream"]["checks"] >= 1
+    assert rep["total_violations"] == 0, rep["violations"]
     rec = metrics.records[1]
     assert rec.status == "cancelled"
     assert rec.finished is None
@@ -298,9 +370,9 @@ def test_cancel_mid_stream_releases_pages_under_cow(sim_cascade):
 
 def test_cancel_in_queue_never_admits(sim_cascade):
     """A request whose cancel fires while it still waits in the queue is
-    reaped there: no admission, no tokens."""
+    reaped there: no admission, no tokens, no ledger violation."""
     jcasc, tcasc, bank = sim_cascade
-    out = {}
+    out, obs = {}, {}
     for pkg, casc in (("jax", jcasc), ("torch", tcasc)):
         p = PKG[pkg]
         requests = [
@@ -314,10 +386,13 @@ def test_cancel_in_queue_never_admits(sim_cascade):
         stepper = p["rt"].SimStepper(strategies, bank, n_lanes=1,
                                      seg_time=0.05, overhead=0.01,
                                      **p["kw"])
+        obs[pkg] = p["obs"].Observability(ledger=p["obs"].InvariantLedger())
         out[pkg] = p["rt"].Server(stepper, p["rt"].LaneScheduler(1), sid_of,
-                                  slo=5.0).serve(requests)
+                                  slo=5.0, obs=obs[pkg]).serve(requests)
     metrics = out["torch"]
     assert _records(metrics) == _records(out["jax"])
+    assert obs["torch"].ledger.total_violations == 0
+    assert obs["torch"].ledger.report() == obs["jax"].ledger.report()
     rec = metrics.records[1]
     assert rec.status == "cancelled"
     assert rec.admitted is None and rec.n_tokens == 0
@@ -393,6 +468,8 @@ def _casc_requests(cls, n, seed=5, deadline=None):
 
 def _casc_serve(pkg, casc_setup, n, *, seed=5, deadline=None,
                 governor=False, stalls=()):
+    """A governed cascade sim serve under a tracer: (metrics, stepper,
+    governor, observability)."""
     jcasc, tcasc, bank_traces = casc_setup
     if pkg == "jax":
         casc, mod = jcasc, jcascade
@@ -417,34 +494,42 @@ def _casc_serve(pkg, casc_setup, n, *, seed=5, deadline=None,
     stepper = stepper_cls(mbank, strat_bank, bank_traces, overhead=0.002,
                           policy="recall", patience=3, chunk=16,
                           faults=faults, governor=gov, **kw)
+    obs = PKG[pkg]["obs"].Observability()
     server = rt.Server(stepper, rt.LaneScheduler(mbank[0].n_lanes), sid_of,
-                       slo=2.0)
-    return server.serve(requests), stepper, gov
+                       slo=2.0, obs=obs)
+    return server.serve(requests), stepper, gov, obs
 
 
 def _casc_pair(casc_setup, n, **kw):
     """The same governed cascade serve in both packages: records,
-    summary and cascade_stats() equal; returns the port's."""
-    jm, jst, _ = _casc_serve("jax", casc_setup, n, **kw)
-    tm, tst, gov = _casc_serve("torch", casc_setup, n, **kw)
+    summary, cascade_stats() and span digest equal; returns the
+    port's."""
+    jm, jst, _, jobs_ = _casc_serve("jax", casc_setup, n, **kw)
+    tm, tst, gov, obs = _casc_serve("torch", casc_setup, n, **kw)
     assert _records(tm) == _records(jm)
     assert tm.summary() == jm.summary()
     assert tst.cascade_stats() == jst.cascade_stats()
-    return tm, tst, gov
+    assert obs.tracer.span_digest() == jobs_.tracer.span_digest()
+    return tm, tst, gov, obs
 
 
 def test_governor_deadline_denial_serves_small_rung(casc_setup):
     """An escalation the deadline budget cannot afford is denied and the
     slot serves the best shallow answer it already probed."""
-    _, st0, _ = _casc_pair(casc_setup, 10)
+    _, st0, _, _ = _casc_pair(casc_setup, 10)
     assert st0.stats.escalations > 0
-    m, st, gov = _casc_pair(casc_setup, 10, deadline=0.001, governor=True)
+    m, st, gov, obs = _casc_pair(casc_setup, 10, deadline=0.001,
+                                 governor=True)
     assert st.stats.escalations == 0
     assert gov.denied > 0 and gov.denied_deadline == gov.denied
     assert gov.allowed == 0
     assert m.summary()["completed"] == 10
     for rec in m.records.values():
         assert all(node < N0 for node in rec.tokens), rec.rid
+    # the demotion is visible: recall spans carry denied=True
+    denied = [ev for ev in obs.tracer.events
+              if ev.kind == "recall" and dict(ev.data).get("denied")]
+    assert denied
     cs = st.cascade_stats()
     assert cs["governor_denied"] == gov.denied
     assert cs["tokens_served"][1] == 0
@@ -453,20 +538,24 @@ def test_governor_deadline_denial_serves_small_rung(casc_setup):
 def test_governor_stall_denial(casc_setup):
     """Escalating into a rung frozen by a scripted stall parks the
     request for the whole window — the governor refuses instead."""
-    m, st, gov = _casc_pair(casc_setup, 8, seed=9, governor=True,
-                            stalls=[(1, 0.0, 999.0)])
+    m, st, gov, obs = _casc_pair(casc_setup, 8, seed=9, governor=True,
+                                 stalls=[(1, 0.0, 999.0)])
     assert m.summary()["completed"] == 8
     assert gov.denied_stall > 0
     assert st.stats.escalations == 0
     for rec in m.records.values():
         assert all(node < N0 for node in rec.tokens), rec.rid
+    # the stall window edge was announced exactly once
+    stalls = [ev for ev in obs.tracer.events if ev.kind == "rung_stall"]
+    assert len(stalls) == 1 and stalls[0].model == 1
 
 
 def test_governor_with_slack_allows_escalation(casc_setup):
     """Loose deadlines deny nothing: the governed serve is the baseline
     serve (denial is a pure function of budget, not a tax)."""
-    m0, _, _ = _casc_pair(casc_setup, 10)
-    m1, _, gov = _casc_pair(casc_setup, 10, deadline=100.0, governor=True)
+    m0, _, _, _ = _casc_pair(casc_setup, 10)
+    m1, _, gov, _ = _casc_pair(casc_setup, 10, deadline=100.0,
+                               governor=True)
     assert gov.denied == 0 and gov.allowed > 0
     for rid in m0.records:
         assert m0.records[rid].tokens == m1.records[rid].tokens, rid
@@ -638,6 +727,231 @@ def test_metrics_terminal_accounting():
     assert _records(m) == _records(ref)
     with pytest.raises(ValueError, match="unknown terminal status"):
         m.on_reap(late, 3.0, "exploded")
+
+
+# --------------------------------------------------------------------------
+# lossmap under faults
+# --------------------------------------------------------------------------
+
+def _emit_all(pkg, rows):
+    tr = PKG[pkg]["obs"].SpanTracer()
+    for kind, t, kw in rows:
+        tr.emit(kind, t=t, **kw)
+    return tr.events
+
+
+def test_stall_decomposition_cancelled_and_stall_causes():
+    rows = [
+        ("queued", 0.0, {"rid": 1}),
+        ("admitted", 1.0, {"rid": 1, "lane": 0}),
+        ("cancel", 2.5, {"rid": 1, "lane": 0}),      # reaped pre-token
+        ("queued", 0.0, {"rid": 2}),
+        ("rung_stall", 1.0, {"model": 0, "t0": 1.0, "until": 3.0}),
+        ("admitted", 4.0, {"rid": 2, "lane": 0}),
+        ("token", 5.0, {"rid": 2, "lane": 0, "ttft": 5.0}),
+        ("finish", 5.5, {"rid": 2, "lane": 0}),
+    ]
+    ds = {pkg: PKG[pkg]["lossmap"].stall_decomposition(_emit_all(pkg, rows))
+          for pkg in PKG}
+    assert ds["torch"] == ds["jax"]
+    d = ds["torch"]
+    assert d["stall_windows"] == [(1.0, 3.0)]
+    r1 = d["requests"][1]
+    assert r1["reaped"] and r1["ttft"] is None
+    assert r1["buckets"]["cancelled"] == pytest.approx(0.0)
+    assert r1["buckets"]["stall"] == pytest.approx(1.5)
+    assert r1["buckets"]["queue_wait"] == pytest.approx(1.0)
+    r2 = d["requests"][2]
+    assert not r2["reaped"]
+    assert r2["buckets"]["queue_wait"] == pytest.approx(2.0)
+    assert r2["buckets"]["stall"] == pytest.approx(2.0)
+    assert r2["buckets"]["prefill"] == pytest.approx(1.0)
+    assert sum(r2["buckets"].values()) == pytest.approx(r2["ttft"])
+
+
+def test_transient_windows_take_precedence_over_stalls():
+    """Each second is charged exactly once: where a gear transient and a
+    scripted stall overlap, the transient wins."""
+    rows = [
+        ("gear_switch", 0.0, {"src": 0, "dst": 1}),
+        ("rung_stall", 0.5, {"model": 0, "t0": 0.5, "until": 2.0}),
+        ("queued", 0.0, {"rid": 1}),
+        ("admitted", 2.0, {"rid": 1, "lane": 0}),
+        ("token", 2.5, {"rid": 1, "lane": 0, "ttft": 2.5}),
+        ("finish", 3.0, {"rid": 1, "lane": 0}),
+    ]
+    ds = {pkg: PKG[pkg]["lossmap"].stall_decomposition(
+        _emit_all(pkg, rows), gear_transient_s=1.0) for pkg in PKG}
+    assert ds["torch"] == ds["jax"]
+    b = ds["torch"]["requests"][1]["buckets"]
+    assert b["gear_transient"] == pytest.approx(1.0)
+    assert b["stall"] == pytest.approx(1.0)
+    assert b["queue_wait"] == pytest.approx(0.0)
+    assert sum(b.values()) == pytest.approx(
+        ds["torch"]["requests"][1]["ttft"])
+
+
+def test_goodput_lossmap_chaos_partition(sim_cascade):
+    out = _chaos_obs(sim_cascade)
+    lms = {}
+    for pkg, (metrics, _, _, obs) in out.items():
+        lm_mod = PKG[pkg]["lossmap"]
+        s = metrics.summary()
+        ceiling = lm_mod.sim_token_ceiling(3, 0.05, 0.01)
+        lms[pkg] = (lm_mod.goodput_lossmap(
+            obs.tracer.events, slo=0.5, duration=s["duration"],
+            ceiling_tok_s=ceiling), ceiling, s,
+            lm_mod.stall_decomposition(obs.tracer.events))
+    assert lms["torch"] == lms["jax"]
+    lm, ceiling, s, d = lms["torch"]
+    assert lm["requests_reaped"] == s["cancelled"] + s["timed_out"]
+    assert lm["requests_reaped"] > 0
+    assert lm["loss_total_tok_s"] == pytest.approx(
+        ceiling - lm["goodput_tok_s"])
+    assert lm["goodput_tok_s"] <= lm["throughput_tok_s"] + 1e-9
+    for c in tlossmap.STALL_CAUSES:
+        assert c in lm["loss_tok_s"]
+        assert lm["loss_tok_s"][c] >= 0.0
+    assert lm["loss_tok_s"]["cancelled"] > 0.0
+    for rid, row in d["requests"].items():
+        if row["ttft"] is not None and not row["reaped"]:
+            assert sum(row["buckets"].values()) == \
+                pytest.approx(row["ttft"], abs=1e-9), rid
+
+
+# --------------------------------------------------------------------------
+# fault-plane ledger contracts (synthetic streams)
+# --------------------------------------------------------------------------
+
+def _feed(pkg, rows, ledger=None, **ledger_kw):
+    o = PKG[pkg]["obs"]
+    ledger = ledger or o.InvariantLedger(**ledger_kw)
+    tr = o.SpanTracer()
+    ledger.bind(tr)
+    for kind, t, kw in rows:
+        tr.emit(kind, t=t, **kw)
+    return ledger
+
+
+def _feed_both(rows, finalize=None, **ledger_kw):
+    """The stream through each package's ledger (finalized at
+    ``finalize`` when given); reports equal.  Returns the port's."""
+    led = {pkg: _feed(pkg, rows, **ledger_kw) for pkg in PKG}
+    if finalize is not None:
+        for x in led.values():
+            x.finalize(finalize)
+    assert led["torch"].report() == led["jax"].report()
+    return led["torch"]
+
+
+def test_cancel_halts_stream_contract():
+    led = _feed_both([
+        ("queued", 0.0, {"rid": 1}),
+        ("admitted", 0.5, {"rid": 1, "lane": 0}),
+        ("token", 1.0, {"rid": 1, "lane": 0, "ttft": 1.0}),
+        ("cancel", 1.5, {"rid": 1, "lane": 0}),
+        ("token", 2.0, {"rid": 1, "lane": 0}),    # phantom emission
+    ])
+    assert led.n_violations["cancel_halts_stream"] == 1
+    assert "after being reaped" in led.violations[0]["detail"]
+    led2 = _feed_both([
+        ("queued", 0.0, {"rid": 1}),
+        ("admitted", 0.5, {"rid": 1, "lane": 0}),
+        ("token", 1.0, {"rid": 1, "lane": 0, "ttft": 1.0}),
+        ("deadline_miss", 1.5, {"rid": 1, "lane": 0}),
+    ], finalize=2.0)
+    assert led2.total_violations == 0
+    led3 = _feed_both([
+        ("queued", 0.0, {"rid": 1}),
+        ("admitted", 0.5, {"rid": 1, "lane": 0}),
+        ("cancel", 1.0, {"rid": 1, "lane": 0}),
+        ("queued", 1.0, {"rid": 2}),
+        ("admitted", 1.5, {"rid": 2, "lane": 0}),
+        ("token", 2.0, {"rid": 2, "lane": 0, "ttft": 2.0}),
+        ("finish", 2.5, {"rid": 2, "lane": 0}),
+    ], finalize=3.0)
+    assert led3.total_violations == 0
+
+
+def test_cancel_releases_pages_contract():
+    rows = [
+        ("queued", 0.0, {"rid": 1}),
+        ("admitted", 0.5, {"rid": 1, "lane": 0}),
+        ("cancel", 1.0, {"rid": 1, "lane": 0}),
+    ]
+    reps = {}
+    for pkg, p in PKG.items():
+        pool = p["pool"](n_lanes=2, page_size=4, lane_pages=4, n_pages=9)
+        assert pool.reserve(np.arange(4, dtype=np.int32), 4)
+        pool.admit(0, np.arange(4, dtype=np.int32), 4)
+        led = _feed(pkg, rows, pool=pool)       # lane 0 still holds!
+        assert led.n_violations["cancel_releases_pages"] == 1
+        assert "still holds" in led.violations[-1]["detail"]
+        pool.release(0)     # released first (the server's reap order)
+        led2 = _feed(pkg, rows, pool=pool)
+        assert led2.n_violations["cancel_releases_pages"] == 0
+        assert led2.checks["cancel_releases_pages"] == 1
+        reps[pkg] = (led.report(), led2.report())
+    assert reps["torch"] == reps["jax"]
+
+
+def test_rung_stall_liveness_contract():
+    led = _feed_both([
+        ("escalate", 0.0, {"rid": 1, "model": 1}),
+        ("rung_stall", 0.0, {"model": 1, "t0": 0.0, "until": 3.0}),
+        ("esc_resolve", 7.0, {"rid": 1, "model": 1}),   # 7 <= 5 + 3
+    ], finalize=8.0, horizon=5.0)
+    assert led.n_violations["rung_stall_liveness"] == 0
+    assert led.checks["rung_stall_liveness"] >= 1
+    led2 = _feed_both([
+        ("escalate", 0.0, {"rid": 1, "model": 1}),
+        ("rung_stall", 0.0, {"model": 1, "t0": 0.0, "until": 3.0}),
+        ("esc_resolve", 9.0, {"rid": 1, "model": 1}),   # 9 > 5 + 3
+    ], horizon=5.0)
+    assert led2.n_violations["rung_stall_liveness"] == 1
+    led3 = _feed_both([
+        ("escalate", 0.0, {"rid": 1, "model": 1}),
+        ("rung_stall", 0.0, {"model": 0, "t0": 0.0, "until": 3.0}),
+        ("esc_resolve", 7.0, {"rid": 1, "model": 1}),   # 7 > 5 + 0
+    ], horizon=5.0)
+    assert led3.n_violations["escalation_resolves"] == 1
+    assert led3.n_violations["rung_stall_liveness"] == 0
+
+
+def test_ledger_report_lists_fault_contracts():
+    from benchmarks.check_trace import validate_ledger
+    from repro.serving.obs.audit import CONTRACTS as JCONTRACTS
+    from repro_torch.serving.obs.audit import CONTRACTS
+    assert CONTRACTS == JCONTRACTS
+    for c in ("cancel_halts_stream", "cancel_releases_pages",
+              "rung_stall_liveness"):
+        assert c in CONTRACTS
+    rep = tobs.InvariantLedger().report()
+    assert rep == jobs.InvariantLedger().report()
+    for c in CONTRACTS:
+        assert c in rep["contracts"]
+    assert validate_ledger(json.loads(json.dumps(rep))) == []
+    old = json.loads(json.dumps(rep))
+    del old["contracts"]["cancel_halts_stream"]
+    assert validate_ledger(old) != []
+
+
+def test_perfetto_reaped_request_closes_span():
+    docs = {}
+    for pkg, p in PKG.items():
+        tr = p["obs"].SpanTracer()
+        tr.emit("queued", t=0.0, rid=5)
+        tr.emit("admitted", t=1.0, rid=5, lane=0, sid=0)
+        tr.emit("token", t=2.0, rid=5, lane=0, node=1, sid=0, ttft=2.0)
+        tr.emit("cancel", t=3.0, rid=5, lane=0)
+        docs[pkg] = p["export"].to_perfetto(tr.events)
+    assert docs["torch"] == docs["jax"]
+    doc = docs["torch"]
+    [span] = [ev for ev in doc["traceEvents"] if ev["ph"] == "X"]
+    assert span["name"] == "req 5 (cancel)"
+    assert span["dur"] == pytest.approx(2e6)     # admit -> cancel, µs
+    assert any(ev["ph"] == "i" and ev["name"] == "cancel"
+               for ev in doc["traceEvents"])
 
 
 # --------------------------------------------------------------------------

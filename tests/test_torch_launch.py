@@ -9,8 +9,17 @@ plane, on the CPU:
   * ``--adaptive`` serves a diurnal workload on the engine stepper with
     gear switching (no recalibration there, as in the reference), every
     request complete, the gear bank and the controller's report
-    printed.
+    printed;
+  * the observability flags: ``--obs-dir --regret --trace-out`` on the
+    single-model server and ``--trace-out --metrics-out
+    --flight-recorder`` on ``--cascade`` write artifacts that the
+    reference's `benchmarks.check_trace` validators accept;
+    ``--profile-dir`` writes a Chrome trace, and a capture that should
+    hold the card's events but holds none raises.
 """
+
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -86,3 +95,109 @@ def test_launcher_serves_adaptive_on_cpu(capsys):
     assert not hasattr(run.stepper, "bank_source")
     for req in run.requests:
         assert run.metrics.records[req.rid].n_tokens == req.max_tokens
+
+
+def _validated(path, validate):
+    with open(path) as f:
+        doc = json.load(f)
+    assert validate(doc) == [], path
+    return doc
+
+
+def test_launcher_obs_bundle_on_cpu(tmp_path, capsys):
+    """``--obs-dir`` with ``--regret`` (and ``--trace-out`` naming its
+    own sink) on the chunked paged server: every artifact is written and
+    valid, the ledger is clean, and the trace counts every token and
+    every computed prompt token."""
+    from benchmarks.check_trace import (validate_events, validate_ledger,
+                                        validate_metrics, validate_pareto,
+                                        validate_regret, validate_trace)
+    torch.set_num_threads(2)
+    obs_dir, trace = tmp_path / "obs", tmp_path / "own_trace.json"
+    run = tserve.main([
+        "--smoke", "--device", "cpu", "--server", "--kv", "paged",
+        "--paged-kernel", "--prefill-chunk", "8", "--page-size", "8",
+        "--lanes", "4", "--rate", "8", "--duration", "1", "--tokens", "6",
+        "--prompt-len", "12", "--obs-dir", str(obs_dir), "--regret",
+        "--trace-out", str(trace)])
+    out = capsys.readouterr().out
+    for head in ("trace: ", "ledger: ", "lossmap: ", "regret: ",
+                 "pareto: "):
+        assert head in out, head
+    assert "(PASS)" in out
+    doc = _validated(trace, validate_trace)
+    assert not (obs_dir / "trace.json").exists()   # the flag's own sink
+    events = _validated(obs_dir / "events.json", validate_events)
+    _validated(obs_dir / "metrics.json", validate_metrics)
+    ledger = _validated(obs_dir / "ledger.json", validate_ledger)
+    _validated(obs_dir / "regret.json", validate_regret)
+    _validated(obs_dir / "pareto.json", validate_pareto)
+    assert ledger["total_violations"] == 0
+    assert doc["otherData"]["span_digest"] == events["span_digest"]
+    kinds = [ev["kind"] for ev in events["events"]]
+    assert kinds.count("token") == run.metrics.summary()["tokens"]
+    assert sum(ev["width"] for ev in events["events"]
+               if ev["kind"] == "prefill_chunk") == \
+        run.stepper.chunk_stats["tokens_computed"]
+    assert run.obs.regret.report()["mode"] == "expected"
+    assert run.calib_s > 0.0
+
+
+def test_launcher_cascade_obs_on_cpu(tmp_path):
+    """``--trace-out``, ``--metrics-out`` and ``--flight-recorder`` on the
+    cascade path: the trace carries the escalations, the artifacts are
+    valid."""
+    from benchmarks.check_trace import validate_metrics, validate_trace
+    torch.set_num_threads(2)
+    run = tserve.main([
+        "--smoke", "--device", "cpu", "--cascade",
+        "paper-ee-100m:paper-ee-100m", "--paged-kernel", "--prefill-chunk",
+        "8", "--page-size", "8", "--policy", "skip_recall", "--lanes", "2",
+        "--cascade-lanes", "1", "--rate", "4", "--duration", "1",
+        "--tokens", "4", "--prompt-len", "10", "--cache-len", "32",
+        "--trace-out", str(tmp_path / "trace.json"), "--metrics-out",
+        str(tmp_path / "metrics.json"), "--flight-recorder",
+        str(tmp_path / "flight")])
+    doc = _validated(tmp_path / "trace.json", validate_trace)
+    _validated(tmp_path / "metrics.json", validate_metrics)
+    kinds = {ev.kind for ev in run.obs.tracer.events}
+    assert {"queued", "admitted", "prefill_chunk", "token", "finish",
+            "counter"} <= kinds
+    if run.cascade_stats["escalations"]:
+        assert {"escalate", "esc_resolve"} <= kinds
+        assert any(ev["pid"] == 1 for ev in doc["traceEvents"]
+                   if ev["ph"] == "i")
+    assert run.calib_s > 0.0
+
+
+def test_launcher_profile_dir_writes_a_chrome_trace(tmp_path, monkeypatch):
+    """``--profile-dir`` captures the serve loop with `torch.profiler`
+    (host activity on the CPU); a capture meant for the card that holds
+    no device event raises instead of writing an empty trace."""
+    from repro_torch.serving.obs.export import PROFILE_TRACE, profiler_capture
+    torch.set_num_threads(2)
+    tserve.main([
+        "--smoke", "--device", "cpu", "--server", "--kv", "paged",
+        "--paged-kernel", "--prefill-chunk", "8", "--page-size", "8",
+        "--lanes", "2", "--rate", "8", "--duration", "0.3", "--tokens",
+        "3", "--prompt-len", "8", "--profile-dir", str(tmp_path / "prof")])
+    with open(tmp_path / "prof" / PROFILE_TRACE) as f:
+        trace = json.load(f)
+    assert any(ev.get("cat") == "cpu_op" for ev in trace["traceEvents"])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    with pytest.raises(RuntimeError, match="no device event"):
+        with profiler_capture(str(tmp_path / "card"), device="cuda"):
+            torch.ones(4).sum()
+    assert not os.path.exists(tmp_path / "card" / PROFILE_TRACE)
+
+
+def test_launcher_obs_flags_follow_the_reference():
+    """The six observability flags and their defaults, as the reference
+    launcher has them; an obs flag alone builds the plane."""
+    args = tserve.parse_args([])
+    assert (args.trace_out, args.metrics_out, args.flight_recorder,
+            args.obs_dir, args.regret, args.profile_dir) == \
+        (None, None, None, None, False, None)
+    assert tserve._build_obs(args) is None
+    obs = tserve._build_obs(tserve.parse_args(["--regret"]))
+    assert obs.regret is not None and obs.ledger is None

@@ -520,7 +520,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serving/control/gears", "serving/control/swap",
                 "serving/control/recalibrate", "serving/control/controller",
                 "bench/adaptive", "serving/faults/plan",
-                "serving/faults/governor"):
+                "serving/faults/governor", "serving/obs/__init__",
+                "serving/obs/trace", "serving/obs/registry",
+                "serving/obs/export", "serving/obs/flight",
+                "serving/obs/audit", "serving/obs/replay",
+                "serving/obs/lossmap", "serving/obs/pareto",
+                "serving/obs/regret", "serving/obs/report"):
         assert f"src/repro_torch/{mod}.py" in names
     bad = []
     for path in files:
@@ -532,7 +537,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro",
+                                          "benchmarks"):
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} "
                                f"imports {name}")
     assert not bad, "\n".join(bad)
