@@ -203,13 +203,38 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      prefilling fresh 32-token prompts); each set is traced twice, the
      second time with a ``SpanTracer`` on the stepper, and the host
      syncs a step must be the same;
-  7. prints a ``kernels`` JSON line (``launches`` is each kernel's
+  7. trains full-width paper-ee-100m (``phase_train``): one f32 step
+     (no mixed precision) from the same parameters and 2 x 64 synthetic
+     tokens on the card and on the CPU — loss, every CE and the grad
+     norm within rtol 1e-4, the parameters after the step within 2 lr +
+     1e-6 with at most 0.1% of them more than 1e-6 apart; then 300 steps
+     of examples/train_ee.py's run (lr 6e-4, 8 x 256 tokens, bf16 on f32
+     master weights, per-layer recomputation) from the launcher's seed-0
+     init, printing loss and ce_final first -> last, the step time p50 /
+     p90 (CUDA events after 6 steps), tokens/s and peak memory, and
+     requiring the last loss below 0.8x the first; saves the checkpoint
+     to build/train/, loads it back (every leaf EQUAL) and prints the
+     frame the install writes (zstd or ZLB0); runs the model check of
+     step 3 on the trained weights; prints the calibration prompts' node
+     losses (per-node mean and std) at init and trained, and a held-out
+     synthetic batch's; requires ``forward_train(use_flash=True)`` and
+     the flash wrapper to refuse autograd on the card; and serves the
+     main path at random init once more (``init_chunked_recall_index``)
+     and then from the checkpoint (``--ckpt``,
+     ``ckpt_chunked_recall_index``; the paged pair must launch in both),
+     printing the served-node histogram, token p50 and TTFT p50 of both
+     beside the first ``chunked_recall_index`` serve's.  Training steps
+     3-5 run under torch.profiler (device busy, idle share against the
+     p50 step, device ops, top device and host ops a step) and are left
+     out of the step times;
+  8. prints a ``kernels`` JSON line (``launches`` is each kernel's
      count on its own main path — for ramp_exit the decision check;
      ``launches_by_path`` holds every path's; the times are the first
      timed case's — for bellman_backup the solve's, the case its path
      runs — ``timed_cases`` holds every case of a kernel timed at more
      than one, ``resources`` what the runtime reported; the object also
-     carries ``launch_floor_ms``), the card line, and last ``{"ok":
+     carries ``launch_floor_ms`` and the training run's numbers,
+     ``train``), the card line, and last ``{"ok":
      true, "device": {...}}``.
 
 It exits nonzero, printing no result, when CUDA is not available, when
@@ -219,7 +244,6 @@ the repository's sources are not beside it, or when any check fails.
 from __future__ import annotations
 
 import collections
-import gc
 import hashlib
 import importlib
 import json
@@ -242,6 +266,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config                    # noqa: E402
+from repro_torch.data.pipeline import (DataConfig,            # noqa: E402
+                                       SyntheticLM, batches)
 from repro_torch.core import traces                           # noqa: E402
 from repro_torch.core.line_dp import solve_line               # noqa: E402
 from repro_torch.kernels import (bellman_backup,              # noqa: E402
@@ -256,7 +282,8 @@ from repro_torch.launch import serve                          # noqa: E402
 from repro_torch.models import attention as A                 # noqa: E402
 from repro_torch.models import blocks                         # noqa: E402
 from repro_torch.models import model as M                     # noqa: E402
-from repro_torch.models.param import materialize, tree_map    # noqa: E402
+from repro_torch.models.param import (materialize,            # noqa: E402
+                                      tree_leaves, tree_map)
 from repro_torch.serving import runtime as rt                 # noqa: E402
 from repro_torch.serving.cascade import (CascadeSimStepper,   # noqa: E402
                                          ModelBank, ModelSpec)
@@ -275,6 +302,11 @@ from repro_torch.serving.runtime.server import arrays_to      # noqa: E402
 from repro_torch.serving.runtime.workload import WorkloadSpec  # noqa: E402
 from repro_torch.strategy import Cascade, RecallIndexStrategy  # noqa: E402
 from repro_torch.strategy import make as make_strategy         # noqa: E402
+from repro_torch.training import checkpoint                   # noqa: E402
+from repro_torch.training.loop import make_train_step         # noqa: E402
+from repro_torch.training.optimizer import (AdamWConfig,      # noqa: E402
+                                            cosine_schedule,
+                                            init_opt_state)
 
 DEV = torch.device("cuda")
 TOL_KERNEL = 1e-4
@@ -1990,9 +2022,6 @@ def phase_serve(name, argv, must, must_not, eos=None, reaped=False):
     cfgs = [get_config(a) for a in (args.cascade.split(":")
                                     if args.cascade else [args.arch])]
     n_nodes = sum(c.n_ramps + 1 for c in cfgs)
-    # the tracer's clock is a bound method of its server (a reference
-    # cycle): collect earlier serves so their models leave the card
-    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for kern in KERNELS.values():
@@ -2163,15 +2192,27 @@ def phase_obs_serves(streams) -> dict:
     return by_path
 
 
-def phase_serves() -> dict:
+def serve_stats(run, n_nodes) -> dict:
+    """A server serve's served-node histogram, token and TTFT p50 (ms)."""
+    s = run.metrics.summary(slo=1.0)
+    nodes = run.metrics.served_nodes
+    return {"served_nodes": [nodes[i] for i in range(n_nodes)],
+            "token_p50_ms": 1e3 * s["token_latency"]["p50"],
+            "ttft_p50_ms": 1e3 * s["ttft"]["p50"]}
+
+
+def phase_serves():
     """Every serve of SERVES and CASCADE_SERVES, then EDF_EOS; returns
-    each serve's launch counts."""
+    each serve's launch counts and the random-init main path's
+    `serve_stats`."""
     by_path, streams = {}, {}
     for name, argv, must, must_not in SERVES + CASCADE_SERVES:
         by_path[name], run = phase_serve(name, argv, must, must_not)
         if name == UNTRACED:
             streams = {rid: rec.tokens
                        for rid, rec in run.metrics.records.items()}
+            init_stats = serve_stats(
+                run, get_config("paper-ee-100m").n_ramps + 1)
         del run
         if name == UNTRACED:
             by_path.update(phase_obs_serves(streams))
@@ -2194,7 +2235,7 @@ def phase_serves() -> dict:
     log(f"serve [{name}]: every stream is the recall_index serve's, cut "
         f"after its first eos {eos}")
     by_path.update(phase_dense_serves())
-    return by_path
+    return by_path, init_stats
 
 
 def _pool_drained(name, pool) -> str:
@@ -2442,6 +2483,267 @@ def phase_dense_serves() -> dict:
     torch.cuda.empty_cache()
     return by_path
 
+# phase_train: full-width paper-ee-100m trained on the synthetic source
+# with examples/train_ee.py's settings, then served from its checkpoint
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 300, 8, 256, 6e-4
+TRAIN_WARMUP_STEPS = 3         # untimed steps before the step times
+TRAIN_PROFILED_STEPS = 3       # then steps traced by torch.profiler
+TOL_STEP = 1e-4                # f32 loss, CEs, grad norm: card vs CPU
+CKPT_DIR = ROOT / "build" / "train"
+INIT_AGAIN = "init_chunked_recall_index"
+CKPT_SERVE = ("ckpt_chunked_recall_index",
+              SERVE_ARGS + ["--policy", "recall_index"],
+              PAGED, NEW + ("ssd_chunk",) + EXIT)
+
+
+def _to(tree, dev):
+    return tree_map(lambda t: t.detach().to(dev, copy=True), tree)
+
+
+def phase_train_step_check(cfg):
+    """(a) One f32 train step (no mixed precision, the default AdamW)
+    from the same parameters and 2 x 64 synthetic tokens on the card and
+    on the CPU: loss, every CE and the grad norm within rtol TOL_STEP;
+    the parameters after the step within 2 lr + 1e-6 — Adam's first
+    step moves a parameter by about lr * sign(g), so a gradient entry
+    near 0 whose sign the two devices' sums disagree on lands 2 lr
+    apart — with at most 0.1% of entries more than 1e-6 apart."""
+    init = materialize(M.model_defs(cfg), torch.Generator().manual_seed(1),
+                       "cpu")
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=65,
+                                   global_batch=2, seed=1)).sample_batch(0)
+    opt_cfg = AdamWConfig()
+    lr1 = float(cosine_schedule(opt_cfg, torch.tensor(1)))
+    out = {}
+    for label, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        params = _to(init, dev)
+        t0 = time.perf_counter()
+        params, _, metrics = make_train_step(
+            cfg, opt_cfg, mixed_precision=False)(
+            params, init_opt_state(params),
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        metrics = {k: float(v) for k, v in metrics.items()}
+        out[label] = (metrics, _to(params, "cpu"), time.perf_counter() - t0)
+        del params
+    (mc, pc, tc), (mh, ph, th) = out["card"], out["cpu"]
+    errs = {k: abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh}
+    diffs = [(a - b).abs() for a, b in zip(tree_leaves(pc),
+                                           tree_leaves(ph))]
+    worst = max(float(d.max()) for d in diffs)
+    far = sum(int((d > 1e-6).sum()) for d in diffs)
+    total = sum(d.numel() for d in diffs)
+    ok = (all(e <= TOL_STEP for e in errs.values())
+          and worst <= 2 * lr1 + 1e-6 and far <= 1e-3 * total
+          and all(math.isfinite(v) for v in mc.values()))
+    log(f"train step check {cfg.name} [card vs CPU, f32, 2x64 tokens]: "
+        f"loss {mc['loss']:.6f} vs {mh['loss']:.6f}, grad norm "
+        f"{mc['grad_norm']:.6f} vs {mh['grad_norm']:.6f}, worst relative "
+        f"metric error {max(errs.values()):.3e} (rtol {TOL_STEP}); "
+        f"parameters after the step: max |diff| {worst:.3e} (bound "
+        f"{2 * lr1 + 1e-6:.3e}), {far}/{total} entries beyond 1e-6; step "
+        f"{tc:.2f} s on the card (first call), {th:.2f} s on the CPU "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"train step check failed: {errs}")
+
+
+def node_loss_stats(params, cfg, tokens) -> str:
+    """Per-node mean and spread (std) of the loss proxy of a prefill of
+    ``tokens``, as the calibration computes it."""
+    with torch.no_grad():
+        _, _, nl, _ = M.prefill(params, cfg, {"tokens": torch.as_tensor(
+            tokens, device=DEV)}, tokens.shape[1] + 8)
+    nl = nl.float().cpu().numpy()
+    if not np.isfinite(nl).all():
+        raise SystemExit("node losses are not finite")
+    def fmt(xs):
+        return "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"
+    return f"mean {fmt(nl.mean(0))} std {fmt(nl.std(0))}"
+
+
+def calib_tokens(cfg):
+    """The launcher's calibration prompts (numpy, --seed 0)."""
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab, (serve.CALIB_PROMPTS, serve.CALIB_LEN))
+
+
+def phase_train_run(cfg, steps):
+    """(b) ``steps`` steps of examples/train_ee.py's training (lr 6e-4,
+    8 x 256 tokens, bf16 on f32 masters, remat) from the launcher's
+    seed-0 init: loss and ce_final first -> last, step time p50 / p90
+    from CUDA events around each step after TRAIN_WARMUP_STEPS and the
+    TRAIN_PROFILED_STEPS after them (the batches are made and uploaded
+    outside the events), tokens/s at the p50, peak memory.  The
+    profiled steps (training steps like the others) give device busy,
+    idle share against the p50, device ops and the top device and host
+    ops a step.  The last loss must be below 0.8 x the first
+    (tests/test_system.py's bar).  Returns the trained params, the
+    held-out batch and a summary dict."""
+    params = materialize(M.model_defs(cfg),
+                         torch.Generator(device=DEV).manual_seed(0), DEV)
+    log(f"train [{cfg.name}] random init: calibration node losses "
+        f"{node_loss_stats(params, cfg, calib_tokens(cfg))}")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, total_steps=steps,
+                          warmup_steps=max(steps // 20, 1))
+    state = init_opt_state(params)
+    step_fn = make_train_step(cfg, opt_cfg)
+    data = batches(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ + 1,
+                              global_batch=TRAIN_BATCH))
+    host = [next(data) for _ in range(steps)]
+    held_out = next(data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, metrics = [], []
+    first = TRAIN_WARMUP_STEPS
+    last = first + TRAIN_PROFILED_STEPS
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    for i, b in enumerate(host):
+        batch = {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
+        if i == first:
+            torch.cuda.synchronize()
+            prof.__enter__()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, m = step_fn(params, state, batch)
+        e1.record()
+        if i == last - 1:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+        events.append((e0, e1))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = np.asarray([a.elapsed_time(b) for a, b in events[last:]])
+    loss = [float(m["loss"]) for m in metrics]
+    ce = [float(m["ce_final"]) for m in metrics]
+    gnorm = [float(m["grad_norm"]) for m in metrics]
+    p50, p90 = float(np.percentile(ms, 50)), float(np.percentile(ms, 90))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3)
+    dev, busy_ms, sync_by, by_dev, by_host = _trace_counts(
+        prof, TRAIN_PROFILED_STEPS)
+    top = lambda c: {k: round(v, 3) for k, v in c.most_common(8)}  # noqa
+    log(f"profile [train {cfg.name}]: steps {first}-{last - 1} under "
+        f"torch.profiler: device busy {busy_ms:.3f} ms a step, idle share "
+        f"{1 - busy_ms / p50:.3f} of the p50 step, "
+        f"{len(dev) / TRAIN_PROFILED_STEPS:.0f} device ops and "
+        f"{sum(sync_by.values()) / TRAIN_PROFILED_STEPS:.0f} host syncs a "
+        f"step ({json.dumps(top(sync_by))} over the {TRAIN_PROFILED_STEPS}"
+        f"); top device ms a step {json.dumps(top(by_dev))}; top host "
+        f"self ms a step {json.dumps(top(by_host))}")
+    del prof
+    summary = {"steps": steps, "loss_first": loss[0], "loss_last": loss[-1],
+               "ce_final_first": ce[0], "ce_final_last": ce[-1],
+               "step_ms_p50": p50, "step_ms_p90": p90,
+               "tokens_per_s": tok_s, "peak_mib": peak, "wall_s": wall,
+               "device_busy_ms": busy_ms,
+               "device_ops": len(dev) / TRAIN_PROFILED_STEPS}
+    log(f"train [{cfg.name}] {steps} steps of {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"tokens (bf16 on f32 masters, remat, lr {TRAIN_LR}): loss "
+        f"{loss[0]:.4f} -> {loss[-1]:.4f}, ce_final {ce[0]:.4f} -> "
+        f"{ce[-1]:.4f}, grad norm {gnorm[0]:.3f} -> {gnorm[-1]:.3f}; step "
+        f"time p50 {p50:.3f} ms p90 {p90:.3f} ms (CUDA events, "
+        f"{len(ms)} steps after {last}), {tok_s:.0f} "
+        f"tokens/s at the p50, peak memory {peak:.0f} MiB, loop wall "
+        f"{wall:.1f} s")
+    if not all(math.isfinite(v) for v in loss + gnorm):
+        raise SystemExit("training produced a non-finite loss or grad norm")
+    if not loss[-1] < 0.8 * loss[0]:
+        raise SystemExit(f"training did not converge: loss {loss[0]} -> "
+                         f"{loss[-1]} (needs < 0.8x)")
+    return params, held_out, summary
+
+
+def phase_ckpt_roundtrip(params, steps) -> Path:
+    """(c) Save the trained params under build/ and load them back:
+    every leaf EQUAL.  Prints the frame the card's install writes."""
+    path = CKPT_DIR / f"state_{steps}.ckpt"
+    t0 = time.perf_counter()
+    checkpoint.save(str(path), {"params": params}, steps)
+    t1 = time.perf_counter()
+    tree, step = checkpoint.load(str(path))
+    t2 = time.perf_counter()
+    got = tree_leaves(tree["params"])
+    want = tree_leaves(params)
+    if step != steps or len(got) != len(want) or not all(
+            torch.equal(w.cpu(), torch.as_tensor(g))
+            for w, g in zip(want, got)):
+        raise SystemExit("checkpoint round trip changed the parameters")
+    log(f"checkpoint {path.relative_to(ROOT)}: {len(got)} leaves EQUAL "
+        f"after save and load, codec {checkpoint.codec()}, "
+        f"{path.stat().st_size / 2**20:.1f} MiB, save {t1 - t0:.2f} s, "
+        f"load {t2 - t1:.2f} s")
+    return path
+
+
+def phase_autograd_refusal(params, cfg):
+    """(f) forward_train with use_flash under autograd raises on the
+    card, and so does the flash wrapper given a tensor that requires
+    grad (the kernels have no backward)."""
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    toks = torch.zeros((1, 16), dtype=torch.int32, device=DEV)
+    refused = []
+    try:
+        M.forward_train(p, cfg, {"tokens": toks, "labels": toks},
+                        use_flash=True)
+    except NotImplementedError as e:
+        refused.append(str(e))
+    q = torch.zeros((1, 16, 2, 64), device=DEV, requires_grad=True)
+    try:
+        flash_attention(q, q, q, scale=1.0)
+    except NotImplementedError as e:
+        refused.append(str(e))
+    if len(refused) != 2:
+        raise SystemExit(f"autograd through a kernel was not refused: "
+                         f"{refused}")
+    log("autograd refusal on the card: " + "; ".join(refused))
+
+
+def phase_train(init_stats, steps=TRAIN_STEPS):
+    """Steps (a)-(f): the f32 step on the card against the CPU, the
+    training run, the checkpoint round trip, the model check on the
+    trained weights, the main path served from the checkpoint
+    (``--ckpt``) beside the random-init serve's ``init_stats``, and the
+    autograd refusal.  Returns the serve's launches and the training
+    summary."""
+    cfg = get_config("paper-ee-100m")
+    phase_train_step_check(cfg)
+    torch.cuda.empty_cache()
+    params, held_out, summary = phase_train_run(cfg, steps)
+    path = phase_ckpt_roundtrip(params, steps)
+    phase_model_check(params, _to(params, "cpu"), cfg)
+    log(f"train [{cfg.name}] trained: calibration node losses "
+        f"{node_loss_stats(params, cfg, calib_tokens(cfg))}; held-out "
+        f"synthetic batch node losses (examples/train_ee.py's export) "
+        f"{node_loss_stats(params, cfg, held_out['tokens'])}")
+    phase_autograd_refusal(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    # the random-init main path once more, right before the checkpoint's
+    # serve, so the two compare under the same conditions
+    name, argv, must, must_not = CKPT_SERVE
+    by_path, stats = {}, {}
+    for label, extra in ((INIT_AGAIN, []), (name, ["--ckpt", str(path)])):
+        by_path[label], run = phase_serve(label, argv + extra, must,
+                                          must_not)
+        stats[label] = serve_stats(run, cfg.n_ramps + 1)
+        del run
+    stats[UNTRACED] = init_stats
+
+    def line(st):
+        return (f"served-node histogram {st['served_nodes']}, token p50 "
+                f"{st['token_p50_ms']:.2f} ms, TTFT p50 "
+                f"{st['ttft_p50_ms']:.1f} ms")
+    log(f"serve [{name}]: {line(stats[name])}; random init just before "
+        f"([{INIT_AGAIN}]): {line(stats[INIT_AGAIN])}; random init earlier "
+        f"([{UNTRACED}]): {line(init_stats)}")
+    summary["serves"] = stats
+    return by_path, summary
+
 
 def main() -> None:
     card = card_line()
@@ -2485,7 +2787,10 @@ def main() -> None:
     phase_chaos_sim()
     # each path's own counts; each kernel's main path is MAIN_PATH's
     by_path = {DECISION: decision}
-    by_path.update(phase_serves())
+    serves, init_stats = phase_serves()
+    by_path.update(serves)
+    train_paths, train = phase_train(init_stats)
+    by_path.update(train_paths)
     kernels = []
     for name in KERNELS:
         cases = times[name]
@@ -2502,7 +2807,8 @@ def main() -> None:
             row["resources"] = resources[name]
         kernels.append(row)
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor,
+                      "train": train}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,13 +17,18 @@ from repro_torch.core.markov import MarkovChain
 from repro_torch.core.skip_dp import SkipTables
 from repro_torch.core.support import Support
 
-__all__ = ["to_tensor", "params_from_numpy", "support_from_numpy",
+__all__ = ["to_tensor", "params_from_numpy", "opt_state_from_numpy",
+           "support_from_numpy",
            "chain_from_numpy", "line_tables_from_numpy",
            "skip_tables_from_numpy"]
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
-    """A copy of numpy array ``a`` as a tensor of the same dtype."""
+    """A copy of numpy array ``a`` as a tensor of the same dtype.  A
+    tensor (a ``bfloat16`` leaf of `training.checkpoint.load`, which
+    numpy has no dtype for) is copied as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=device, copy=True)
     return torch.tensor(np.array(a), device=device)
 
 
@@ -37,6 +42,21 @@ def params_from_numpy(np_tree, device="cpu"):
     if isinstance(np_tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in np_tree]
     return to_tensor(np_tree, device)
+
+
+def opt_state_from_numpy(state, device="cpu") -> dict:
+    """An AdamW state ``{"mu", "nu", "step"}`` of numpy arrays (the JAX
+    package's ``init_opt_state`` layout) -> the port's: f32 moment trees
+    and a 0-dim int32 step on ``device``."""
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [f32(v) for v in tree]
+        return to_tensor(tree, device).float()
+    return {"mu": f32(state["mu"]), "nu": f32(state["nu"]),
+            "step": to_tensor(state["step"], device).to(torch.int32)
+            .reshape(())}
 
 
 def support_from_numpy(s, device="cpu") -> Support:

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port (sources in ``csrc/``), each
 beside a plain PyTorch version of the same contract.  A wrapper runs the
 plain version for CPU tensors and launches its kernel for CUDA tensors;
-its ``launches`` attribute counts the kernel launches."""
+its ``launches`` attribute counts the kernel launches.  No kernel has a
+backward: on CUDA tensors a wrapper raises when gradients are being
+recorded and an input requires one (`build.refuse_autograd`)."""
 
 from repro_torch.kernels.bellman_backup import (bellman_backup,
                                                 bellman_backup_plain,

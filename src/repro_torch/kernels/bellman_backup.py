@@ -129,9 +129,10 @@ def _launch(base, trans_full, costs, xvals, mi_t, cont, phi):
     bellman_backup.launches += 1
 
 
-def _on_card(name, t) -> None:
+def _on_card(name, t, *inputs) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    build.refuse_autograd(name, t, *inputs)
 
 
 def bellman_backup(phi_next, trans, cost, mi_t):
@@ -139,7 +140,7 @@ def bellman_backup(phi_next, trans, cost, mi_t):
     the card (raises on what the kernel does not take)."""
     if phi_next.device.type == "cpu":
         return bellman_backup_plain(phi_next, trans, cost, mi_t)
-    _on_card("bellman_backup", phi_next)
+    _on_card("bellman_backup", phi_next, trans, cost)
     cost = torch.as_tensor(cost, dtype=torch.float32,
                            device=phi_next.device).reshape(1)
     _check(phi_next, trans[None], cost, None, mi_t)
@@ -154,7 +155,7 @@ def bellman_solve(base, trans_full, costs, xvals, mi_t):
     kernel does not take).  Returns cont (n, K, X), phi (n + 1, K, X)."""
     if base.device.type == "cpu":
         return bellman_solve_plain(base, trans_full, costs, xvals, mi_t)
-    _on_card("bellman_solve", base)
+    _on_card("bellman_solve", base, trans_full, costs, xvals)
     _check(base, trans_full, costs, xvals, mi_t)
     n, (k, x) = trans_full.shape[0], base.shape
     cont = torch.empty((n, k, x), dtype=torch.float32, device=base.device)

@@ -115,6 +115,20 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise when gradients are being recorded and an input requires
+    one: the kernels have no backward (nor have the JAX package's), so
+    a launch would silently cut the gradient.  Non-tensors are
+    ignored."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: the kernel has no backward; an input requires "
+            "grad under autograd (call it under torch.no_grad(), or take "
+            "the plain path)")
+
+
 def check_rows_aligned(kernel: str, **tensors) -> None:
     """Raise unless every row of each tensor starts on 16 bytes, for a
     kernel that copies rows in 16-byte pieces: the base pointer 16-byte

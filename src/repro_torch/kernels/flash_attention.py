@@ -102,6 +102,7 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    build.refuse_autograd("flash_attention", q, k, v)
     if not causal:
         raise ValueError("only causal attention is exposed")
     _check(q, k, v)

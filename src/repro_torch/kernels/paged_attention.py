@@ -124,6 +124,7 @@ def paged_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    build.refuse_autograd("paged_attention", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, pos_pages, page_table, q_pos)
     q = q.contiguous()
     page_table = page_table.contiguous()

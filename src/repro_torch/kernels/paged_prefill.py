@@ -155,6 +155,7 @@ def paged_prefill(q, k_pages, v_pages, pos_pages, page_table, q_pos,
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill runs on cpu or cuda, not "
                          f"{q.device}")
+    build.refuse_autograd("paged_prefill", q, k_pages, v_pages, ck, cv)
     q, ck, cv = q.contiguous(), ck.contiguous(), cv.contiguous()
     _check(q, k_pages, v_pages, pos_pages, page_table, q_pos, chunk_start,
            ck, cv, c_pos)

@@ -133,6 +133,7 @@ def ramp_exit(logits, edges, stop_table, s_bin, x_idx, *, lam: float):
     if logits.device.type != "cuda":
         raise ValueError(f"ramp_exit runs on cpu or cuda, not "
                          f"{logits.device}")
+    build.refuse_autograd("ramp_exit", logits, edges)
     table = _table_bytes(stop_table)
     _check(logits, edges, table, s_bin, x_idx)
     b, v = logits.shape

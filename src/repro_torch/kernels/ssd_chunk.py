@@ -141,6 +141,7 @@ def ssd_chunk(xh, dt, da, bb, cc, *, q_valid=None):
         return ssd_chunk_plain(xh, dt, da, bb, cc, q_valid=q_valid)
     if xh.device.type != "cuda":
         raise ValueError(f"ssd_chunk runs on cpu or cuda, not {xh.device}")
+    build.refuse_autograd("ssd_chunk", xh, dt, da, bb, cc)
     _check(xh, dt, da, bb, cc)
     b, c, q, h, p = xh.shape
     qv = _q_valid(q_valid, q)

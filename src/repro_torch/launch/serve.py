@@ -1,5 +1,7 @@
-"""Serving launcher of the port: initializes a model from a seed,
-calibrates a `Cascade` on numpy-seeded prompts, builds the requested
+"""Serving launcher of the port: loads a checkpoint (``--ckpt``, the
+format both packages write; its parameters must have the config's
+shapes, in f32) or initializes a model from a seed, calibrates a
+`Cascade` on numpy-seeded prompts, builds the requested
 strategy from the registry, and serves through the segment engine —
 either one batched generation on ring caches (default) or a seeded
 open-loop workload with continuous batching (``--server``), on per-lane
@@ -90,9 +92,10 @@ import numpy as np
 import torch
 
 from repro_torch import strategy
+from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
-from repro_torch.models.param import materialize
+from repro_torch.models.param import check_params, materialize
 from repro_torch.serving import runtime as rt
 from repro_torch.serving.control import (AdaptiveController, GearPlanner,
                                          GearSpec)
@@ -105,9 +108,10 @@ from repro_torch.serving.obs.export import (profiler_capture, write_events,
 from repro_torch.serving.obs.lossmap import goodput_lossmap
 from repro_torch.serving.obs.report import ServeReport, segments_saved_line
 from repro_torch.serving.runtime.workload import WorkloadSpec, make_workload
+from repro_torch.training import checkpoint
 
 __all__ = ["main", "ServeRun", "BatchRun", "ALIASES", "ONLINE",
-           "build_strategy", "parse_gears"]
+           "build_strategy", "parse_gears", "load_params", "device_of"]
 
 CALIB_PROMPTS, CALIB_LEN, CALIB_K = 512, 64, 24
 # the cascade's calibration: prompts x length, support size (the JAX
@@ -184,6 +188,20 @@ class BatchRun:
     calib_s: float = 0.0           # as `ServeRun.calib_s`
 
 
+def load_params(path: str, cfg, device) -> dict:
+    """The ``params`` of a checkpoint either package wrote, on
+    ``device``; raises naming the first leaf whose dtype or shape is not
+    ``model_defs(cfg)``'s."""
+    state, _ = checkpoint.load(path)
+    params = params_from_numpy(state["params"], device)
+    try:
+        check_params(M.model_defs(cfg), params)
+    except ValueError as e:
+        raise ValueError(f"--ckpt {path} does not fit {cfg.name}: "
+                         f"{e}") from None
+    return params
+
+
 def _timed(device, fn, *a, **k):
     """``fn(*a, **k)`` and its host time, synchronized with ``device``
     so device work the call queued is inside the time."""
@@ -194,7 +212,9 @@ def _timed(device, fn, *a, **k):
     return out, time.perf_counter() - t0
 
 
-def _device(name: str) -> torch.device:
+def device_of(name: str) -> torch.device:
+    """``name`` as a device; refuses CUDA where there is none (the port
+    never falls back to the CPU on its own)."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: CUDA is not available here "
@@ -206,6 +226,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="paper-ee-100m")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the params of this checkpoint (either "
+                         "package's format) instead of a random init")
     ap.add_argument("--policy", default="recall_index",
                     choices=sorted(set(ONLINE) | set(ALIASES)))
     ap.add_argument("--lam", type=float, default=0.5)
@@ -829,13 +852,20 @@ def _serve_cascade(args, device) -> ServeRun | None:
 
 def main(argv=None) -> ServeRun | BatchRun | None:
     args = parse_args(argv)
-    device = _device(args.device)
+    device = device_of(args.device)
     if args.cascade:
+        if args.ckpt:
+            raise SystemExit("--ckpt serves one model; the --cascade "
+                             "rungs are random-init demos")
         return _serve_cascade(args, device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = materialize(M.model_defs(cfg), gen, device)
-    print("no checkpoint given — serving random init (demo mode)")
+    if args.ckpt:
+        params = load_params(args.ckpt, cfg, device)
+        print(f"loaded checkpoint {args.ckpt}")
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = materialize(M.model_defs(cfg), gen, device)
+        print("no checkpoint given — serving random init (demo mode)")
 
     name = ALIASES.get(args.policy, args.policy)
     if strategy.needs_tables(name):

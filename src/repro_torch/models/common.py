@@ -33,8 +33,10 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int,
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    # theta made on the device by a fill: a tensor built from a host
+    # value would be a blocking host-to-device copy on every call
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                       device=positions.device), exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

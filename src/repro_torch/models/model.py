@@ -2,6 +2,9 @@
 
 Public API (functions over a nested-dict params tree):
   * ``model_defs(cfg)``            — ParamDef tree.
+  * ``forward_train(...)``         — full pass with the early-exit
+                                     multi-ramp loss (the training
+                                     step's objective).
   * ``ramp_readout(...)``          — per-node norm, tied unembedding and
                                      the loss proxy 1 - max softmax.
   * ``prefill(...)``               — full pass over whole prompts: last
@@ -32,15 +35,17 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.common import embed_def, rms_norm, rms_norm_def
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import tree_leaves, tree_map
 
-__all__ = ["model_defs", "prefill", "decode_step", "decode_segment",
-           "prefill_chunk_segment", "cache_specs", "paged_cache_specs",
-           "unembed", "ramp_readout", "layer"]
+__all__ = ["model_defs", "forward_train", "prefill", "decode_step",
+           "decode_segment", "prefill_chunk_segment", "cache_specs",
+           "paged_cache_specs", "unembed", "ramp_readout",
+           "readout_logits", "layer"]
 
 
 def _stack_defs(defs, n: int):
@@ -85,13 +90,19 @@ def ramp_readout(params, cfg: ModelConfig, h: torch.Tensor,
     ``(..., D)``; ``segment`` selects that segment's ramp norm (``None``
     -> the final head norm).  Returns ``(logits (..., V), ell (...))``.
     """
+    logits = readout_logits(params, cfg, h, segment)
+    p = torch.softmax(logits.float(), dim=-1)
+    return logits, 1.0 - p.amax(dim=-1)
+
+
+def readout_logits(params, cfg: ModelConfig, h: torch.Tensor,
+                   segment: int | None = None) -> torch.Tensor:
+    """`ramp_readout`'s logits alone (training needs no loss proxy)."""
     if segment is None:
         norm = params["final_norm"]
     else:
         norm = params["segments"][segment]["ramp"]["norm"]
-    logits = unembed(params, rms_norm(norm, h, cfg.norm_eps))
-    p = torch.softmax(logits.float(), dim=-1)
-    return logits, 1.0 - p.amax(dim=-1)
+    return unembed(params, rms_norm(norm, h, cfg.norm_eps))
 
 
 def _stack_layers(trees: list):
@@ -108,6 +119,86 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     return x, positions
+
+
+def _train_layer(p_layer, x, positions, block, eps, use_flash,
+                 use_ssd_kernel):
+    return blocks.block_forward(p_layer, x, positions, block, eps,
+                                use_flash, use_ssd_kernel)[0]
+
+
+def _run_segments(params, cfg: ModelConfig, x, positions, *, remat: bool,
+                  use_flash: bool, use_ssd_kernel: bool):
+    """The training pass: (final hidden, [(segment, raw ramp hidden)]).
+    ``remat`` recomputes each layer's activations in the backward pass
+    (`torch.utils.checkpoint`, the JAX package's per-layer
+    ``jax.checkpoint``); it changes no value."""
+    ramps = []
+    for si, seg in enumerate(cfg.segments):
+        p_seg = params["segments"][si]["blocks"]
+        for li in range(seg.n_layers):
+            args = (layer(p_seg, li), x, positions, seg.block, cfg.norm_eps,
+                    use_flash, use_ssd_kernel)
+            x = (checkpoint(_train_layer, *args, use_reentrant=False)
+                 if remat else _train_layer(*args))
+        if seg.ramp:
+            ramps.append((si, x))
+    return x, ramps
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over valid (label >= 0) positions, in f32.  logits
+    (B,S,V), labels (B,S)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = labels >= 0
+    ce = torch.where(valid, lse - ll, 0.0)
+    return ce.sum() / valid.sum().clamp(min=1)
+
+
+def _refuse_kernels_under_autograd(params, cfg: ModelConfig, use_flash,
+                                   use_ssd_kernel) -> None:
+    """The kernels have no backward (nor have the JAX package's): a
+    training pass that would route a layer through one while gradients
+    are being recorded raises, as the JAX package's ``jax.grad`` does."""
+    mixers = {seg.block.mixer for seg in cfg.segments}
+    routed = [name for name, on, mixer in (("use_flash", use_flash, "attn"),
+                                           ("use_ssd_kernel", use_ssd_kernel,
+                                            "ssm"))
+              if on and mixer in mixers]
+    if routed and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tree_leaves(params)):
+        raise NotImplementedError(
+            f"forward_train: {', '.join(routed)} routes layers through a "
+            "kernel that has no backward; train on the plain path")
+
+
+def forward_train(params, cfg: ModelConfig, batch: dict, *,
+                  ramp_loss_weight: float = 0.3, remat: bool = True,
+                  use_flash: bool = False, use_ssd_kernel: bool = False):
+    """Early-exit training objective: CE(final) + w * mean over ramps of
+    CE(ramp).  batch: {"tokens" (B,S), "labels" (B,S)}; labels below 0
+    are masked.  Returns (loss, metrics) with metrics ``ce_final``,
+    ``ce_ramp{i}`` and ``loss``, all 0-dim tensors.  (The JAX package
+    also adds the MoE aux losses; the port has no MoE block.)"""
+    _refuse_kernels_under_autograd(params, cfg, use_flash, use_ssd_kernel)
+    x, positions = _embed_inputs(params, cfg, batch)
+    final, ramps = _run_segments(params, cfg, x, positions, remat=remat,
+                                 use_flash=use_flash,
+                                 use_ssd_kernel=use_ssd_kernel)
+    labels = batch["labels"]
+    loss = _xent(readout_logits(params, cfg, final), labels)
+    metrics = {"ce_final": loss}
+    if ramps:
+        ramp_ce = 0.0
+        for ri, (si, h) in enumerate(ramps):
+            ce = _xent(readout_logits(params, cfg, h, segment=si), labels)
+            metrics[f"ce_ramp{ri}"] = ce
+            ramp_ce = ramp_ce + ce
+        loss = loss + ramp_loss_weight * ramp_ce / len(ramps)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int, *,

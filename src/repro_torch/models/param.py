@@ -13,7 +13,8 @@ import math
 
 import torch
 
-__all__ = ["ParamDef", "materialize", "tree_map"]
+__all__ = ["ParamDef", "materialize", "tree_map", "tree_leaves",
+           "check_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +41,16 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list/tuple tree, dict keys in sorted
+    order (the JAX package's ``jax.tree.leaves`` order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def _init_leaf(d: ParamDef, generator: torch.Generator) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape)
@@ -64,3 +75,31 @@ def materialize(defs, generator: torch.Generator, device,
     return tree_map(
         lambda d: _init_leaf(d, generator).to(device=device, dtype=dtype),
         defs)
+
+
+def check_params(defs, params, dtype=torch.float32, path: str = "") -> None:
+    """Raise ValueError, naming the leaf, unless ``params`` has the keys
+    of the ParamDef tree ``defs`` and each leaf its shape and
+    ``dtype``."""
+    if isinstance(defs, ParamDef):
+        if not isinstance(params, torch.Tensor):
+            raise ValueError(f"parameter {path}: expected a tensor, got "
+                             f"{type(params).__name__}")
+        if tuple(params.shape) != defs.shape or params.dtype != dtype:
+            raise ValueError(
+                f"parameter {path}: {tuple(params.shape)} {params.dtype}, "
+                f"the model wants {defs.shape} {dtype}")
+        return
+    if isinstance(defs, dict):
+        if not isinstance(params, dict) or set(params) != set(defs):
+            got = sorted(params) if isinstance(params, dict) else params
+            raise ValueError(f"parameters at {path or '/'}: keys {got}, "
+                             f"the model wants {sorted(defs)}")
+        for k in defs:
+            check_params(defs[k], params[k], dtype, f"{path}/{k}")
+        return
+    if not isinstance(params, (list, tuple)) or len(params) != len(defs):
+        raise ValueError(f"parameters at {path}: the model wants a list "
+                         f"of {len(defs)}")
+    for i, (d, p) in enumerate(zip(defs, params)):
+        check_params(d, p, dtype, f"{path}/#{i}")

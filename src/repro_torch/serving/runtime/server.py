@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -394,6 +395,22 @@ class SimStepper:
         return self.served_loss_sum / self.served_loss_n
 
 
+def _weak_clock(server):
+    """``server._now`` through a weak reference; once the server is gone
+    the clock keeps returning the last time it read."""
+    ref = weakref.ref(server)
+    last = 0.0
+
+    def now() -> float:
+        nonlocal last
+        srv = ref()
+        if srv is not None:
+            last = srv._now()
+        return last
+
+    return now
+
+
 class Server:
     """Open-loop continuous-batching server over any stepper.
 
@@ -649,9 +666,15 @@ class Server:
     def _bind_obs(self, tracer, metrics) -> None:
         """Bind the tracer to this serve: the server's clock, the stepper
         and the controller as producers, and the flight recorder, ledger
-        and regret meter as listeners (they never emit or sync)."""
+        and regret meter as listeners (they never emit or sync).
+
+        The tracer outlives the serve (the launcher returns it), so
+        nothing bound here holds the server: the clock reaches it through
+        a weak reference.  A strong one would make a server -> obs ->
+        tracer -> server cycle that keeps the stepper's weights and pools
+        alive until the cycle collector runs."""
         stepper = self.stepper
-        tracer.bind_clock(self._now)
+        tracer.bind_clock(_weak_clock(self))
         stepper.tracer = tracer
         if self.controller is not None:
             self.controller.tracer = tracer
@@ -659,8 +682,8 @@ class Server:
         if flight is not None:
             if flight.slo is None:
                 flight.slo = self.slo
-            flight.bind(tracer,
-                        snapshot_fn=lambda: metrics.summary(self.slo))
+            slo = self.slo
+            flight.bind(tracer, snapshot_fn=lambda: metrics.summary(slo))
         if self.obs.ledger is not None:
             self.obs.ledger.bind(tracer,
                                  pool=getattr(stepper, "pool", None))

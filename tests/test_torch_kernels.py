@@ -16,7 +16,9 @@ The CUDA kernels themselves run only on the card: `test_cuda_kernels_
 match_plain`, `test_cuda_flash_and_bellman_match_plain`,
 `test_cuda_bellman_solve_matches_chained_launches`,
 `test_cuda_ssd_chunk_matches_plain` and `test_cuda_ramp_exit_matches_
-plain` hold each against its plain version
+plain` hold each against its plain version (and
+`test_wrappers_refuse_autograd_on_the_card` requires every wrapper to
+refuse an input that requires grad under autograd)
 there (atol = rtol = 1e-4 for attention, whose f32 sums run in another
 order; 1e-5 for the backup and the solve, whose n-node launch must also
 equal n chained single launches bit for bit; 2e-4 for the SSD chunk, as
@@ -32,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import build
 from repro_torch.kernels import (bellman_backup, bellman_backup_plain,
                                  bellman_solve, bellman_solve_plain,
@@ -889,3 +892,38 @@ def test_cuda_ramp_exit_matches_plain():
             nx = torch.minimum(x_idx, b + 1)
             assert torch.equal(got[1], b) and torch.equal(got[2], nx)
             assert torch.equal(got[3], tab[b.long(), nx.long()] > 0)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_autograd_on_the_card():
+    """On CUDA tensors each kernel wrapper raises when an input requires
+    grad under autograd, before it builds or launches anything."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+
+    def g(*shape):
+        return torch.zeros(shape, device=dev, requires_grad=True)
+
+    z = torch.zeros((), device=dev)
+    k = kernels
+    calls = {
+        "flash_attention": lambda: k.flash_attention(
+            g(1, 4, 2, 32), g(1, 4, 2, 32), g(1, 4, 2, 32), scale=1.0),
+        "paged_attention": lambda: k.paged_attention(
+            g(1, 2, 32), g(2, 4, 2, 32), g(2, 4, 2, 32), z, z, z, scale=1.),
+        "paged_prefill": lambda: k.paged_prefill(
+            g(1, 4, 2, 32), g(2, 4, 2, 32), g(2, 4, 2, 32), z, z, z, z,
+            g(1, 4, 2, 32), g(1, 4, 2, 32), z, scale=1.0),
+        "ssd_chunk": lambda: k.ssd_chunk(
+            g(1, 1, 4, 2, 8), g(1, 1, 4, 2), g(1, 1, 4, 2),
+            g(1, 1, 4, 2, 4), g(1, 1, 4, 2, 4)),
+        "ramp_exit": lambda: k.ramp_exit(g(2, 16), g(5), z, z, z, lam=1.0),
+        "bellman_backup": lambda: k.bellman_backup(g(4, 3), g(4, 4), g(1),
+                                                   z),
+        "bellman_solve": lambda: k.bellman_solve(g(4, 3), g(2, 4, 4), g(2),
+                                                 None, z),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match="no backward"):
+            call()

@@ -15,11 +15,16 @@ plane, on the CPU:
     --flight-recorder`` on ``--cascade`` write artifacts that the
     reference's `benchmarks.check_trace` validators accept;
     ``--profile-dir`` writes a Chrome trace, and a capture that should
-    hold the card's events but holds none raises.
+    hold the card's events but holds none raises;
+  * a traced serve's weights die with its run, with the cycle collector
+    off: nothing the observability plane keeps refers back to the
+    server.
 """
 
+import gc
 import json
 import os
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -201,3 +206,37 @@ def test_launcher_obs_flags_follow_the_reference():
     assert tserve._build_obs(args) is None
     obs = tserve._build_obs(tserve.parse_args(["--regret"]))
     assert obs.regret is not None and obs.ledger is None
+
+
+@pytest.mark.parametrize("flags", [
+    ["--trace-out", "trace.json"],
+    ["--obs-dir", "obs", "--regret"],
+    ["--flight-recorder", "flight", "--metrics-out", "metrics.json"]],
+    ids=["trace-out", "obs-dir-regret", "flight-recorder"])
+def test_traced_serve_frees_its_model_without_the_collector(tmp_path,
+                                                            flags):
+    """The tracer outlives the serve (``ServeRun.obs``), so a reference
+    from it back to the server (a bound clock, a snapshot closure) would
+    keep the stepper's weights alive until the cycle collector runs:
+    with the collector off, a parameter tensor must die with the run."""
+    torch.set_num_threads(2)
+    (tmp_path / "flight").mkdir()
+    flags = [str(tmp_path / f) if not f.startswith("--") else f
+             for f in flags]
+    gc.collect()
+    gc.disable()
+    try:
+        run = tserve.main([
+            "--smoke", "--device", "cpu", "--server", "--kv", "paged",
+            "--paged-kernel", "--prefill-chunk", "8", "--page-size", "8",
+            "--lanes", "2", "--rate", "6", "--duration", "0.5",
+            "--tokens", "4", "--prompt-len", "10"] + flags)
+        assert run.obs is not None and run.obs.tracer.n_emitted > 0
+        table = weakref.ref(run.stepper.params["embed"]["table"])
+        tracer = run.obs.tracer
+        del run
+        assert table() is None, "a traced serve's weights outlived its run"
+        # the tracer the caller kept still answers its clock
+        assert tracer._clock() >= 0.0
+    finally:
+        gc.enable()

@@ -6,7 +6,9 @@ against the JAX package's, end to end on the smoke config.
     by the port — once with the kernel switch on (plain versions on
     the CPU), once on its gather path: per request, tokens and served
     nodes are EQUAL, and so are the chunked-prefill stats and the
-    segment counters.
+    segment counters.  Also on a trained checkpoint the reference wrote,
+    each package loading it with its own ``checkpoint.load`` (what
+    ``launch.serve --ckpt`` does), on synthetic prompts.
   * The same for stop-the-world admission, on the ring caches (with and
     without the flash route, whose plain version runs on the CPU) and
     on the paged pool (pool stats equal too), for the attention smoke
@@ -26,9 +28,10 @@ against the JAX package's, end to end on the smoke config.
     --ssd-kernel --dp-kernel`` on both, the reference's aliases and
     knobs — and refuses to run without CUDA otherwise; its ``--policy``
     choices are the reference launcher's, hindsight oracles refused.
-  * Nothing under src/repro_torch/ (the control and fault planes and the
-    dense configs included), nor chip_smoke.py, imports jax or the JAX
-    package.
+  * Nothing under src/repro_torch/ (the control and fault planes, the
+    dense configs and the training modules included), nor
+    chip_smoke.py, imports jax, the JAX package, msgpack or ml_dtypes,
+    and zstandard only inside a ``try``.
 """
 
 import ast
@@ -37,12 +40,14 @@ import json
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro import strategy as jstrategy
 from repro.configs import get_config
+from repro.data import pipeline as jdata
 from repro.launch import serve as jserve
 from repro.models import model as M
 from repro.models.param import materialize
@@ -50,6 +55,9 @@ from repro.serving import runtime as jrt
 from repro.serving.obs.report import ServeReport as JReport
 from repro.serving.runtime.request import Request as JRequest
 from repro.serving.runtime.workload import WorkloadSpec as JSpec
+from repro.training import checkpoint as jckpt
+from repro.training.loop import train as jtrain
+from repro.training.optimizer import AdamWConfig as JAdamW
 from repro_torch import strategy as tstrategy
 from repro_torch.bridge import (chain_from_numpy, line_tables_from_numpy,
                                 params_from_numpy, skip_tables_from_numpy,
@@ -59,9 +67,12 @@ from repro_torch.serving import runtime as trt
 from repro_torch.serving.obs.report import ServeReport as TReport
 from repro_torch.serving.runtime.request import Request as TRequest
 from repro_torch.serving.runtime.workload import WorkloadSpec as TSpec
+from repro_torch.training import checkpoint as tckpt
 
 ROOT = Path(__file__).resolve().parents[1]
 PROMPT_LEN = 12
+# the fixture that gives each ``weights`` case its setup
+SETUPS = {"init": "setup", "ckpt": "ckpt_setup"}
 # the online policies besides recall_index, served under the launchers'
 # default knobs
 POLICIES = ("tree_index", "skip_recall", "norecall_threshold",
@@ -70,13 +81,18 @@ POLICIES = ("tree_index", "skip_recall", "norecall_threshold",
 KNOBS = dict(threshold=0.4, patience=2)
 
 
-def _setup(arch):
+def _setup(arch, params=None, tparams=None):
+    """Config, reference weights (random init unless given), tables the
+    reference calibrated on them, and both bridged to the port (the
+    port's weights are ``tparams`` when given)."""
     torch.set_num_threads(2)
     cfg = get_config(arch, smoke=True)
-    params = materialize(M.model_defs(cfg), jax.random.PRNGKey(0))
+    if params is None:
+        params = materialize(M.model_defs(cfg), jax.random.PRNGKey(0))
     casc = jstrategy.Cascade.calibrate(params, cfg, jax.random.PRNGKey(1),
                                        lam=0.5, k=8, t=64, seq=16)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, params))
+    if tparams is None:
+        tparams = params_from_numpy(jax.tree.map(np.asarray, params))
     tcasc = tstrategy.Cascade(
         support=support_from_numpy(jax.tree.map(np.asarray, casc.support)),
         chain=chain_from_numpy(jax.tree.map(np.asarray, casc.chain)),
@@ -107,15 +123,29 @@ def ssm_setup():
     return _setup("mamba2-130m")
 
 
-def _requests(cls, cfg, n=6, seed=7, policy="recall_index"):
+def _requests(cls, cfg, n=6, seed=7, policy="recall_index",
+              synthetic=False):
     """Every other request repeats one base prompt (prefix-cache hits);
-    all arrive at t = 0, so admission depends only on lane turnover."""
+    all arrive at t = 0, so admission depends only on lane turnover.
+    Prompts are uniform over the vocab or, with ``synthetic``, rows of
+    the synthetic training source (pattern spans a trained model
+    continues)."""
     rng = np.random.default_rng(seed)
-    base = rng.integers(0, cfg.vocab, PROMPT_LEN, dtype=np.int32)
+    if synthetic:
+        rows = iter(jdata.SyntheticLM(jdata.DataConfig(
+            vocab=cfg.vocab, seq_len=PROMPT_LEN + 1, global_batch=n + 1,
+            seed=seed, easy_frac=1.0, span=PROMPT_LEN)).sample_batch(0)
+            ["tokens"])
+
+        def draw():
+            return next(rows).astype(np.int32)
+    else:
+        def draw():
+            return rng.integers(0, cfg.vocab, PROMPT_LEN, dtype=np.int32)
+    base = draw()
     out = []
     for rid in range(n):
-        prompt = base.copy() if rid % 2 == 0 else rng.integers(
-            0, cfg.vocab, PROMPT_LEN, dtype=np.int32)
+        prompt = base.copy() if rid % 2 == 0 else draw()
         out.append(cls(rid=rid, prompt=prompt, max_tokens=2 + rid % 3,
                        arrival=0.0, strategy=policy))
     return out
@@ -142,15 +172,41 @@ def _serve_logged(rt, stepper, sid_of, requests):
 
 
 @pytest.fixture(scope="module")
-def chunked_reference(setup):
-    """The JAX package's chunked paged serves, one per policy (built on
-    first use)."""
+def ckpt_setup(tmp_path_factory):
+    """`_setup` on a checkpoint: the smoke model trained by the
+    reference (`tests/test_system.py`'s 60 steps) and written with its
+    `checkpoint.save`; the reference serves its own `checkpoint.load`'s
+    arrays, the port its `checkpoint.load`'s through the bridge, as
+    ``launch.serve --ckpt`` does."""
+    cfg = get_config("paper-ee-100m", smoke=True)
+    params = materialize(M.model_defs(cfg), jax.random.PRNGKey(0))
+    params, _, _ = jtrain(
+        cfg, JAdamW(lr=3e-3, total_steps=60, warmup_steps=5), params,
+        jdata.batches(jdata.DataConfig(vocab=cfg.vocab, seq_len=65,
+                                       global_batch=8, easy_frac=0.8)),
+        steps=60, log_every=60)
+    path = jckpt.save(str(tmp_path_factory.mktemp("ckpt") / "state_60.ckpt"),
+                      {"params": params}, 60)
+    jstate, _ = jckpt.load(path)
+    tstate, _ = tckpt.load(path)
+    return _setup("paper-ee-100m",
+                  params=jax.tree.map(jnp.asarray, jstate["params"]),
+                  tparams=params_from_numpy(tstate["params"]))
+
+
+@pytest.fixture(scope="module")
+def chunked_reference(request):
+    """The JAX package's chunked paged serves, one per (weights,
+    policy) — the random init of ``setup`` or the trained checkpoint of
+    ``ckpt_setup`` (built on first use)."""
     runs = {}
 
-    def get(policy):
-        if policy not in runs:
-            cfg, params, casc, _, _ = setup
-            requests = _requests(JRequest, cfg, policy=policy)
+    def get(policy, weights="init"):
+        if (weights, policy) not in runs:
+            cfg, params, casc, _, _ = request.getfixturevalue(
+                SETUPS[weights])
+            requests = _requests(JRequest, cfg, policy=policy,
+                                 synthetic=weights == "ckpt")
             bank, sid_of = jrt.build_bank(requests, _factory(jserve, casc),
                                           (policy, None))
             stepper = jrt.EngineStepper(params, cfg, bank, n_lanes=2,
@@ -158,9 +214,10 @@ def chunked_reference(setup):
                                         kv="paged", page_size=8,
                                         prefill_chunk=5, prefill_budget=8)
             metrics, nodes = _serve_logged(jrt, stepper, sid_of, requests)
-            runs[policy] = (requests, metrics, nodes,
-                            dict(stepper.chunk_stats), stepper.pool.stats())
-        return runs[policy]
+            runs[weights, policy] = (requests, metrics, nodes,
+                                     dict(stepper.chunk_stats),
+                                     stepper.pool.stats())
+        return runs[weights, policy]
 
     return get
 
@@ -171,19 +228,25 @@ def reference_run(chunked_reference):
 
 
 @pytest.mark.parametrize(
-    "kernel,policy",
-    [(True, "recall_index"), (False, "recall_index")]
-    + [(True, p) for p in POLICIES],
-    ids=["kernel", "gather"] + [f"kernel-{p}" for p in POLICIES])
-def test_port_serves_what_the_reference_serves(setup, chunked_reference,
-                                               kernel, policy):
-    _check_chunked_serve(setup, chunked_reference(policy), kernel, policy)
+    "kernel,policy,weights",
+    [(True, "recall_index", "init"), (False, "recall_index", "init")]
+    + [(True, p, "init") for p in POLICIES]
+    + [(True, "recall_index", "ckpt"), (False, "recall_index", "ckpt")],
+    ids=["kernel", "gather"] + [f"kernel-{p}" for p in POLICIES]
+    + ["ckpt-kernel", "ckpt-gather"])
+def test_port_serves_what_the_reference_serves(request, chunked_reference,
+                                               kernel, policy, weights):
+    """The ``ckpt`` cases serve a trained checkpoint the reference wrote
+    (each package loading it itself) on synthetic prompts."""
+    _check_chunked_serve(request.getfixturevalue(SETUPS[weights]),
+                         chunked_reference(policy, weights), kernel, policy,
+                         synthetic=weights == "ckpt")
 
 
-def _check_chunked_serve(setup, reference, kernel, policy):
+def _check_chunked_serve(setup, reference, kernel, policy, synthetic=False):
     cfg, _, _, tparams, tcasc = setup
     jreqs, jm, jnodes, jstats, _ = reference
-    requests = _requests(TRequest, cfg, policy=policy)
+    requests = _requests(TRequest, cfg, policy=policy, synthetic=synthetic)
     bank, sid_of = trt.build_bank(requests, _factory(tserve, tcasc),
                                   (policy, None))
     stepper = trt.EngineStepper(tparams, cfg, bank, n_lanes=2, cache_len=32,
@@ -525,11 +588,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serving/obs/export", "serving/obs/flight",
                 "serving/obs/audit", "serving/obs/replay",
                 "serving/obs/lossmap", "serving/obs/pareto",
-                "serving/obs/regret", "serving/obs/report"):
+                "serving/obs/regret", "serving/obs/report",
+                "data/pipeline", "training/optimizer",
+                "training/checkpoint", "training/loop", "launch/train",
+                "examples/train_ee"):
         assert f"src/repro_torch/{mod}.py" in names
     bad = []
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
@@ -538,7 +605,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 if name.split(".")[0] in ("jax", "jaxlib", "repro",
-                                          "benchmarks"):
+                                          "benchmarks", "msgpack",
+                                          "ml_dtypes"):
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} "
                                f"imports {name}")
+        guarded = {id(n) for t in ast.walk(tree) if isinstance(t, ast.Try)
+                   for b in t.body for n in ast.walk(b)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import) and id(node) not in guarded \
+                    and any(a.name == "zstandard" for a in node.names):
+                bad.append(f"{path.relative_to(ROOT)}:{node.lineno} "
+                           "imports zstandard outside a try")
     assert not bad, "\n".join(bad)
