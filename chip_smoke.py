@@ -22,20 +22,22 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      lengths, at 1024-token contexts (64-page tables, histories of
      993-1024 positions, chunks from about position 1000: the lanes'
      pages split over blocks), at qwen3-4b's GQA widths (32 heads on
-     8 kv heads, head_dim 128) and at starcoder2-3b's (24 heads on 2,
-     head_dim 128), each with a window shorter than the context,
-     atol = rtol = 1e-4; the
+     8 kv heads, head_dim 128), at starcoder2-3b's (24 heads on 2,
+     head_dim 128), at phi-3-vision-4.2b's (32 on 32, head_dim 96) and
+     at qwen3-14b's (40 on 8: a group of 5), each with a window shorter
+     than the context, atol = rtol = 1e-4; the
      all-masked lane and the padded prefill rows exactly 0;
      flash_attention at the calibration
      prefill's shape (512, 64, 12, 12, 64), a ring admission's (1, 32,
      12, 12, 64), a GQA case with a window and a ragged length, head_dim
      32 and 96 cases, S in {1, 63, 65, 129} at each head_dim (GQA, a
-     window past one tile), and qwen3-4b's and starcoder2-3b's
-     calibration prefills ((512, 64, 32, 8, 128), (512, 64, 24, 2, 128)
-     with its 4096-token window), atol = rtol = 1e-4 (f32 sums in another
-     order); bellman_backup at K = 24 and 64 on row-stochastic
-     transitions, atol = rtol = 1e-5, and the whole solve in one launch
-     (n = 6 at K = 24, n = 13 at K = 64) within 1e-5 of its plain
+     window past one tile), and qwen3-4b's, starcoder2-3b's and
+     qwen3-14b's calibration prefills ((512, 64, 32, 8, 128), (512, 64,
+     24, 2, 128) with its 4096-token window, (512, 64, 40, 8, 128)),
+     atol = rtol = 1e-4 (f32 sums in another order); bellman_backup at
+     K = 24 and 64 on row-stochastic transitions, atol = rtol = 1e-5,
+     and the whole solve in one launch (n = 6 at K = 24, n = 13 at K =
+     64) within 1e-5 of its plain
      version and EQUAL to n chained single launches; ssd_chunk at what
      the mamba2-130m
      calibration passes ((512, 1, 256, 24, 64, 128) with 64 valid rows,
@@ -91,13 +93,24 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      width, each built on the card and freed before the next (their
      10-16 GB of f32 weights get no CPU copy): the paged chunk plus
      decode token through the kernels against the page gather, and the
-     flash prefill against the einsum path, within 1e-3;
+     flash prefill against the einsum path, within 1e-3; then the same
+     two checks (each model's input stream: tokens, embeds, or 256
+     image embeds before the text in 17 chunks) for qwen3-14b,
+     musicgen-large, phi-3-vision-4.2b (the paged pair at head_dim 96)
+     and phi3.5-moe-42b-a6.6b cut to one layer in each of its 8
+     segments (10.67 B parameters), and for deepseek-v2-lite-16b (MLA)
+     a 7-token ring prefill and one absorbed decode token against the
+     8-token prefill within 2.5e-2 (the reference's tolerance: the
+     decode reads the bf16 latent) and the paged-gather decode against
+     the ring decode within 1e-3, with no kernel launched; each model's
+     size and peak memory printed;
   4. times each kernel and its plain version with CUDA events — device
      time from CUDA graph replay, and the time of an eager call, host
      included — on the chunked serve's shapes, at 1024-token contexts
-     and at the serve's histories with qwen3-4b's and starcoder2-3b's
-     widths (paged pair), the calibration prefill's, a ring admission's
-     and the two dense configs' calibration shapes
+     and at the serve's histories with qwen3-4b's, starcoder2-3b's,
+     phi-3-vision-4.2b's and qwen3-14b's widths (paged pair), the
+     calibration prefill's, a ring admission's and the three dense
+     configs' calibration shapes
      (flash_attention, each beside one call of
      ``F.scaled_dot_product_attention(is_causal=True)``, a yardstick the
      port never calls), the calibration's real call, a random full
@@ -138,7 +151,7 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      rung-0 pool — requests reaped and completed, escalations denied,
      the pool drained, records and governor stats EQUAL;
   6. serves at full width through ``repro_torch.launch.serve.main``
-     twenty-four times — paper-ee-100m chunked paged under recall_index and
+     twenty-seven times — paper-ee-100m chunked paged under recall_index and
      under always_last (the paged pair's path), the ring server with
      --flash --dp-kernel under recall_index (flash and Bellman's path),
      the one-shot batch with --flash --dp-kernel; mamba2-130m's ring
@@ -167,7 +180,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      (some requests reaped, the rest complete, the pool drained), and the
      two-rung cascade under a --faults plan with a rung-1 stall over its
      first second (the governor must deny an escalation into the
-     stalled rung; both pools drained) — with every kernel's launch
+     stalled rung; both pools drained), qwen3-14b chunked paged with
+     --flash --dp-kernel under recall_index, the phi3.5-moe cut the same
+     way (through the launcher's parse_args and _serve_traffic with the
+     script's config), and deepseek-v2-lite-16b stop-the-world on the
+     paged pool with --paged-kernel --flash --dp-kernel (only the
+     Bellman kernel may launch: MLA takes the page gather and its own
+     prefill) — with every kernel's launch
      counter set to 0 just before
      each serve and read just after; every request must complete with
      its full token count, each path's kernels must launch (the Bellman
@@ -244,6 +263,7 @@ the repository's sources are not beside it, or when any check fails.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 import importlib
 import json
@@ -282,6 +302,8 @@ from repro_torch.launch import serve                          # noqa: E402
 from repro_torch.models import attention as A                 # noqa: E402
 from repro_torch.models import blocks                         # noqa: E402
 from repro_torch.models import model as M                     # noqa: E402
+from repro_torch.models import moe as MOE                     # noqa: E402
+from repro_torch.models.common import rms_norm                # noqa: E402
 from repro_torch.models.param import (materialize,            # noqa: E402
                                       tree_leaves, tree_map)
 from repro_torch.serving import runtime as rt                 # noqa: E402
@@ -400,6 +422,27 @@ DENSE_SERVES = [
          "--policy", "always_last", "--adaptive", "--gears",
          "quality:0.95,balanced:0.92,turbo:0.75", "--workload", "diurnal"],
      PAGED, NEW + ("ssd_chunk",) + EXIT)]
+# the other families served at full width (FAMILY_ARCHS' token-input
+# configs): qwen3-14b and the phi3.5-moe cut chunked paged through the
+# paged pair, flash and Bellman; deepseek-v2-lite stop-the-world on the
+# paged pool, where MLA takes the page gather and its own prefill (the
+# reference's route), so the kernel flags launch Bellman alone.  Each:
+# (name, argv, kernels that must launch, that must not, cut config)
+FAMILY_SERVES = [
+    ("qwen3_14b_chunked_recall_index",
+     ["--arch", "qwen3-14b"] + DENSE_PAGED + [
+         "--flash", "--dp-kernel", "--policy", "recall_index"],
+     PAGED + NEW, ("ssd_chunk",) + EXIT, False),
+    ("phi35moe_cut_chunked_recall_index",
+     ["--arch", "phi3.5-moe-42b-a6.6b"] + DENSE_PAGED + [
+         "--flash", "--dp-kernel", "--policy", "recall_index"],
+     PAGED + NEW, ("ssd_chunk",) + EXIT, True),
+    ("deepseek_stw_recall_index",
+     ["--arch", "deepseek-v2-lite-16b"] + LOAD + [
+         "--server", "--kv", "paged", "--page-size", str(PS),
+         "--paged-kernel", "--flash", "--dp-kernel", "--policy",
+         "recall_index"],
+     ("bellman_backup",), ATTN + ("ssd_chunk",) + EXIT, False)]
 # qwen3-4b under reaping: --deadline-ms is appended from the e2e
 # latencies of qwen3_chunked_recall_index (the same requests)
 QWEN3_FAULTS = ("qwen3_faults",
@@ -537,6 +580,11 @@ LONG_STARTS = [1008, 1000, 1004, 993, 1008, 1001, 996, 1006]
 # head_dim 128)
 G4 = dict(h=32, hkv=8, hd=128)
 G12 = dict(h=24, hkv=2, hd=128)
+# and at the new families' serve widths: phi-3-vision-4.2b's (32 heads
+# on 32, head_dim 96: the hd 96 instance) and qwen3-14b's (40 heads on
+# 8, head_dim 128: a GQA group of 5)
+G1H96 = dict(h=32, hkv=32, hd=96)
+G5 = dict(h=40, hkv=8, hd=128)
 
 
 def decode_case(seed, *, h=H, hkv=HKV, hd=HD, window=None, maxp=MAXP,
@@ -659,9 +707,11 @@ FLASH_CASES = [("calibration", (512, 64, 12, 12, 64, None)),
     # the dense configs' calibration prefills (starcoder2-3b's window of
     # 4096 is longer than the 64-token prompts)
     ("qwen3-4b-calibration", (512, 64, 32, 8, 128, None)),
-    ("starcoder2-3b-calibration", (512, 64, 24, 2, 128, 4096))]
+    ("starcoder2-3b-calibration", (512, 64, 24, 2, 128, 4096)),
+    # qwen3-14b's calibration prefill: a GQA group of 5 at head_dim 128
+    ("qwen3-14b-calibration", (512, 64, 40, 8, 128, None))]
 FLASH_TIMED = ("calibration", "ring-admission", "qwen3-4b-calibration",
-               "starcoder2-3b-calibration")
+               "starcoder2-3b-calibration", "qwen3-14b-calibration")
 
 
 def flash_case(seed, b, s, h, hkv, hd, window):
@@ -1017,7 +1067,15 @@ def phase_kernel_checks():
              ("paged_attention", "g12-hd128-window",
               decode_case(50, window=40, **G12), TOL_KERNEL),
              ("paged_prefill", "g12-hd128-window",
-              prefill_case(51, window=20, **G12), TOL_KERNEL)]
+              prefill_case(51, window=20, **G12), TOL_KERNEL),
+             ("paged_attention", "g1-hd96-window",
+              decode_case(52, window=40, **G1H96), TOL_KERNEL),
+             ("paged_prefill", "g1-hd96-window",
+              prefill_case(53, window=20, **G1H96), TOL_KERNEL),
+             ("paged_attention", "g5-hd128-window",
+              decode_case(54, window=40, **G5), TOL_KERNEL),
+             ("paged_prefill", "g5-hd128-window",
+              prefill_case(55, window=20, **G5), TOL_KERNEL)]
     cases += [("flash_attention", case, flash_case(10 + i, *shape),
                TOL_KERNEL) for i, (case, shape) in enumerate(FLASH_CASES)]
     cases += [("bellman_backup", f"K={k}", bellman_case(k, k), TOL_DP)
@@ -1135,29 +1193,54 @@ def phase_exit_checks():
     return worst
 
 
+def model_batch(cfg, rows, seed, dev):
+    """A numpy-seeded batch of two prompts of ``rows`` text positions
+    in the model's own input mode: tokens; embeds N(0, 0.5) (an
+    embeds-input model); or image embeds N(0, 0.1) of ``image_tokens``
+    rows before the tokens (multimodal)."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeds":
+        return {"embeds": torch.as_tensor(
+            rng.normal(0, 0.5, (2, rows, cfg.d_model)).astype(np.float32),
+            device=dev)}
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (2, rows)).astype(np.int32), device=dev)}
+    if cfg.input_mode == "multimodal":
+        batch["image_embeds"] = torch.as_tensor(
+            rng.normal(0, 0.1, (2, cfg.image_tokens, cfg.d_model))
+            .astype(np.float32), device=dev)
+    return batch
+
+
+def decode_input(prm, cfg, dev):
+    """A fixed decode input (not the argmax, so a near-tie in the
+    first-token logits cannot change it): tokens 7 and 11, or for an
+    embeds-input model two seeded embeds.  (2, 1, D)."""
+    if cfg.input_mode == "embeds":
+        return torch.as_tensor(np.random.default_rng(8).normal(
+            0, 0.5, (2, 1, cfg.d_model)).astype(np.float32), device=dev)
+    return prm["embed"]["table"][torch.tensor([7, 11], device=dev)][:, None]
+
+
 def phase_model_check(params, params_cpu, cfg):
-    """Full-width model on a small input: one 16-token prefill chunk for
-    two lanes, then one decode token, through the kernels and through
+    """Full-width model on a small input: two lanes' prompts (16 rows,
+    the second lane's 11; a multimodal model's 256 image embeds first,
+    so 272 and 267 rows) in 16-row prefill chunks against page
+    histories, then one decode token, through the kernels and through
     the page gather on the card, and through the gather on the CPU —
-    or, with ``params_cpu`` None (the dense configs, whose 10-16 GB of
-    weights stay on the card), the kernels against the gather."""
-    rng = np.random.default_rng(5)
-    toks = rng.integers(0, cfg.vocab, (2, C)).astype(np.int32)
-    widths = (C, 11)
-    n_pages = 5
-    table = np.asarray([[1, 2, 0, 0], [3, 4, 0, 0]], np.int32)
-    pos = np.full((2, C), -1, np.int32)
-    dp = np.zeros((2, C), np.int32)
-    ds = np.zeros((2, C), np.int32)
-    for lane, w in enumerate(widths):
-        pos[lane, :w] = np.arange(w)
-        dp[lane, :w] = table[lane, np.arange(w) // PS]
-        ds[lane, :w] = np.arange(w) % PS
+    or, with ``params_cpu`` None (the larger configs, whose weights
+    stay on the card), the kernels against the gather."""
+    rows = C + cfg.image_tokens
+    widths = (rows, rows - 5)
+    lane_pages = -(-(rows + 1) // PS)
+    n_pages = 1 + 2 * lane_pages
+    table = np.arange(1, n_pages, dtype=np.int32).reshape(2, lane_pages)
     dec_pos = np.asarray(widths, np.int32)
     outs = {}
     paths = [("kernel", params, DEV, True), ("gather", params, DEV, False)]
     if params_cpu is not None:
         paths.append(("cpu", params_cpu, torch.device("cpu"), False))
+    launched = {}
     for name, prm, dev, kern in paths:
         def t(a, dtype=torch.int32, dev=dev):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -1167,24 +1250,37 @@ def phase_model_check(params, params_cpu, cfg):
                 k: (torch.full(s, -1, dtype=d, device=dev) if k == "pos"
                     else torch.zeros(s, dtype=d, device=dev))
                 for k, (s, d) in spec["attn"].items()}})
-        chunk = A.PrefillChunk(
-            tok=t(toks), pos=t(pos), dest_page=t(dp), dest_slot=t(ds),
-            start=t([0, 0]), last_idx=t([w - 1 for w in widths]),
-            emit=t([True, True], torch.bool),
-            active=t([True, True], torch.bool))
-        kv = A.PagedKV(page_table=t(table),
-                       write_page=t(table[np.arange(2), dec_pos // PS]),
-                       write_slot=t(dec_pos % PS))
+        n0 = (paged_attention.launches, paged_prefill.launches)
         with torch.no_grad(), A.paged_kernel(kern):
-            x = prm["embed"]["table"][chunk.tok.long()]
-            for si in range(len(cfg.segments)):
-                x, _ = M.prefill_chunk_segment(prm, cfg, si, x, caches[si],
-                                               kv.page_table, chunk)
+            x_all, _ = M._embed_inputs(prm, cfg, model_batch(cfg, C, 5, dev))
+            # pad rows (position -1) past the prompt, to whole chunks
+            x_all = F.pad(x_all, (0, 0, 0, -rows % C))
+            for c0 in range(0, rows, C):
+                pos = np.full((2, C), -1, np.int32)
+                for lane, w in enumerate(widths):
+                    live = np.arange(c0, min(c0 + C, w))
+                    pos[lane, :len(live)] = live
+                dp = np.where(pos >= 0, table[np.arange(2)[:, None],
+                                              np.maximum(pos, 0) // PS], 0)
+                active = (pos >= 0).any(axis=1)
+                chunk = A.PrefillChunk(
+                    tok=t(np.zeros((2, C))), pos=t(pos), dest_page=t(dp),
+                    dest_slot=t(np.maximum(pos, 0) % PS),
+                    start=t([c0, c0]),
+                    last_idx=t([max(min(w - c0, C) - 1, 0)
+                                for w in widths]),
+                    emit=t(active, torch.bool), active=t(active, torch.bool))
+                x = x_all[:, c0:c0 + C]
+                for si in range(len(cfg.segments)):
+                    x, _ = M.prefill_chunk_segment(prm, cfg, si, x,
+                                                   caches[si],
+                                                   t(table), chunk)
             h = x[torch.arange(2, device=dev), chunk.last_idx.long()]
             first, _ = M.ramp_readout(prm, cfg, h)
-            # a fixed decode token (not the argmax) keeps a near-tie in
-            # the first-token logits from changing the decode input
-            x = prm["embed"]["table"][t([7, 11]).long()][:, None, :]
+            kv = A.PagedKV(page_table=t(table),
+                           write_page=t(table[np.arange(2), dec_pos // PS]),
+                           write_slot=t(dec_pos % PS))
+            x = decode_input(prm, cfg, dev)
             ells = []
             for si in range(len(cfg.segments)):
                 x, _, ro = M.decode_segment(prm, cfg, si, x, caches[si],
@@ -1195,8 +1291,16 @@ def phase_model_check(params, params_cpu, cfg):
                     ells.append(ro[1])
             logits, ell = M.ramp_readout(prm, cfg, x[:, 0, :])
             ells.append(ell)
+        launched[name] = (paged_attention.launches - n0[0],
+                          paged_prefill.launches - n0[1])
         outs[name] = [first.float().cpu(), logits.float().cpu(),
                       torch.stack(ells, 1).cpu()]
+    n_layers = sum(seg.n_layers for seg in cfg.segments)
+    n_chunks = -(-rows // C)
+    if launched["kernel"] != (n_layers, n_chunks * n_layers) \
+            or launched["gather"] != (0, 0):
+        raise SystemExit(f"model check {cfg.name}: paged launches "
+                         f"{launched}, not one a layer and chunk")
     pairs = ([("kernel", "cpu"), ("gather", "cpu")] if "cpu" in outs
              else [("kernel", "gather")])
     where = {"kernel": "kernels on the card", "gather": "gather on the card",
@@ -1207,10 +1311,11 @@ def phase_model_check(params, params_cpu, cfg):
         ok = all(torch.allclose(a, b, atol=TOL_MODEL, rtol=TOL_MODEL)
                  and bool(torch.isfinite(a).all())
                  for a, b in zip(outs[name], outs[ref]))
-        log(f"model check {cfg.name} [{where[name]} vs {where[ref]}]: "
-            f"first-token logits {errs[0]:.3e}, decode logits "
-            f"{errs[1]:.3e}, node losses {errs[2]:.3e} "
-            f"(atol=rtol={TOL_MODEL}) {'ok' if ok else 'FAIL'}")
+        log(f"model check {cfg.name} [{where[name]} vs {where[ref]}, "
+            f"{n_chunks} chunk(s) of {rows} rows]: first-token logits "
+            f"{errs[0]:.3e}, decode logits {errs[1]:.3e}, node losses "
+            f"{errs[2]:.3e} (atol=rtol={TOL_MODEL}) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"model check failed for {cfg.name}'s "
                              f"{name} path")
@@ -1224,9 +1329,8 @@ def phase_flash_model_check(params, params_cpu, cfg):
     """Full-width whole-prompt prefill into ring caches: through the
     flash kernel, through the einsum path on the card and on the CPU
     (without ``params_cpu``: flash against einsum on the card).  The
-    prompt (40 tokens) outruns the 32-slot ring, so the caches keep its
-    tail."""
-    toks = np.random.default_rng(6).integers(0, cfg.vocab, (2, 40))
+    prompt (40 positions; a multimodal model's 256 image embeds first)
+    outruns the 32-slot ring, so the caches keep its tail."""
     cache_len = 32
     outs = {}
     n0 = flash_attention.launches
@@ -1236,8 +1340,8 @@ def phase_flash_model_check(params, params_cpu, cfg):
     for name, prm, dev, flash in paths:
         with torch.no_grad():
             logits, caches, losses, _ = M.prefill(
-                prm, cfg, {"tokens": torch.as_tensor(toks, device=dev)},
-                cache_len, use_flash=flash)
+                prm, cfg, model_batch(cfg, 40, 6, dev), cache_len,
+                use_flash=flash)
         outs[name] = (logits.float().cpu(), losses.cpu(),
                       [{k: t.cpu() for k, t in c["attn"].items()}
                        for c in caches])
@@ -1406,9 +1510,9 @@ def node_readouts(params, cfg, tokens):
     for si, seg in enumerate(cfg.segments):
         p_seg = params["segments"][si]["blocks"]
         for li in range(seg.n_layers):
-            x, _ = blocks.block_forward(M.layer(p_seg, li), x, positions,
-                                        seg.block, cfg.norm_eps, False,
-                                        False)
+            x, _, _ = blocks.block_forward(M.layer(p_seg, li), x,
+                                           positions, seg.block,
+                                           cfg.norm_eps, False, False)
         if seg.ramp:
             out.append(M.ramp_readout(params, cfg, x[:, -1, :], segment=si))
     out.append(M.ramp_readout(params, cfg, x[:, -1, :]))
@@ -1505,12 +1609,15 @@ def phase_calibration_timing(params, cfg, flag):
 
 
 # the paged pair's timed cases: (h, hkv, hd, maxp) — the serve's shapes,
-# 1024-token contexts, and the serve's histories at qwen3-4b's and
-# starcoder2-3b's widths
+# 1024-token contexts, and the serve's histories at qwen3-4b's,
+# starcoder2-3b's, phi-3-vision-4.2b's and qwen3-14b's widths
 PAGED_TIMED = {"serve": (H, HKV, HD, MAXP),
                "long-context": (H, HKV, HD, LONG_MAXP),
                "serve-g4-hd128": (G4["h"], G4["hkv"], G4["hd"], MAXP),
-               "serve-g12-hd128": (G12["h"], G12["hkv"], G12["hd"], MAXP)}
+               "serve-g12-hd128": (G12["h"], G12["hkv"], G12["hd"], MAXP),
+               "serve-g1-hd96": (G1H96["h"], G1H96["hkv"], G1H96["hd"],
+                                 MAXP),
+               "serve-g5-hd128": (G5["h"], G5["hkv"], G5["hd"], MAXP)}
 
 
 def long_decode_case():
@@ -1534,7 +1641,8 @@ TIMED = [("paged_attention", "serve", lambda: decode_case(4, lens=SERVE_LENS),
          ("paged_prefill", "long-context", long_prefill_case, prefill_bound)]
 TIMED += [(kern, f"serve-{tag}", lambda mk=mk, seed=seed, g=g, kw=kw:
            mk(seed, **g, **kw), bound)
-          for tag, g in (("g4-hd128", G4), ("g12-hd128", G12))
+          for tag, g in (("g4-hd128", G4), ("g12-hd128", G12),
+                         ("g1-hd96", G1H96), ("g5-hd128", G5))
           for kern, mk, seed, kw, bound in (
               ("paged_attention", decode_case, 4, dict(lens=SERVE_LENS),
                decode_bound),
@@ -1765,6 +1873,236 @@ def phase_dense_model_checks():
             f"{time.perf_counter() - t0:.1f} s")
         phase_model_check(params, None, cfg)
         phase_flash_model_check(params, None, cfg)
+        del params
+        torch.cuda.empty_cache()
+
+
+# the other model families at full width, each built on the card and
+# freed before the next: qwen3-14b (untied, GQA 5:1), musicgen-large
+# (embeds input, G 1 at hd 64), phi-3-vision-4.2b (multimodal, untied,
+# G 1 at hd 96), phi3.5-moe cut to one layer in each of its 8 segments
+# (16 experts top-2 at full width, GQA 4:1) and deepseek-v2-lite-16b
+# (MLA, 64 routed experts top-6 and 2 shared)
+PHI35 = "phi3.5-moe-42b-a6.6b"
+FAMILY_ARCHS = ("qwen3-14b", "musicgen-large", "phi-3-vision-4.2b", PHI35,
+                "deepseek-v2-lite-16b")
+TOL_MLA = 2.5e-2   # decode over the bf16 latent vs the f32 prefill
+MLA_S = 7          # prompt of the MLA check: S + 1 = 8 tokens a group
+
+
+def phi35_cut():
+    """phi3.5-moe-42b-a6.6b at full layer width, all 8 segments (so all
+    8 nodes) of 1 layer each: 10.67 B parameters (39.7 GiB in f32) of
+    the full 41.87 B, which no 80 GB card holds in f32."""
+    full = get_config(PHI35)
+    return dataclasses.replace(
+        full, name=PHI35 + "-cut-8x1",
+        segments=tuple(dataclasses.replace(seg, n_layers=1)
+                       for seg in full.segments))
+
+
+def family_config(arch):
+    return phi35_cut() if arch == PHI35 else get_config(arch)
+
+
+def build_model(cfg):
+    """Seeded weights on the card (generator seed 0), with the count and
+    the build time printed."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = materialize(M.model_defs(cfg), gen, DEV)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"model {cfg.name}: {n} parameters ({4 * n / 1e9:.2f} GB, "
+        f"{4 * n / 2**30:.1f} GiB in f32), "
+        f"{sum(seg.n_layers for seg in cfg.segments)} layers, "
+        f"{cfg.n_ramps + 1} nodes, input {cfg.input_mode}, "
+        f"{'tied' if cfg.tie_embeddings else 'untied'}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _mla_pool(ring: dict, n_pages=3) -> dict:
+    """A paged pool holding two lanes' ring caches (ring slot = position,
+    ring length PS): lane 0 in page 1, lane 1 in page 2, page 0 the
+    garbage sink.  Leaves may be layer-stacked; the lane axis is the
+    one before the slots."""
+    pool = {}
+    for k, leaf in ring.items():
+        axis = leaf.dim() - (1 if k == "pos" else 2) - 1
+        shape = list(leaf.shape)
+        shape[axis] = n_pages
+        new = (torch.full(shape, -1, dtype=leaf.dtype, device=DEV)
+               if k == "pos" else torch.zeros(shape, dtype=leaf.dtype,
+                                              device=DEV))
+        new.narrow(axis, 1, 2).copy_(leaf)
+        pool[k] = new
+    return pool
+
+
+def phase_mla_model_check(params, cfg):
+    """deepseek-v2-lite's MLA at full width, on a ring prefill of S = 7
+    tokens and one absorbed decode token (the reference's
+    `test_decode_consistent_with_prefill`), against the prefill of
+    S + 1:
+      (a) every layer's attention alone, fed the S + 1 prefill's own
+          layer inputs: the decode over the ring (bf16 latent) against
+          the prefill's last row within TOL_MLA, the reference's
+          tolerance (the decode reads the bf16 latent, the prefill
+          recomputes in f32); the same decode over the paged pool
+          (page-table gather) against the ring decode within TOL_MODEL;
+      (b) the whole model: node losses within TOL_MLA, and the logits of
+          every lane whose decode token each MoE layer routes to the
+          experts the prefill routes its last token to (a latent one
+          bf16 ulp off can swap the 6th and 7th of 64 near-equal router
+          probabilities at random init, and then the two compute
+          different functions); the paged-gather decode against the
+          ring decode within TOL_MODEL.
+    No kernel launches, with use_flash and the paged-kernel switch on:
+    MLA returns before them.  S + 1 = 8 tokens keeps every expert
+    within its 8 slots a group (a token's experts are distinct), so no
+    capacity drop separates the two prefills."""
+    s = MLA_S
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab, (2, s + 1)), device=DEV)
+    pos = torch.full((2,), s, dtype=torch.int32, device=DEV)
+
+    def paged():
+        return A.PagedKV(
+            page_table=torch.tensor([[1], [2]], dtype=torch.int32,
+                                    device=DEV),
+            write_page=torch.tensor([1, 2], dtype=torch.int32, device=DEV),
+            write_slot=pos)
+
+    n0 = {k: kern.launches for k, kern in KERNELS.items()}
+    worst = {"decode": 0.0, "paged": 0.0}
+    with torch.no_grad(), A.paged_kernel(True):
+        x, positions = M._embed_inputs(params, cfg, {"tokens": toks})
+        for si, seg in enumerate(cfg.segments):
+            acfg = seg.block.attn
+            for li in range(seg.n_layers):
+                p = M.layer(params["segments"][si]["blocks"], li)
+                xn = rms_norm(p["norm1"], x, cfg.norm_eps)
+                y_full, _ = A.attn_forward(p["attn"], xn, positions, acfg,
+                                           cfg.norm_eps, use_flash=True)
+                _, kv = A.attn_forward(p["attn"], xn[:, :s],
+                                       positions[:, :s], acfg, cfg.norm_eps,
+                                       use_flash=True)
+                ring = blocks.build_ring_cache(
+                    {"attn_kv": kv}, positions[:, :s], PS)["attn"]
+                y_pag, _ = A.attn_decode(p["attn"], xn[:, s:], _mla_pool(ring),
+                                         pos, acfg, cfg.norm_eps,
+                                         paged=paged())
+                y_dec, _ = A.attn_decode(p["attn"], xn[:, s:], ring, pos,
+                                         acfg, cfg.norm_eps)
+                for key, a, b, tol in (("decode", y_dec[:, 0], y_full[:, s],
+                                        TOL_MLA),
+                                       ("paged", y_pag, y_dec, TOL_MODEL)):
+                    worst[key] = max(worst[key],
+                                     float((a - b).abs().max()))
+                    if not (torch.allclose(a, b, atol=tol, rtol=tol)
+                            and bool(torch.isfinite(a).all())):
+                        raise SystemExit(
+                            f"MLA model check failed at segment {si} "
+                            f"layer {li}: {key} attention "
+                            f"{float((a - b).abs().max()):.3e}")
+                x = blocks.block_forward(p, x, positions, seg.block,
+                                         cfg.norm_eps, True, False)[0]
+    n_layers = sum(seg.n_layers for seg in cfg.segments)
+    log(f"model check {cfg.name} [MLA attention, {n_layers} layers, the "
+        f"{s + 1}-token prefill's layer inputs]: absorbed decode over the "
+        f"ring vs the prefill's last row {worst['decode']:.3e} "
+        f"(atol=rtol={TOL_MLA}); paged-gather decode vs ring decode "
+        f"{worst['paged']:.3e} (atol=rtol={TOL_MODEL}) ok")
+
+    # (b) the whole model, each MoE layer's routing recorded
+    picks = []
+    route = MOE.route
+
+    def recording(p, xg, mcfg):
+        out = route(p, xg, mcfg)
+        picks.append(torch.sort(out[3], dim=-1).values)
+        return out
+
+    MOE.route = recording
+    try:
+        with torch.no_grad(), A.paged_kernel(True):
+            full, _, full_nl, _ = M.prefill(params, cfg, {"tokens": toks},
+                                            PS, use_flash=True)
+            full_picks = [t[:, -1] for t in picks]
+            _, ring, _, _ = M.prefill(params, cfg,
+                                      {"tokens": toks[:, :-1]}, PS,
+                                      use_flash=True)
+            pool = [{"attn": _mla_pool(c["attn"])} for c in ring]
+            x = params["embed"]["table"][toks[:, -1].long()][:, None]
+            ells = []
+            for si in range(len(cfg.segments)):
+                x, _, ro = M.decode_segment(params, cfg, si, x, pool[si],
+                                            pos, paged=paged())
+                if ro is not None:
+                    ells.append(ro[1])
+            paged_logits, ell = M.ramp_readout(params, cfg, x[:, 0, :])
+            paged_nl = torch.stack(ells + [ell], 1)
+            del picks[:]
+            dec, _, dec_nl = M.decode_step(params, cfg,
+                                           {"tokens": toks[:, -1]}, ring,
+                                           pos)
+            dec_picks = [t[0] for t in picks]
+    finally:
+        MOE.route = route
+    if len(dec_picks) != len(full_picks):
+        raise SystemExit("MLA model check: MoE layers routed "
+                         f"{len(dec_picks)} / {len(full_picks)} times")
+    first_flip = [next((i for i, (a, b) in enumerate(zip(dec_picks,
+                                                         full_picks))
+                        if not torch.equal(a[lane], b[lane])), None)
+                  for lane in range(2)]
+    same = [lane for lane in range(2) if first_flip[lane] is None]
+    checks = [((dec_nl,), (full_nl,), TOL_MLA,
+               f"node losses, ring decode vs the {s + 1}-token prefill"),
+              ((paged_logits, paged_nl), (dec, dec_nl), TOL_MODEL,
+               "paged-gather decode vs ring decode")]
+    if same:
+        checks.append(((dec[same],), (full[same],), TOL_MLA,
+                       f"logits of lanes {same} (their routing equal), "
+                       f"ring decode vs the {s + 1}-token prefill"))
+    for a, b, tol, what in checks:
+        err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        ok = all(torch.allclose(x, y, atol=tol, rtol=tol)
+                 and bool(torch.isfinite(x).all()) for x, y in zip(a, b))
+        log(f"model check {cfg.name} [MLA, {what}]: {err:.3e} "
+            f"(atol=rtol={tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"MLA model check failed: {what}")
+    log(f"model check {cfg.name} [MLA]: the decode token's experts vs "
+        f"the prefill's last token's, first MoE layer that differs by "
+        f"lane (of {len(dec_picks)}): {first_flip}; logits "
+        f"{float((dec - full).abs().max()):.3e} over both lanes")
+    launched = {k: kern.launches - n0[k] for k, kern in KERNELS.items()}
+    if any(launched.values()):
+        raise SystemExit(f"the MLA checks launched kernels: {launched}")
+    log(f"model check {cfg.name} [MLA]: no kernel launched with "
+        f"use_flash and the paged-kernel switch on")
+
+
+def phase_family_model_checks():
+    """Each of FAMILY_ARCHS at full width, weights only on the card: the
+    paged chunks plus a decode token through the kernels against the
+    page gather, and the whole-prompt prefill through flash against the
+    einsum path, within TOL_MODEL (deepseek: `phase_mla_model_check`);
+    the peak memory of each."""
+    for arch in FAMILY_ARCHS:
+        cfg = family_config(arch)
+        params = build_model(cfg)
+        if cfg.segments[-1].block.attn.mla is not None:
+            phase_mla_model_check(params, cfg)
+        else:
+            phase_model_check(params, None, cfg)
+            phase_flash_model_check(params, None, cfg)
+        log(f"model {cfg.name}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
         del params
         torch.cuda.empty_cache()
 
@@ -2008,26 +2346,48 @@ def _p50_ms(xs) -> str:
     return f"{1e3 * float(np.median(xs)):.2f} ms" if xs else "n/a"
 
 
-def phase_serve(name, argv, must, must_not, eos=None, reaped=False):
+def serve_config(argv, cfg):
+    """The launcher's --server path for a config the registry does not
+    hold (``cfg``), through its own internals as `serve.main` runs them:
+    seeded weights, the calibration on its numpy prompts, then
+    `serve._serve_traffic`."""
+    args = serve.parse_args(argv)
+    gen = torch.Generator(device=DEV).manual_seed(args.seed)
+    params = materialize(M.model_defs(cfg), gen, DEV)
+    tokens = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (serve.CALIB_PROMPTS, serve.CALIB_LEN))
+    casc, calib_s = serve._timed(
+        DEV, Cascade.calibrate, params, cfg, tokens, args.lam,
+        k=serve.CALIB_K, solve=False, use_flash=args.flash,
+        use_ssd_kernel=args.ssd_kernel, use_kernel=args.dp_kernel)
+    run = serve._serve_traffic(args, cfg, params, casc, DEV)
+    run.calib_s = calib_s
+    return run
+
+
+def phase_serve(name, argv, must, must_not, eos=None, reaped=False,
+                cfg=None):
     """One full-width serve; every kernel's launch counter is zeroed
     just before and read just after.  Every server serve but UNTRACED
     runs under a tracer (``--trace-out``, unless an observability flag
     is given), whose events split its step times into chunk and
-    decode-only steps.  Returns the launches and the run."""
+    decode-only steps.  With ``cfg`` the serve runs that config through
+    `serve_config`.  Returns the launches and the run."""
     args = serve.parse_args(argv)
     if args.server and name != UNTRACED and not (args.trace_out
                                                  or args.obs_dir):
         OBS_ROOT.mkdir(parents=True, exist_ok=True)
         argv = argv + ["--trace-out", str(OBS_ROOT / f"{name}.json")]
-    cfgs = [get_config(a) for a in (args.cascade.split(":")
-                                    if args.cascade else [args.arch])]
+    cfgs = [cfg] if cfg is not None else [
+        get_config(a) for a in (args.cascade.split(":") if args.cascade
+                                else [args.arch])]
     n_nodes = sum(c.n_ramps + 1 for c in cfgs)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for kern in KERNELS.values():
         kern.launches = 0
     t0 = time.perf_counter()
-    run = serve.main(argv)
+    run = serve.main(argv) if cfg is None else serve_config(argv, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: kern.launches for k, kern in KERNELS.items()}
@@ -2067,7 +2427,8 @@ def phase_serve(name, argv, must, must_not, eos=None, reaped=False):
                       f"a prefill chunk (p50 {_p50_ms(chunk)}), "
                       f"{len(decode)} without (p50 {_p50_ms(decode)})")
     log(f"serve [{name}]: {summary}, launches {launches}, peak memory "
-        f"{peak:.0f} MiB, wall {wall:.1f} s ({setup})")
+        f"{peak:.0f} MiB, wall {wall:.1f} s ({setup})"
+        + ("" if cfg is None else f"; config {cfg.name}"))
     return launches, run
 
 
@@ -2235,6 +2596,7 @@ def phase_serves():
     log(f"serve [{name}]: every stream is the recall_index serve's, cut "
         f"after its first eos {eos}")
     by_path.update(phase_dense_serves())
+    by_path.update(phase_family_serves())
     return by_path, init_stats
 
 
@@ -2482,6 +2844,22 @@ def phase_dense_serves() -> dict:
     del run
     torch.cuda.empty_cache()
     return by_path
+
+def phase_family_serves() -> dict:
+    """FAMILY_SERVES at full width, each model freed before the next."""
+    by_path = {}
+    for name, argv, must, must_not, cut in FAMILY_SERVES:
+        cfg = phi35_cut() if cut else None
+        if cfg is not None:
+            log(f"serve [{name}]: {cfg.name}, {PHI35} cut to one layer in "
+                f"each of its {len(cfg.segments)} segments, through the "
+                f"launcher's own parse_args and _serve_traffic")
+        by_path[name], run = phase_serve(name, argv, must, must_not,
+                                         cfg=cfg)
+        del run
+        torch.cuda.empty_cache()
+    return by_path
+
 
 # phase_train: full-width paper-ee-100m trained on the synthetic source
 # with examples/train_ee.py's settings, then served from its checkpoint
@@ -2778,6 +3156,7 @@ def main() -> None:
     del params, params_cpu
     torch.cuda.empty_cache()
     phase_dense_model_checks()
+    phase_family_model_checks()
     times = phase_timing()
     floor = launch_floor_ms()
     log(f"launch_floor_ms {floor:.6f} (device, graph replay of an in-place "

@@ -1,15 +1,21 @@
 """Architecture registry of the port: the paper's own early-exit
-workload, the SSM family's full-width model and the dense tied-embedding
-decoders (granite-3-2b, qwen3-4b, starcoder2-3b), selectable via
-``--arch``."""
+workload, the SSM family's full-width model, the dense decoders (tied:
+granite-3-2b, qwen3-4b, starcoder2-3b; untied: qwen3-14b), the embeds-
+and multimodal-input decoders (musicgen-large, phi-3-vision-4.2b) and
+the MoE models (phi3.5-moe-42b-a6.6b; deepseek-v2-lite-16b with MLA),
+selectable via ``--arch``."""
 
 from __future__ import annotations
 
-from repro_torch.configs import (granite_3_2b, mamba2_130m, paper_ee,
-                                 qwen3_4b, starcoder2_3b)
+from repro_torch.configs import (deepseek_v2_lite_16b, granite_3_2b,
+                                 mamba2_130m, musicgen_large, paper_ee,
+                                 phi3_5_moe_42b, phi3_vision_4_2b,
+                                 qwen3_4b, qwen3_14b, starcoder2_3b)
 
 REGISTRY = {m.ARCH_ID: m for m in (paper_ee, mamba2_130m, granite_3_2b,
-                                   qwen3_4b, starcoder2_3b)}
+                                   qwen3_4b, starcoder2_3b, qwen3_14b,
+                                   musicgen_large, phi3_vision_4_2b,
+                                   phi3_5_moe_42b, deepseek_v2_lite_16b)}
 
 
 def get_config(arch: str, smoke: bool = False):

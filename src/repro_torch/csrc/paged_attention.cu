@@ -366,6 +366,7 @@ size_t smem_bytes(int hd, int G, int pages, int ps) {
   switch (hd) {
     case 32: return Layout<32>::bytes(G, pages, pages * ps);
     case 64: return Layout<64>::bytes(G, pages, pages * ps);
+    case 96: return Layout<96>::bytes(G, pages, pages * ps);
     default: return Layout<128>::bytes(G, pages, pages * ps);
   }
 }
@@ -405,7 +406,7 @@ int info(int G, int pages, int ps, int* out) {
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success).  hd must be 32,
-// 64 or 128, H a multiple of Hkv with H / Hkv <= 32, 1 <= S <= 65535
+// 64, 96 or 128, H a multiple of Hkv with H / Hkv <= 32, 1 <= S <= 65535
 // splits of each lane's pages; with S > 1, `part` holds B * Hkv * S *
 // G * (hd + 2) floats of scratch and `tickets` B * Hkv ints that are
 // zero (and are left zero).
@@ -436,6 +437,7 @@ extern "C" int repro_paged_attention(
   switch (hd) {
     case 32: return launch<32>(a, st);
     case 64: return launch<64>(a, st);
+    case 96: return launch<96>(a, st);
     case 128: return launch<128>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -451,6 +453,7 @@ extern "C" int repro_paged_attention_info(int hd, int G, int maxp, int ps,
   switch (hd) {
     case 32: return info<32>(G, pages, ps, out);
     case 64: return info<64>(G, pages, ps, out);
+    case 96: return info<96>(G, pages, ps, out);
     case 128: return info<128>(G, pages, ps, out);
     default: return (int)cudaErrorInvalidValue;
   }

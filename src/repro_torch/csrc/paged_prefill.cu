@@ -607,7 +607,7 @@ int info(int C, int maxp, int ps, int S, int* out) {
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success).  hd must be 32,
-// 64 or 128, H a multiple of Hkv with H / Hkv <= 32, 1 <= S <= 65535
+// 64, 96 or 128, H a multiple of Hkv with H / Hkv <= 32, 1 <= S <= 65535
 // splits of each lane's history pages, B * Hkv * ceil(C * G / 16) <
 // 2^31 and the shared memory within 227 KB; with S > 1, `part` holds
 // B * Hkv * ceil(C * G / 16) * S * 16 * (hd + 2) floats of scratch
@@ -645,6 +645,7 @@ extern "C" int repro_paged_prefill(
   switch (hd) {
     case 32: return launch<32>(a, st);
     case 64: return launch<64>(a, st);
+    case 96: return launch<96>(a, st);
     case 128: return launch<128>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -659,6 +660,7 @@ extern "C" int repro_paged_prefill_info(int hd, int C, int maxp, int ps,
   switch (hd) {
     case 32: return info<32>(C, maxp, ps, S, out);
     case 64: return info<64>(C, maxp, ps, S, out);
+    case 96: return info<96>(C, maxp, ps, S, out);
     case 128: return info<128>(C, maxp, ps, S, out);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -36,6 +36,7 @@ from repro_torch.kernels import build
 
 __all__ = ["paged_attention", "paged_attention_plain", "kernel_info"]
 
+HEAD_DIMS = (32, 64, 96, 128)      # the kernel's template instances
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = [_P] * 9 + [_I] * 7 + [_L] * 8 + [_F, _I, _P]
@@ -94,12 +95,12 @@ def _check(q, k_pages, v_pages, pos_pages, page_table, q_pos):
     if hd_k != hd or v_pages.shape != k_pages.shape \
             or pos_pages.shape != (p, ps) or page_table.shape[0] != b \
             or q_pos.shape != (b,) or h % hkv or h // hkv > 32 \
-            or hd not in (32, 64, 128):
+            or hd not in HEAD_DIMS:
         raise ValueError(
             f"paged_attention shapes: q {tuple(q.shape)}, pool "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, pos "
             f"{tuple(pos_pages.shape)}, table {tuple(page_table.shape)}, "
-            f"q_pos {tuple(q_pos.shape)} (hd 32/64/128, H/Hkv <= 32)")
+            f"q_pos {tuple(q_pos.shape)} (hd 32/64/96/128, H/Hkv <= 32)")
     if k_pages.stride(-1) != 1 or v_pages.stride(-1) != 1:
         raise ValueError("the pool's head_dim axis must be contiguous")
     if b >= 2 ** 31 or hkv > 65535:

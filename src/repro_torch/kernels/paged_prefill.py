@@ -38,6 +38,7 @@ from repro_torch.kernels import build
 
 __all__ = ["paged_prefill", "paged_prefill_plain", "kernel_info"]
 
+HEAD_DIMS = (32, 64, 96, 128)      # the kernel's template instances
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = [_P] * 13 + [_I] * 8 + [_L] * 8 + [_F, _I, _P]
@@ -121,14 +122,14 @@ def _check(q, k_pages, v_pages, pos_pages, page_table, q_pos, chunk_start,
             or q_pos.shape != (b, c) or c_pos.shape != (b, c) \
             or chunk_start.shape != (b,) \
             or ck.shape != (b, c, hkv, hd) or cv.shape != ck.shape \
-            or h % hkv or h // hkv > 32 or hd not in (32, 64, 128):
+            or h % hkv or h // hkv > 32 or hd not in HEAD_DIMS:
         raise ValueError(
             f"paged_prefill shapes: q {tuple(q.shape)}, pool "
             f"{tuple(k_pages.shape)}, pos {tuple(pos_pages.shape)}, table "
             f"{tuple(page_table.shape)}, q_pos {tuple(q_pos.shape)}, start "
             f"{tuple(chunk_start.shape)}, ck/cv {tuple(ck.shape)}/"
             f"{tuple(cv.shape)}, c_pos {tuple(c_pos.shape)} "
-            "(hd 32/64/128, H/Hkv <= 32)")
+            "(hd 32/64/96/128, H/Hkv <= 32)")
     if k_pages.stride(-1) != 1 or v_pages.stride(-1) != 1:
         raise ValueError("the pool's head_dim axis must be contiguous")
     if b * hkv * _row_tiles(c, h // hkv) >= 2 ** 31:

@@ -744,6 +744,18 @@ def _calibrate_multi(cfgs, params_list, tokens, lam, *,
                                               device=device)
 
 
+def _token_input(cfg):
+    """``cfg``, if its model takes tokens: the launcher draws token
+    prompts (calibration and traffic), so an embeds- or multimodal-input
+    model (musicgen-large, phi-3-vision-4.2b) is refused by name here
+    rather than failing inside the calibration."""
+    if cfg.input_mode != "tokens":
+        raise SystemExit(f"--arch {cfg.name}: the launcher serves "
+                         f"token-input models; this one takes "
+                         f"{cfg.input_mode!r} inputs")
+    return cfg
+
+
 def _serve_cascade(args, device) -> ServeRun | None:
     """``--cascade A:B[:C]`` — a ladder of models in ONE process, served
     as a T-Tamer multi-stage decision process on the paged pool."""
@@ -753,7 +765,8 @@ def _serve_cascade(args, device) -> ServeRun | None:
     if len(arch_names) < 2:
         raise SystemExit("--cascade needs at least two ':'-separated "
                          "arch names (e.g. qwen3-4b:qwen3-14b)")
-    cfgs = [get_config(a, smoke=args.smoke) for a in arch_names]
+    cfgs = [_token_input(get_config(a, smoke=args.smoke))
+            for a in arch_names]
     vocabs = {cfg.vocab for cfg in cfgs}
     if len(vocabs) > 1:
         # fail BEFORE the multi-model calibration
@@ -858,7 +871,7 @@ def main(argv=None) -> ServeRun | BatchRun | None:
             raise SystemExit("--ckpt serves one model; the --cascade "
                              "rungs are random-init demos")
         return _serve_cascade(args, device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = _token_input(get_config(args.arch, smoke=args.smoke))
     if args.ckpt:
         params = load_params(args.ckpt, cfg, device)
         print(f"loaded checkpoint {args.ckpt}")

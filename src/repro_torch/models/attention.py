@@ -1,14 +1,20 @@
-"""GQA attention: the full-sequence path (whole-prompt prefill), the
-one-token decode against a lane's ring cache or against the paged KV
-pool, and the prefill chunk against the same pool.
+"""Attention mixers: GQA (with qk-norm and sliding windows) and MLA
+(DeepSeek-V2 multi-head latent attention).  Each has the full-sequence
+path (whole-prompt prefill) and the one-token decode against a lane's
+ring cache or against the paged KV pool; GQA also has the prefill chunk
+against the same pool (MLA admits by whole-prompt prefill only, as in
+the JAX package).
 
-Ring layout: ``k, v: (B, C, Hkv, hd)`` bf16 and ``pos: (B, C)`` i32 per
-lane, position p stored at slot ``p % C`` (-1 = empty slot).  Decode
+Ring layout: GQA ``k, v: (B, C, Hkv, hd)`` bf16, MLA ``c_kv: (B, C,
+kv_lora)`` and ``k_rope: (B, C, rope_dim)`` bf16, and ``pos: (B, C)``
+i32 per lane, position p stored at slot ``p % C`` (-1 = empty slot).  Decode
 writes the new token's slot in place (``index_put_``); the engine puts
 back the slots of lanes that were not active (``_mask_lane_writes``).
 
-Paged layout (serving.kvpool): ``k, v: (P, page, Hkv, hd)`` bf16 and
-``pos: (P, page)`` i32 in a global page pool, plus a per-lane `PagedKV`
+Paged layout (serving.kvpool): the same leaves with the lane axis
+replaced by a global page pool, ``k, v: (P, page, Hkv, hd)`` (MLA
+``c_kv``, ``k_rope``: ``(P, page, ...)``) bf16 and ``pos: (P, page)``
+i32, plus a per-lane `PagedKV`
 handle carrying the page table and this token's (page, slot) write
 target.  Page 0 is the reserved garbage sink: lanes masked out by
 ``write_mask`` (early-exited or unoccupied) write their K/V there with
@@ -21,9 +27,13 @@ same (page, slot) only on the garbage page 0, and every such write
 stores position -1, so the order in which duplicates land never
 matters.
 
-``paged_kernel(True)`` routes the paged decode and the prefill chunk
+``paged_kernel(True)`` routes the GQA paged decode and the prefill chunk
 through the CUDA kernels of `repro_torch.kernels`; off, they take the
-page-table gather plus `_sdpa`, as the JAX package's default does.
+page-table gather plus `_sdpa`, as the JAX package's default does.  MLA
+attends in its latent space (the absorbed-matmul decode) over the page
+gather either way, and never through the flash kernel: the kernels
+compute GQA attention only, and the MLA paths return before the
+switches are read, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -79,7 +89,28 @@ class PrefillChunk(NamedTuple):
 
 def attn_defs(cfg: AttnConfig, d_model: int) -> dict:
     if cfg.mla is not None:
-        raise NotImplementedError("the port has GQA attention only")
+        m = cfg.mla
+        h = cfg.n_heads
+        defs = {
+            "wq": ParamDef((d_model, h * (m.qk_nope_head_dim
+                                          + m.qk_rope_head_dim)),
+                           ("embed", "heads")),
+            "w_dkv": ParamDef((d_model, m.kv_lora_rank + m.qk_rope_head_dim),
+                              ("embed", None)),
+            "kv_norm": ParamDef((m.kv_lora_rank,), (None,), init="ones"),
+            "w_uk": ParamDef((m.kv_lora_rank, h * m.qk_nope_head_dim),
+                             (None, "heads")),
+            "w_uv": ParamDef((m.kv_lora_rank, h * m.v_head_dim),
+                             (None, "heads")),
+            "wo": ParamDef((h * m.v_head_dim, d_model), ("heads", "embed")),
+        }
+        if m.q_lora_rank:
+            defs["w_dq"] = ParamDef((d_model, m.q_lora_rank), ("embed", None))
+            defs["q_norm"] = ParamDef((m.q_lora_rank,), (None,), init="ones")
+            defs["wq"] = ParamDef(
+                (m.q_lora_rank, h * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                (None, "heads"))
+        return defs
     defs = {
         "wq": ParamDef((d_model, cfg.n_heads * cfg.head_dim),
                        ("embed", "heads")),
@@ -97,7 +128,16 @@ def attn_defs(cfg: AttnConfig, d_model: int) -> dict:
 
 
 def init_cache_defs(cfg: AttnConfig, batch: int, cache_len: int) -> dict:
-    """(shape, dtype) spec of one layer's KV cache: bf16 K/V, i32 pos."""
+    """(shape, dtype) spec of one layer's KV cache: bf16 K/V (MLA: the
+    bf16 latent ``c_kv`` and the shared rope key ``k_rope``), i32 pos."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "c_kv": ((batch, cache_len, m.kv_lora_rank), torch.bfloat16),
+            "k_rope": ((batch, cache_len, m.qk_rope_head_dim),
+                       torch.bfloat16),
+            "pos": ((batch, cache_len), torch.int32),
+        }
     return {
         "k": ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
               torch.bfloat16),
@@ -146,7 +186,10 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
     ``use_flash`` runs the attention through the flash-attention kernel
     (plain PyTorch on CPU tensors); off, through `_sdpa`.  The prefill
-    positions are ``0..S-1`` on every row, the kernel's contract."""
+    positions are ``0..S-1`` on every row, the kernel's contract.  MLA
+    returns (y, {"c_kv", "k_rope"}) from `_mla_forward`, flash or not."""
+    if cfg.mla is not None:
+        return _mla_forward(p, x, positions, cfg, eps)
     b, s, _ = x.shape
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
     k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
@@ -251,8 +294,12 @@ def attn_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
     round-trip), and history reads are clipped to ``kpos <
     chunk.start`` so the chunk's own just-written positions are attended
     exactly once.  x (B, C, D); table (B, maxp) i32; returns
-    (y (B, C, D), cache).
+    (y (B, C, D), cache).  GQA only: MLA admits by whole-prompt prefill.
     """
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            "chunked prefill supports GQA attention only; MLA segments "
+            "must admit through the whole-prompt prefill path")
     b, c, _ = x.shape
     rpos = torch.clamp(chunk.pos, min=0)       # rope of pad rows: masked
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
@@ -309,8 +356,10 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
         lanes are redirected to the garbage page — ring callers mask via
         the engine's `_mask_lane_writes` instead).
 
-    Returns (y, cache).
+    Returns (y, cache).  MLA takes `_mla_decode` on either cache.
     """
+    if cfg.mla is not None:
+        return _mla_decode(p, x, cache, pos, cfg, eps, paged, write_mask)
     if paged is not None:
         return _gqa_decode_paged(p, x, cache, pos, cfg, eps, paged,
                                  write_mask)
@@ -328,3 +377,111 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
                 _scale(cfg))
     return out.reshape(b, 1, -1) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# --------------------------------------------------------------------------
+
+def _mla_scale(cfg: AttnConfig) -> float:
+    m = cfg.mla
+    return cfg.softmax_scale or 1.0 / math.sqrt(m.qk_nope_head_dim
+                                                + m.qk_rope_head_dim)
+
+
+def _mla_q(p, x, cfg: AttnConfig, eps):
+    """(q_nope, q_rope) of x (..., D), each (..., H, *)."""
+    m = cfg.mla
+    if m.q_lora_rank:
+        q = rms_norm({"scale": p["q_norm"]}, x @ p["w_dq"], eps) @ p["wq"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(*x.shape[:-1], cfg.n_heads,
+                  m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+
+
+def _mla_latent(p, x, positions, cfg: AttnConfig, eps):
+    """The new tokens' normed latent ``c_kv`` (..., lora) and roped shared
+    key ``k_rope`` (..., rope), with the cos/sin of ``positions``."""
+    m = cfg.mla
+    dkv = x @ p["w_dkv"]
+    c_kv = rms_norm({"scale": p["kv_norm"]}, dkv[..., :m.kv_lora_rank], eps)
+    cos, sin = rope_cos_sin(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    k_rope = rope(dkv[..., m.kv_lora_rank:][..., None, :], cos, sin)
+    return c_kv, k_rope[..., 0, :], cos, sin
+
+
+def _mla_forward(p, x, positions, cfg: AttnConfig, eps):
+    """Full causal MLA (prefill): keys and values expanded from the
+    latent per head.  Returns (y, {"c_kv", "k_rope"})."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, eps)
+    c_kv, k_rope, cos, sin = _mla_latent(p, x, positions, cfg, eps)
+    q_rope = rope(q_rope, cos, sin)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    mask = causal_mask(positions, positions, cfg.window)
+    out = _sdpa(q, k, v, mask, _mla_scale(cfg))
+    return out.reshape(b, s, -1) @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def _mla_decode(p, x, cache, pos, cfg: AttnConfig, eps,
+                paged: PagedKV | None = None, write_mask=None):
+    """Absorbed-matmul MLA decode: attention runs in the compressed
+    kv_lora space, so the cache stays (B, C, lora + rope) on the ring or
+    (P, page, lora + rope) in the pool.  The new token's latent is
+    written in place first (on the pool, masked lanes go to the garbage
+    page at position -1); the paged pool is then read back per lane
+    through the page-table gather."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, eps)                  # (B,1,H,*)
+    c_new, k_rope_new, cos, sin = _mla_latent(p, x, pos[:, None], cfg, eps)
+    q_rope = rope(q_rope, cos, sin)
+
+    if paged is not None:
+        wa = paged.write_page.long()
+        pw = pos.to(torch.int32)
+        if write_mask is not None:
+            wa = torch.where(write_mask, wa, _GARBAGE_PAGE)
+            pw = torch.where(write_mask, pw, -1)
+        wb = paged.write_slot.long()
+    else:
+        wa = torch.arange(b, device=x.device)
+        wb = (pos % cache["c_kv"].shape[1]).long()
+        pw = pos.to(torch.int32)
+    cache["c_kv"].index_put_((wa, wb), c_new[:, 0].to(cache["c_kv"].dtype))
+    cache["k_rope"].index_put_((wa, wb),
+                               k_rope_new[:, 0].to(cache["k_rope"].dtype))
+    cache["pos"].index_put_((wa, wb), pw)
+    if paged is not None:
+        t = paged.page_table.long()
+        c = t.shape[1] * cache["c_kv"].shape[1]
+        ckv = cache["c_kv"][t].reshape(b, c, -1)
+        krope = cache["k_rope"][t].reshape(b, c, -1)
+        kpos = cache["pos"][t].reshape(b, c)
+    else:
+        ckv, krope, kpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+
+    # absorb W_uk into q: q_c[b,h,r] = sum_n q_nope[b,h,n] W_uk[r, h, n]
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_c = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+    scores = torch.einsum("bhr,btr->bht", q_c, ckv.to(q_c.dtype))
+    scores = scores + torch.einsum("bhe,bte->bht", q_rope[:, 0],
+                                   krope.to(q_rope.dtype))
+    mask = causal_mask(pos[:, None], kpos, cfg.window)[:, 0]  # (B, C)
+    mask &= kpos >= 0
+    logits = (scores.float() * _mla_scale(cfg)).masked_fill(
+        ~mask[:, None, :], -1e30)
+    w = torch.softmax(logits, dim=-1).to(x.dtype)
+    ctx_c = torch.einsum("bht,btr->bhr", w, ckv.to(w.dtype))  # (B,H,lora)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bhr,rhv->bhv", ctx_c, w_uv)
+    return out.reshape(b, 1, h * m.v_head_dim) @ p["wo"], cache

@@ -1,12 +1,13 @@
-"""Pre-norm residual blocks: an attention mixer with a dense MLP, or an
-SSD (Mamba2) mixer with no MLP, plus ring-cache construction after a
-whole-prompt prefill."""
+"""Pre-norm residual blocks: an attention mixer (GQA or MLA) with a
+dense or MoE MLP, or an SSD (Mamba2) mixer with no MLP, plus ring-cache
+construction after a whole-prompt prefill."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, mlp as mlp_lib, ssm as ssm_lib
+from repro_torch.models import attention, mlp as mlp_lib, moe as moe_lib, \
+    ssm as ssm_lib
 from repro_torch.models.common import rms_norm, rms_norm_def
 from repro_torch.models.config import BlockConfig
 
@@ -15,10 +16,10 @@ __all__ = ["block_defs", "block_forward", "block_decode",
 
 
 def _check(cfg: BlockConfig) -> None:
-    if (cfg.mixer, cfg.mlp) not in (("attn", "dense"), ("ssm", "none")):
+    if cfg.mixer == "hybrid":
         raise NotImplementedError(
-            f"the port has attention blocks with a dense MLP and SSM "
-            f"blocks with none, not mixer {cfg.mixer!r} / mlp {cfg.mlp!r}")
+            "the port has attention and SSM mixers, not the hybrid "
+            "(attention + SSD) mixer")
 
 
 def block_defs(cfg: BlockConfig, d_model: int) -> dict:
@@ -31,6 +32,9 @@ def block_defs(cfg: BlockConfig, d_model: int) -> dict:
     if cfg.mlp == "dense":
         defs["norm2"] = rms_norm_def(d_model)
         defs["mlp"] = mlp_lib.mlp_defs(d_model, cfg.d_ff, cfg.act)
+    elif cfg.mlp == "moe":
+        defs["norm2"] = rms_norm_def(d_model)
+        defs["moe"] = moe_lib.moe_defs(cfg.moe, d_model, cfg.act)
     return defs
 
 
@@ -45,21 +49,28 @@ def cache_defs(cfg: BlockConfig, d_model: int, batch: int,
     return {"ssm": ssm_lib.ssm_state_defs(cfg.ssm, d_model, batch)}
 
 
-def _mlp(p, x, cfg: BlockConfig, eps):
+def _mlp(p, x, cfg: BlockConfig, eps, with_aux=False):
+    """x plus the block's MLP (dense, MoE or none) of the normed x, and
+    the MoE aux losses (empty unless ``with_aux`` and an MoE MLP)."""
     if cfg.mlp == "none":
-        return x
-    return x + mlp_lib.mlp_forward(p["mlp"], rms_norm(p["norm2"], x, eps),
-                                   cfg.act)
+        return x, {}
+    xn = rms_norm(p["norm2"], x, eps)
+    if cfg.mlp == "moe":
+        y, aux = moe_lib.moe_forward(p["moe"], xn, cfg.moe, cfg.act,
+                                     with_aux)
+        return x + y, aux
+    return x + mlp_lib.mlp_forward(p["mlp"], xn, cfg.act), {}
 
 
 def block_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                   cfg: BlockConfig, eps: float = 1e-5,
                   use_flash: bool = False, use_ssd_kernel: bool = False):
-    """Full-sequence pass (prefill).  Returns (y, cache_entry) with
-    cache_entry ``{"attn_kv": {"k", "v"}}`` or ``{"ssm": {"conv",
-    "ssm"}}``; ``use_flash`` runs the attention through the
-    flash-attention kernel, ``use_ssd_kernel`` the SSD chunks through
-    the ssd-chunk kernel."""
+    """Full-sequence pass (prefill, training).  Returns (y, cache_entry,
+    aux) with cache_entry ``{"attn_kv": {"k", "v"}}`` (MLA: ``{"c_kv",
+    "k_rope"}``) or ``{"ssm": {"conv", "ssm"}}`` and aux the MoE aux
+    losses (empty for a dense block); ``use_flash`` runs GQA attention
+    through the flash-attention kernel, ``use_ssd_kernel`` the SSD
+    chunks through the ssd-chunk kernel."""
     xn = rms_norm(p["norm1"], x, eps)
     if cfg.mixer == "attn":
         mix, kv = attention.attn_forward(p["attn"], xn, positions, cfg.attn,
@@ -69,7 +80,8 @@ def block_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
         mix, st = ssm_lib.ssm_forward(p["ssm"], xn, cfg.ssm, eps,
                                       use_ssd_kernel)
         entry = {"ssm": st}
-    return _mlp(p, x + mix, cfg, eps), entry
+    x, aux = _mlp(p, x + mix, cfg, eps, with_aux=True)
+    return x, entry, aux
 
 
 def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
@@ -98,7 +110,7 @@ def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                 keep = write_mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
                 upd = torch.where(keep, upd, leaf)
             leaf.copy_(upd)
-    return _mlp(p, x + mix, cfg, eps), cache
+    return _mlp(p, x + mix, cfg, eps)[0], cache
 
 
 def block_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
@@ -115,7 +127,7 @@ def block_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
     mix, cache["attn"] = attention.attn_prefill_chunk(
         p["attn"], rms_norm(p["norm1"], x, eps), cache["attn"], cfg.attn,
         eps, table, chunk)
-    return _mlp(p, x + mix, cfg, eps), cache
+    return _mlp(p, x + mix, cfg, eps)[0], cache
 
 
 def build_ring_cache(cache_entry: dict, positions: torch.Tensor,

@@ -5,8 +5,9 @@ Public API (functions over a nested-dict params tree):
   * ``forward_train(...)``         — full pass with the early-exit
                                      multi-ramp loss (the training
                                      step's objective).
-  * ``ramp_readout(...)``          — per-node norm, tied unembedding and
-                                     the loss proxy 1 - max softmax.
+  * ``ramp_readout(...)``          — per-node norm, unembedding (tied
+                                     or not) and the loss proxy 1 - max
+                                     softmax.
   * ``prefill(...)``               — full pass over whole prompts: last
                                      logits, ring KV caches or SSM
                                      state, per-node losses
@@ -40,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import blocks
 from repro_torch.models.common import embed_def, rms_norm, rms_norm_def
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.models.param import ParamDef, tree_leaves, tree_map
 
 __all__ = ["model_defs", "forward_train", "prefill", "decode_step",
            "decode_segment", "prefill_chunk_segment", "cache_specs",
@@ -56,10 +57,10 @@ def _stack_defs(defs, n: int):
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    if cfg.input_mode != "tokens" or not cfg.tie_embeddings:
-        raise NotImplementedError("the port serves token-input models "
-                                  "with tied embeddings")
-    defs: dict = {"embed": embed_def(cfg.vocab, cfg.d_model)}
+    defs: dict = {}
+    if cfg.input_mode in ("tokens", "multimodal") or cfg.tie_embeddings:
+        # an embeds-input model keeps the table only as its tied output
+        defs["embed"] = embed_def(cfg.vocab, cfg.d_model)
     segs = []
     for seg in cfg.segments:
         sd: dict = {"blocks": _stack_defs(
@@ -69,6 +70,9 @@ def model_defs(cfg: ModelConfig) -> dict:
         segs.append(sd)
     defs["segments"] = segs
     defs["final_norm"] = rms_norm_def(cfg.d_model)
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab),
+                                   ("embed", "vocab"))
     return defs
 
 
@@ -77,13 +81,18 @@ def layer(tree, li: int):
     return tree_map(lambda a: a[li], tree)
 
 
-def unembed(params: dict, h: torch.Tensor) -> torch.Tensor:
-    return h @ params["embed"]["table"].T.to(h.dtype)
+def unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """Logits of the hidden ``h`` (..., D): the tied table's transpose or
+    the untied ``unembed`` (D, V).  ``.to`` copies nothing when the table
+    already has h's dtype."""
+    if cfg.tie_embeddings:
+        return h @ params["embed"]["table"].T.to(h.dtype)
+    return h @ params["unembed"].to(h.dtype)
 
 
 def ramp_readout(params, cfg: ModelConfig, h: torch.Tensor,
                  segment: int | None = None):
-    """The shared ramp / final-head readout: per-node RMSNorm, tied
+    """The shared ramp / final-head readout: per-node RMSNorm, the
     unembedding, and the T-Tamer loss proxy ``ell = 1 - max softmax``.
 
     ``h`` is the raw residual-stream hidden at the readout point,
@@ -102,7 +111,7 @@ def readout_logits(params, cfg: ModelConfig, h: torch.Tensor,
         norm = params["final_norm"]
     else:
         norm = params["segments"][segment]["ramp"]["norm"]
-    return unembed(params, rms_norm(norm, h, cfg.norm_eps))
+    return unembed(params, cfg, rms_norm(norm, h, cfg.norm_eps))
 
 
 def _stack_layers(trees: list):
@@ -113,8 +122,19 @@ def _stack_layers(trees: list):
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict):
-    """Returns (x (B,S,D), positions (B,S) i32)."""
-    x = params["embed"]["table"][batch["tokens"].long()]
+    """Returns (x (B,S,D), positions (B,S) i32).  batch: {"tokens"
+    (B,S)} or {"embeds" (B,S,D)}, or for a multimodal model {"tokens"
+    (B,S_text), "image_embeds" (B,image_tokens,D)}: the image embeds
+    come before the text tokens."""
+    if cfg.input_mode == "tokens":
+        x = params["embed"]["table"][batch["tokens"].long()]
+    elif cfg.input_mode == "embeds":
+        x = batch["embeds"]
+    elif cfg.input_mode == "multimodal":
+        tok = params["embed"]["table"][batch["tokens"].long()]
+        x = torch.cat([batch["image_embeds"].to(tok.dtype), tok], dim=1)
+    else:
+        raise ValueError(cfg.input_mode)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -123,27 +143,41 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
 
 def _train_layer(p_layer, x, positions, block, eps, use_flash,
                  use_ssd_kernel):
-    return blocks.block_forward(p_layer, x, positions, block, eps,
-                                use_flash, use_ssd_kernel)[0]
+    y, _, aux = blocks.block_forward(p_layer, x, positions, block, eps,
+                                     use_flash, use_ssd_kernel)
+    return y, aux
+
+
+def _merge_aux(total: dict, layers: list) -> dict:
+    """Add one segment's per-layer aux losses to ``total``: the layers'
+    sum first, as the JAX package sums its layer-stacked aux."""
+    for key in (layers[0] if layers else {}):
+        seg = torch.stack([a[key] for a in layers]).sum()
+        total[key] = total[key] + seg if key in total else seg
+    return total
 
 
 def _run_segments(params, cfg: ModelConfig, x, positions, *, remat: bool,
                   use_flash: bool, use_ssd_kernel: bool):
-    """The training pass: (final hidden, [(segment, raw ramp hidden)]).
-    ``remat`` recomputes each layer's activations in the backward pass
-    (`torch.utils.checkpoint`, the JAX package's per-layer
+    """The training pass: (final hidden, [(segment, raw ramp hidden)],
+    aux) with aux the MoE aux losses summed over layers (empty for a
+    dense model).  ``remat`` recomputes each layer's activations in the
+    backward pass (`torch.utils.checkpoint`, the JAX package's per-layer
     ``jax.checkpoint``); it changes no value."""
-    ramps = []
+    ramps, aux = [], {}
     for si, seg in enumerate(cfg.segments):
         p_seg = params["segments"][si]["blocks"]
+        seg_aux = []
         for li in range(seg.n_layers):
             args = (layer(p_seg, li), x, positions, seg.block, cfg.norm_eps,
                     use_flash, use_ssd_kernel)
-            x = (checkpoint(_train_layer, *args, use_reentrant=False)
-                 if remat else _train_layer(*args))
+            x, a = (checkpoint(_train_layer, *args, use_reentrant=False)
+                    if remat else _train_layer(*args))
+            seg_aux.append(a)
+        aux = _merge_aux(aux, seg_aux)
         if seg.ramp:
             ramps.append((si, x))
-    return x, ramps
+    return x, ramps, aux
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -178,15 +212,16 @@ def forward_train(params, cfg: ModelConfig, batch: dict, *,
                   ramp_loss_weight: float = 0.3, remat: bool = True,
                   use_flash: bool = False, use_ssd_kernel: bool = False):
     """Early-exit training objective: CE(final) + w * mean over ramps of
-    CE(ramp).  batch: {"tokens" (B,S), "labels" (B,S)}; labels below 0
-    are masked.  Returns (loss, metrics) with metrics ``ce_final``,
-    ``ce_ramp{i}`` and ``loss``, all 0-dim tensors.  (The JAX package
-    also adds the MoE aux losses; the port has no MoE block.)"""
+    CE(ramp) + the MoE aux losses.  batch: the inputs `_embed_inputs`
+    takes and "labels" (B, S_total); labels below 0 are masked.  Returns
+    (loss, metrics) with metrics ``ce_final``, ``ce_ramp{i}``, for an
+    MoE model ``moe_load_balance`` and ``moe_router_z``, and ``loss``,
+    all 0-dim tensors."""
     _refuse_kernels_under_autograd(params, cfg, use_flash, use_ssd_kernel)
     x, positions = _embed_inputs(params, cfg, batch)
-    final, ramps = _run_segments(params, cfg, x, positions, remat=remat,
-                                 use_flash=use_flash,
-                                 use_ssd_kernel=use_ssd_kernel)
+    final, ramps, aux = _run_segments(params, cfg, x, positions,
+                                      remat=remat, use_flash=use_flash,
+                                      use_ssd_kernel=use_ssd_kernel)
     labels = batch["labels"]
     loss = _xent(readout_logits(params, cfg, final), labels)
     metrics = {"ce_final": loss}
@@ -197,6 +232,9 @@ def forward_train(params, cfg: ModelConfig, batch: dict, *,
             metrics[f"ce_ramp{ri}"] = ce
             ramp_ce = ramp_ce + ce
         loss = loss + ramp_loss_weight * ramp_ce / len(ramps)
+    for k, v in aux.items():
+        metrics[k] = v
+        loss = loss + v
     metrics["loss"] = loss
     return loss, metrics
 
@@ -217,9 +255,9 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int, *,
         p_seg = params["segments"][si]["blocks"]
         rings = []
         for li in range(seg.n_layers):
-            x, entry = blocks.block_forward(layer(p_seg, li), x, positions,
-                                            seg.block, cfg.norm_eps,
-                                            use_flash, use_ssd_kernel)
+            x, entry, _ = blocks.block_forward(
+                layer(p_seg, li), x, positions, seg.block, cfg.norm_eps,
+                use_flash, use_ssd_kernel)
             rings.append(blocks.build_ring_cache(entry, positions,
                                                  cache_len))
         caches.append(_stack_layers(rings))
@@ -271,9 +309,13 @@ def prefill_chunk_segment(params, cfg: ModelConfig, si: int,
 
 def decode_step(params, cfg: ModelConfig, batch: dict, caches, pos):
     """Full-depth one-token step on the ring caches (updated in place;
-    no early exit).  batch: {"tokens": (B,)}.  Returns (logits (B,V),
-    caches, node_losses (B, n_nodes))."""
-    x = params["embed"]["table"][batch["tokens"].long()][:, None, :]
+    no early exit).  batch: {"tokens": (B,)}, or {"embeds": (B, D)} for
+    an embeds-input model.  Returns (logits (B,V), caches, node_losses
+    (B, n_nodes))."""
+    if cfg.input_mode in ("tokens", "multimodal"):
+        x = params["embed"]["table"][batch["tokens"].long()][:, None, :]
+    else:
+        x = batch["embeds"][:, None, :]
     node_losses = []
     for si in range(len(cfg.segments)):
         x, _, ro = decode_segment(params, cfg, si, x, caches[si], pos)

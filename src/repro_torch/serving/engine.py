@@ -77,7 +77,8 @@ def _ring_slots(cache_seg: dict, pos: torch.Tensor) -> dict:
     if "attn" not in cache_seg:
         return {}
     attn = cache_seg["attn"]
-    slot = (pos % attn["k"].shape[2]).long()
+    # every attention cache (GQA or MLA) has "pos" (L, B, C)
+    slot = (pos % attn["pos"].shape[2]).long()
     bidx = torch.arange(pos.shape[0], device=pos.device)
     return {name: leaf[:, bidx, slot].clone() for name, leaf in attn.items()}
 
@@ -95,7 +96,7 @@ def _mask_lane_writes(cache_seg: dict, saved: dict, pos: torch.Tensor,
     if not bool(keep.any()):
         return
     attn = cache_seg["attn"]
-    slot = (pos % attn["k"].shape[2]).long()[keep]
+    slot = (pos % attn["pos"].shape[2]).long()[keep]
     bidx = torch.nonzero(keep)[:, 0]
     for name, leaf in attn.items():
         leaf[:, bidx, slot] = saved[name][:, keep]
@@ -370,8 +371,8 @@ class Classifier:
                 break
             p_seg = params["segments"][si]["blocks"]
             for li in range(seg.n_layers):
-                x, _ = block_forward(M.layer(p_seg, li), x, positions,
-                                     seg.block, cfg.norm_eps)
+                x, _, _ = block_forward(M.layer(p_seg, li), x, positions,
+                                        seg.block, cfg.norm_eps)
             seg_run += 1
             seg_policy += int(active.sum())
             if seg.ramp:

@@ -140,6 +140,12 @@ DECODE_EDGES = {
                           False, False)),
     "g4_hd128": (63, (8, 2, 128, 8, 6, (40, 13, 25), None, 16, True,
                       False)),
+    # phi-3-vision's G 1 at hd 96 (48 column pairs a head: the P.V
+    # items split the keys over 96 of the 128 threads) and qwen3-14b's
+    # odd group G 5 at hd 128, each with a window
+    "g1_hd96": (64, (4, 4, 96, 8, 6, (40, 13, 25), None, 16, True, False)),
+    "g5_hd128": (65, (10, 2, 128, 8, 6, (40, 13, 25), None, 16, True,
+                      False)),
 }
 # cases whose lanes span more than one split on the card
 DECODE_SPLIT = ("tiles_splits", "window_across_split", "masked_split")
@@ -234,6 +240,11 @@ PREFILL_EDGES = {
     # a 70-row chunk: the in-flight keys span two staged tiles
     "long_chunk": (75, (2, 1, 32, 16, 8, (20, 0), (70, 33), 70, None,
                         False)),
+    # phi-3-vision's G 1 at hd 96, and qwen3-14b's G 5 at hd 128: 45
+    # rows (c, g) in three 16-row tiles, a tile's rows spanning chunk
+    # positions, with a window
+    "g1_hd96": (76, (4, 4, 96, 8, 6, (21, 10), (9, 4), 9, 12, False)),
+    "g5_hd128": (77, (10, 2, 128, 8, 6, (21, 10), (9, 4), 9, 12, False)),
 }
 PREFILL_SPLIT = ("tiles_splits", "window_across_split", "masked_split")
 
@@ -421,6 +432,34 @@ def test_paged_wrappers_refuse_unaligned_pool_rows(bad):
     with pytest.raises(ValueError, match="16 bytes"):
         pa._check(*args)
     with pytest.raises(ValueError, match="16 bytes"):
+        pp._check(*pargs)
+
+
+@pytest.mark.parametrize("hd", [96, 80])
+def test_paged_wrappers_take_the_head_dims_with_an_instance(hd):
+    """Both kernels have instances at head_dim 32, 64, 96 and 128: their
+    `_check` (run before every launch) passes hd 96 and raises on a
+    head_dim with no instance, such as 80."""
+    pa, pp = _paged_mods()
+    i32 = dict(dtype=torch.int32)
+    b, c, h, hkv, ps, maxp = 2, 5, 4, 4, 8, 3
+    pool = torch.zeros(7, ps, hkv, hd, dtype=torch.bfloat16)
+    pos = torch.zeros(7, ps, **i32)
+    table = torch.zeros(b, maxp, **i32)
+    rows = torch.zeros(b, c, **i32)
+    args = (torch.zeros(b, h, hd), pool, pool, pos, table,
+            torch.zeros(b, **i32))
+    pargs = (torch.zeros(b, c, h, hd), pool, pool, pos, table, rows,
+             torch.zeros(b, **i32), torch.zeros(b, c, hkv, hd),
+             torch.zeros(b, c, hkv, hd), rows)
+    assert (hd in pa.HEAD_DIMS) == (hd in pp.HEAD_DIMS) == (hd == 96)
+    if hd == 96:
+        pa._check(*args)
+        pp._check(*pargs)
+        return
+    with pytest.raises(ValueError, match="hd 32/64/96/128"):
+        pa._check(*args)
+    with pytest.raises(ValueError, match="hd 32/64/96/128"):
         pp._check(*pargs)
 
 

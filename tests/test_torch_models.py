@@ -2,8 +2,11 @@
 package's, on the smoke config (and a windowed GQA config whose prompt
 outruns the ring) and on the smoke sizes of the dense tied configs
 granite-3-2b, qwen3-4b (qk-norm) and starcoder2-3b (GeLU, GQA 4:1, a
-64-token window its 80-token ring prompt outruns), with weights —
-qk-norm scales included — carried over by the bridge.
+64-token window its 80-token ring prompt outruns), of qwen3-14b
+(untied, GQA 5:1) and of phi3.5-moe (untied, MoE), with weights —
+qk-norm scales, untied unembeddings and experts included — carried over
+by the bridge.  (tests/test_torch_families.py holds the embeds,
+multimodal and MLA configs.)
 
 Tolerances: f32 tensors that never pass through the bf16 KV pool agree
 within atol = rtol = 1e-5; tensors downstream of the pool within 1e-3,
@@ -409,20 +412,22 @@ def test_classifier_matches(ring_setup, name):
 
 
 # --------------------------------------------------------------------------
-# the dense tied-embedding configs (smoke size): qk-norm, SwiGLU / GeLU,
-# GQA, a 64-token window
+# the token-input GQA configs (smoke size): the dense tied ones (qk-norm,
+# SwiGLU / GeLU, GQA, a 64-token window), qwen3-14b (untied, GQA 5:1)
+# and phi3.5-moe (untied, MoE MLPs)
 # --------------------------------------------------------------------------
 
 # arch: (prompt_len, cache_len) of the ring cases; starcoder2's prompt
 # outruns its 64-token window
 DENSE = {"granite-3-2b": (12, 16), "qwen3-4b": (12, 16),
-         "starcoder2-3b": (80, 96)}
+         "starcoder2-3b": (80, 96), "qwen3-14b": (12, 16),
+         "phi3.5-moe-42b-a6.6b": (12, 16)}
 
 
 @pytest.fixture(scope="module", params=sorted(DENSE))
 def dense_setup(request):
-    """(cfg, jax params, port params) of a dense config's smoke size; the
-    port's registry holds the reference's config."""
+    """(cfg, jax params, port params) of a token-input GQA config's
+    smoke size; the port's registry holds the reference's config."""
     from repro_torch.configs import get_config as t_get_config
     torch.set_num_threads(2)
     cfg = get_config(request.param, smoke=True)

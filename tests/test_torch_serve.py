@@ -29,7 +29,8 @@ against the JAX package's, end to end on the smoke config.
     knobs — and refuses to run without CUDA otherwise; its ``--policy``
     choices are the reference launcher's, hindsight oracles refused.
   * Nothing under src/repro_torch/ (the control and fault planes, the
-    dense configs and the training modules included), nor
+    dense, MoE and MLA configs, the MoE layer and the training modules
+    included), nor
     chip_smoke.py, imports jax, the JAX package, msgpack or ml_dtypes,
     and zstandard only inside a ``try``.
 """
@@ -121,6 +122,15 @@ def setup():
 @pytest.fixture(scope="module")
 def ssm_setup():
     return _setup("mamba2-130m")
+
+
+@pytest.fixture(scope="module")
+def mla_setup():
+    return _setup("deepseek-v2-lite-16b")
+
+
+# the fixture that gives each stop-the-world ``model`` case its setup
+STW_SETUPS = {"attn": "setup", "ssm": "ssm_setup", "mla": "mla_setup"}
 
 
 def _requests(cls, cfg, n=6, seed=7, policy="recall_index",
@@ -270,10 +280,12 @@ def _check_chunked_serve(setup, reference, kernel, policy, synthetic=False):
 
 
 @pytest.fixture(scope="module", params=["granite-3-2b", "qwen3-4b",
-                                        "starcoder2-3b"])
+                                        "starcoder2-3b", "qwen3-14b",
+                                        "phi3.5-moe-42b-a6.6b"])
 def dense_setup(request):
-    """A dense tied-embedding config's smoke size (qk-norm, SwiGLU or
-    GeLU, GQA, a 64-token window), its weights and tables bridged, and
+    """A token-input GQA config's smoke size (dense tied: qk-norm, SwiGLU
+    or GeLU, GQA, a 64-token window; qwen3-14b: untied, GQA 5:1;
+    phi3.5-moe: untied, MoE MLPs), its weights and tables bridged, and
     the reference's chunked paged serve under recall_index."""
     setup = _setup(request.param)
     cfg, params, casc, _, _ = setup
@@ -292,8 +304,8 @@ def dense_setup(request):
 @pytest.mark.parametrize("kernel", [True, False], ids=["kernel", "gather"])
 def test_dense_port_serves_what_the_reference_serves(dense_setup, kernel):
     """`test_port_serves_what_the_reference_serves` on granite-3-2b,
-    qwen3-4b and starcoder2-3b: tokens, served nodes, chunk stats and
-    segment counters equal."""
+    qwen3-4b, starcoder2-3b, qwen3-14b and phi3.5-moe: tokens, served
+    nodes, chunk stats and segment counters equal."""
     setup, reference = dense_setup
     _check_chunked_serve(setup, reference, kernel, "recall_index")
 
@@ -329,16 +341,23 @@ def stw_reference():
      ("attn", "paged", False, "recall_index"),
      ("ssm", "ring", False, "recall_index"),
      ("ssm", "ring", True, "recall_index"),
-     ("ssm", "paged", False, "recall_index")]
+     ("ssm", "paged", False, "recall_index"),
+     ("mla", "ring", False, "recall_index"),
+     ("mla", "ring", True, "recall_index"),
+     ("mla", "paged", False, "recall_index")]
     + [("attn", "ring", False, p) for p in POLICIES],
     ids=["ring", "ring-flash", "paged", "ssm-ring", "ssm-ring-ssd",
-         "ssm-paged"] + [f"ring-{p}" for p in POLICIES])
+         "ssm-paged", "mla-ring", "mla-ring-flash", "mla-paged"]
+    + [f"ring-{p}" for p in POLICIES])
 def test_stop_the_world_serves_what_the_reference_serves(
         request, stw_reference, model, kv, kernel, policy):
-    """``kernel``: the flash route (attention) or the ssd-chunk route
-    (SSM), whose plain versions run on the CPU."""
-    setup = request.getfixturevalue("setup" if model == "attn"
-                                    else "ssm_setup")
+    """``kernel``: the flash route (attention; an MLA model's attention
+    never takes it, in either package) or the ssd-chunk route (SSM),
+    whose plain versions run on the CPU.  ``mla``: deepseek-v2-lite's
+    smoke size (MLA attention, MoE MLPs with a shared expert); its ring
+    serve masks the inactive lanes' latent-cache slots by their
+    ``pos`` leaf (an MLA cache has no ``k``)."""
+    setup = request.getfixturevalue(STW_SETUPS[model])
     cfg, _, _, tparams, tcasc = setup
     jreqs, jm, jnodes, jpool = stw_reference(setup, kv, policy)
     requests = _requests(TRequest, cfg, policy=policy)
@@ -346,7 +365,7 @@ def test_stop_the_world_serves_what_the_reference_serves(
                                   (policy, None))
     stepper = trt.EngineStepper(tparams, cfg, bank, n_lanes=2, cache_len=32,
                                 prompt_len=PROMPT_LEN, kv=kv, page_size=8,
-                                use_flash=kernel and model == "attn",
+                                use_flash=kernel and model != "ssm",
                                 use_ssd_kernel=kernel and model == "ssm")
     with torch.no_grad():
         tm, tnodes = _serve_logged(trt, stepper, sid_of, requests)
@@ -406,6 +425,39 @@ def test_launcher_serves_smoke_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "calibrated T-Tamer tables: n=2 K=24" in out
     assert f"completed {len(run.requests)}/{len(run.requests)}" in out
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("qwen3-14b", ["--kv", "paged", "--prefill-chunk", "8"]),
+    ("phi3.5-moe-42b-a6.6b", ["--kv", "paged", "--prefill-chunk", "8"]),
+    ("deepseek-v2-lite-16b", ["--kv", "paged"]),
+    ("deepseek-v2-lite-16b", ["--kv", "ring"])],
+    ids=["qwen3-14b", "phi3.5-moe", "deepseek-paged", "deepseek-ring"])
+def test_launcher_serves_the_new_families_on_cpu(arch, extra):
+    """``--arch`` takes the new token-input configs through the
+    registry, with the kernel flags on (plain versions on the CPU; an
+    MLA model's attention takes none of them): every request completes
+    with its full token count."""
+    torch.set_num_threads(2)
+    run = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--server", "--paged-kernel", "--flash",
+                       "--dp-kernel", "--page-size", "8", "--lanes", "2",
+                       "--rate", "6", "--duration", "0.5", "--tokens", "4",
+                       "--prompt-len", "10"] + extra)
+    assert run is not None and run.requests
+    for req in run.requests:
+        assert run.metrics.records[req.rid].n_tokens == req.max_tokens
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "phi-3-vision-4.2b"])
+def test_launcher_refuses_models_that_take_no_tokens(arch):
+    """The launcher draws token prompts, so an embeds- or multimodal-input
+    model is refused by name, before any weights are made."""
+    with pytest.raises(SystemExit, match="token-input"):
+        tserve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="token-input"):
+        tserve.main(["--cascade", f"paper-ee-100m:{arch}", "--smoke",
+                     "--device", "cpu"])
 
 
 def test_launcher_defaults_follow_the_reference():
@@ -579,7 +631,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "core/traces", "core/brute_force", "core/impossibility",
                 "core/pareto", "strategy/oracle", "strategy/skip",
                 "configs/granite_3_2b", "configs/qwen3_4b",
-                "configs/starcoder2_3b", "serving/control/telemetry",
+                "configs/starcoder2_3b", "configs/qwen3_14b",
+                "configs/musicgen_large", "configs/phi3_vision_4_2b",
+                "configs/phi3_5_moe_42b", "configs/deepseek_v2_lite_16b",
+                "models/moe", "serving/control/telemetry",
                 "serving/control/gears", "serving/control/swap",
                 "serving/control/recalibrate", "serving/control/controller",
                 "bench/adaptive", "serving/faults/plan",
