@@ -25,7 +25,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      8 kv heads, head_dim 128), at starcoder2-3b's (24 heads on 2,
      head_dim 128), at phi-3-vision-4.2b's (32 on 32, head_dim 96) and
      at qwen3-14b's (40 on 8: a group of 5), each with a window shorter
-     than the context, atol = rtol = 1e-4; the
+     than the context, and paged decode at hymba-1.5b's (25 on 5,
+     head_dim 64, window 1024) over the serve's histories and over
+     1025-1300 positions (82-page tables: the window cuts every lane),
+     atol = rtol = 1e-4; the
      all-masked lane and the padded prefill rows exactly 0;
      flash_attention at the calibration
      prefill's shape (512, 64, 12, 12, 64), a ring admission's (1, 32,
@@ -34,7 +37,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      window past one tile), and qwen3-4b's, starcoder2-3b's and
      qwen3-14b's calibration prefills ((512, 64, 32, 8, 128), (512, 64,
      24, 2, 128) with its 4096-token window, (512, 64, 40, 8, 128)),
-     atol = rtol = 1e-4 (f32 sums in another order); bellman_backup at
+     and hymba-1.5b's calibration, admission and a 2048-token prompt
+     past its window ((512 | 1, 64 | 32 | 2048, 25, 5, 64), window
+     1024), atol = rtol = 1e-4 (f32 sums in another order); bellman_backup at
      K = 24 and 64 on row-stochastic transitions, atol = rtol = 1e-5,
      and the whole solve in one launch (n = 6 at K = 24, n = 13 at K =
      64) within 1e-5 of its plain
@@ -44,7 +49,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      zeros after, q_valid 64), the same shape as a random full chunk, a
      ring admission's (1, 1, 256, ...) with q_valid 32, four chunks (2,
      4, 256, ...) with a ragged last one (q_valid 37), q_valid 1, 200 and
-     256, all with dt and da drawn as the model makes them (softplus,
+     256, hymba-1.5b's calibration call, admission and a full chunk at
+     d_state 16 and 50 heads ((512 | 1 | 2, 1, 256, 50, 64, 16), q_valid
+     64 | 32 | none), all with dt and da drawn as the model makes them (softplus,
      a = -e, so exp overflows above the diagonal) and B/C broadcast over
      the heads with stride 0, and a small (2, 3, 32, 4, 32, 16) case
      with per-head B/C, atol = rtol = 2e-4, every output finite and the
@@ -102,9 +109,30 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      a 7-token ring prefill and one absorbed decode token against the
      8-token prefill within 2.5e-2 (the reference's tolerance: the
      decode reads the bf16 latent) and the paged-gather decode against
-     the ring decode within 1e-3, with no kernel launched; each model's
-     size and peak memory printed;
-  4. times each kernel and its plain version with CUDA events — device
+     the ring decode within 1e-3, with no kernel launched, and its int8
+     latent (``cache_int8``): the ring decode against the bf16 latent's
+     within the reference's rule (0.05 x max|logit| + 0.05), the paged
+     gather against the int8 ring within 1e-3; each model's
+     size and peak memory printed; then hymba-1.5b (the hybrid mixer,
+     ``phase_hybrid_model_check``): its ``count_params`` (1 589 784 320),
+     a 2048-token prefill of two lanes past its 1024-token window through
+     flash and ssd_chunk against the einsum paths (logits, node losses,
+     SSM state within 1e-3; ring K/V and conv within a bf16 ulp), and
+     one paged decode token after 1100 positions through the kernel
+     against the page gather (1e-3); ``phase_long_prefill``: one
+     16 384-token prompt by the banded query chunks, the chunked ones
+     and flash (logits within 1e-3 of the banded route's; each route's
+     time and peak memory beside the whole-matrix path's one-layer f32
+     scores), then 8 decode tokens on the ring of
+     ``cache_len_for(long_500k)`` slots, each within 2.5e-2 of the
+     prefill of the prompt so far; ``phase_int8``: qwen3-4b's ring and
+     paged-gather decode under ``cache_int8`` against the bf16 cache
+     (the reference's rule), no paged kernel launched on the int8 pool
+     with the switch on, and the serve pool's bytes in each layout;
+  4. times each kernel and its plain version with CUDA events (with
+     hymba-1.5b's shapes: flash at its calibration and admission beside
+     SDPA, ssd_chunk at its calibration and admission, paged decode at
+     the serve's histories and past the window) — device
      time from CUDA graph replay, and the time of an eager call, host
      included — on the chunked serve's shapes, at 1024-token contexts
      and at the serve's histories with qwen3-4b's, starcoder2-3b's,
@@ -186,7 +214,15 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      script's config), and deepseek-v2-lite-16b stop-the-world on the
      paged pool with --paged-kernel --flash --dp-kernel (only the
      Bellman kernel may launch: MLA takes the page gather and its own
-     prefill) — with every kernel's launch
+     prefill), hymba-1.5b stop-the-world on the paged pool with
+     --paged-kernel --flash --ssd-kernel --dp-kernel
+     (``hymba_stw_recall_index``: flash, ssd_chunk, paged_attention and
+     Bellman must launch, paged_prefill must not; it also prints
+     ``model_flops`` of one decode token), and qwen3-4b's chunked
+     recall_index serve without --paged-kernel on the bf16 pool
+     (``qwen3_gather_chunked_recall_index``) and inside ``cache_int8``
+     (``qwen3_int8_chunked_recall_index``), neither launching a paged
+     kernel — with every kernel's launch
      counter set to 0 just before
      each serve and read just after; every request must complete with
      its full token count, each path's kernels must launch (the Bellman
@@ -299,13 +335,16 @@ from repro_torch.kernels import (bellman_backup,              # noqa: E402
                                  ramp_exit, ramp_exit_plain, ssd_chunk,
                                  ssd_chunk_plain)
 from repro_torch.launch import serve                          # noqa: E402
+from repro_torch.launch.flops import model_flops              # noqa: E402
+from repro_torch.launch.shapes import SHAPES, cache_len_for   # noqa: E402
 from repro_torch.models import attention as A                 # noqa: E402
 from repro_torch.models import blocks                         # noqa: E402
 from repro_torch.models import model as M                     # noqa: E402
 from repro_torch.models import moe as MOE                     # noqa: E402
 from repro_torch.models.common import rms_norm                # noqa: E402
-from repro_torch.models.param import (materialize,            # noqa: E402
-                                      tree_leaves, tree_map)
+from repro_torch.models.param import (count_params,           # noqa: E402
+                                      materialize, tree_leaves, tree_map)
+from repro_torch.models.quant import cache_int8               # noqa: E402
 from repro_torch.serving import runtime as rt                 # noqa: E402
 from repro_torch.serving.cascade import (CascadeSimStepper,   # noqa: E402
                                          ModelBank, ModelSpec)
@@ -405,6 +444,7 @@ EDF_EOS = ("chunked_edf_eos", SERVE_ARGS + ["--policy", "recall_index",
 # calibration (512 x 64 numpy prompts, k 24) under the same load, the
 # paged pair at head_dim 128 and GQA groups of 4 and 12
 DENSE = ("granite-3-2b", "qwen3-4b", "starcoder2-3b")
+HYMBA = "hymba-1.5b"
 DENSE_PAGED = LOAD + ["--server", "--kv", "paged", "--page-size", str(PS),
                       "--prefill-chunk", str(C), "--paged-kernel"]
 DENSE_RECALL = {a: ["--arch", a] + DENSE_PAGED + [
@@ -442,7 +482,26 @@ FAMILY_SERVES = [
          "--server", "--kv", "paged", "--page-size", str(PS),
          "--paged-kernel", "--flash", "--dp-kernel", "--policy",
          "recall_index"],
-     ("bellman_backup",), ATTN + ("ssd_chunk",) + EXIT, False)]
+     ("bellman_backup",), ATTN + ("ssd_chunk",) + EXIT, False),
+    # hymba-1.5b: stop-the-world on the paged pool (the hybrid mixer has
+    # no prefill chunk), calibrated and admitted through flash and
+    # ssd_chunk, decoded through paged_attention, solved by Bellman
+    ("hymba_stw_recall_index",
+     ["--arch", HYMBA] + LOAD + [
+         "--server", "--kv", "paged", "--page-size", str(PS),
+         "--paged-kernel", "--flash", "--ssd-kernel", "--dp-kernel",
+         "--policy", "recall_index"],
+     ("flash_attention", "ssd_chunk", "paged_attention", "bellman_backup"),
+     ("paged_prefill",) + EXIT, False)]
+# qwen3-4b's chunked recall_index serve without --paged-kernel on the
+# bf16 pool (the page gather), then the same inside `cache_int8` (an int8
+# pool takes the page gather, so the flag would ask for kernels that
+# cannot run): the int8 cache beside the bf16 one on the same route
+GATHER_ARGV = [a for a in DENSE_RECALL["qwen3-4b"] if a != "--paged-kernel"]
+INT8_SERVES = [("qwen3_gather_chunked_recall_index", GATHER_ARGV, NEW,
+                PAGED + ("ssd_chunk",) + EXIT, False),
+               ("qwen3_int8_chunked_recall_index", GATHER_ARGV, NEW,
+                PAGED + ("ssd_chunk",) + EXIT, True)]
 # qwen3-4b under reaping: --deadline-ms is appended from the e2e
 # latencies of qwen3_chunked_recall_index (the same requests)
 QWEN3_FAULTS = ("qwen3_faults",
@@ -585,6 +644,13 @@ G12 = dict(h=24, hkv=2, hd=128)
 # 8, head_dim 128: a GQA group of 5)
 G1H96 = dict(h=32, hkv=32, hd=96)
 G5 = dict(h=40, hkv=8, hd=128)
+# hymba-1.5b's attention: 25 heads on 5 kv heads of 64 (a group of 5)
+# under its 1024-token window; the long cases' histories of 1025-1300
+# positions outrun the window on every lane (82-page tables)
+G5H64 = dict(h=25, hkv=5, hd=64)
+HYMBA_WINDOW = 1024
+HYMBA_MAXP = 82
+HYMBA_LENS = [1100, 1300, 1025, 1201, 1150, 1111, 1279, 1064]
 
 
 def decode_case(seed, *, h=H, hkv=HKV, hd=HD, window=None, maxp=MAXP,
@@ -709,9 +775,18 @@ FLASH_CASES = [("calibration", (512, 64, 12, 12, 64, None)),
     ("qwen3-4b-calibration", (512, 64, 32, 8, 128, None)),
     ("starcoder2-3b-calibration", (512, 64, 24, 2, 128, 4096)),
     # qwen3-14b's calibration prefill: a GQA group of 5 at head_dim 128
-    ("qwen3-14b-calibration", (512, 64, 40, 8, 128, None))]
+    ("qwen3-14b-calibration", (512, 64, 40, 8, 128, None)),
+    # hymba-1.5b's: its calibration prefill and a stop-the-world
+    # admission (inside its 1024-token window), and a 2048-token prompt
+    # past the window
+    ("hymba-calibration", (512, 64, 25, 5, 64, HYMBA_WINDOW)),
+    ("hymba-admission", (1, 32, 25, 5, 64, HYMBA_WINDOW)),
+    ("hymba-past-window", (1, 2048, 25, 5, 64, HYMBA_WINDOW))]
+# timed beside SDPA(is_causal=True): each prompt fits its window, so
+# that call computes the same function
 FLASH_TIMED = ("calibration", "ring-admission", "qwen3-4b-calibration",
-               "starcoder2-3b-calibration", "qwen3-14b-calibration")
+               "starcoder2-3b-calibration", "qwen3-14b-calibration",
+               "hymba-calibration", "hymba-admission")
 
 
 def flash_case(seed, b, s, h, hkv, hd, window):
@@ -820,8 +895,15 @@ SSD_CASES = [("calibration", (512, 1, 256, 24, 64, 128, True, 64)),
              ("q_valid-1", (2, 1, 256, 24, 64, 128, True, 1)),
              ("q_valid-200", (2, 1, 256, 24, 64, 128, True, 200)),
              ("q_valid-256", (2, 1, 256, 24, 64, 128, True, 256)),
-             ("small-per-head-bc", (2, 3, 32, 4, 32, 16, False, None))]
-SSD_TIMED = ("calibration", "full-chunk", "ring-admission")
+             ("small-per-head-bc", (2, 3, 32, 4, 32, 16, False, None)),
+             # hymba-1.5b's SSD heads: 50 of 64 at d_state 16, its
+             # calibration's 64 valid rows of a 256-row chunk, an
+             # admission's 32, and a full chunk
+             ("hymba-calibration", (512, 1, 256, 50, 64, 16, True, 64)),
+             ("hymba-admission", (1, 1, 256, 50, 64, 16, True, 32)),
+             ("hymba-full-chunk", (2, 1, 256, 50, 64, 16, True, None))]
+SSD_TIMED = ("calibration", "full-chunk", "ring-admission",
+             "hymba-calibration", "hymba-admission")
 
 
 def ssd_case(seed, b, c, q, h, p, n, broadcast, q_valid):
@@ -1019,7 +1101,10 @@ def phase_build():
     for name, info in (
             ("paged_attention", {
                 case: PA_MOD.kernel_info(B, h, hkv, hd, PS, maxp)
-                for case, (h, hkv, hd, maxp) in PAGED_TIMED.items()}),
+                for case, (h, hkv, hd, maxp) in (
+                    list(PAGED_TIMED.items())
+                    + [("hymba-serve", (25, 5, 64, MAXP)),
+                       ("hymba-past-window", (25, 5, 64, HYMBA_MAXP))])}),
             ("paged_prefill", {
                 case: PP_MOD.kernel_info(B, C, h, hkv, hd, PS, maxp)
                 for case, (h, hkv, hd, maxp) in PAGED_TIMED.items()}),
@@ -1075,7 +1160,11 @@ def phase_kernel_checks():
              ("paged_attention", "g5-hd128-window",
               decode_case(54, window=40, **G5), TOL_KERNEL),
              ("paged_prefill", "g5-hd128-window",
-              prefill_case(55, window=20, **G5), TOL_KERNEL)]
+              prefill_case(55, window=20, **G5), TOL_KERNEL),
+             ("paged_attention", "hymba-serve", hymba_serve_case(),
+              TOL_KERNEL),
+             ("paged_attention", "hymba-past-window", hymba_long_case(),
+              TOL_KERNEL)]
     cases += [("flash_attention", case, flash_case(10 + i, *shape),
                TOL_KERNEL) for i, (case, shape) in enumerate(FLASH_CASES)]
     cases += [("bellman_backup", f"K={k}", bellman_case(k, k), TOL_DP)
@@ -1624,6 +1713,17 @@ def long_decode_case():
     return decode_case(6, lens=LONG_LENS, maxp=LONG_MAXP)
 
 
+def hymba_serve_case():
+    """Paged decode at hymba-1.5b's widths and the serve's histories."""
+    return decode_case(56, lens=SERVE_LENS, window=HYMBA_WINDOW, **G5H64)
+
+
+def hymba_long_case():
+    """The same past the window: 1025-1300 positions a lane."""
+    return decode_case(57, lens=HYMBA_LENS, maxp=HYMBA_MAXP,
+                       window=HYMBA_WINDOW, **G5H64)
+
+
 def long_prefill_case():
     return prefill_case(7, starts=LONG_STARTS, widths=[C] * B,
                         maxp=LONG_MAXP)
@@ -1649,6 +1749,9 @@ TIMED += [(kern, f"serve-{tag}", lambda mk=mk, seed=seed, g=g, kw=kw:
               ("paged_prefill", prefill_case, 5,
                dict(starts=SERVE_STARTS, widths=SERVE_WIDTHS),
                prefill_bound))]
+TIMED += [("paged_attention", "hymba-serve", hymba_serve_case, decode_bound),
+          ("paged_attention", "hymba-past-window", hymba_long_case,
+           decode_bound)]
 TIMED += [("flash_attention", case, lambda i=i, shape=shape:
            flash_case(10 + i, *shape), flash_bound)
           for i, (case, shape) in enumerate(FLASH_CASES) if case in FLASH_TIMED]
@@ -1931,7 +2034,8 @@ def _mla_pool(ring: dict, n_pages=3) -> dict:
     one before the slots."""
     pool = {}
     for k, leaf in ring.items():
-        axis = leaf.dim() - (1 if k == "pos" else 2) - 1
+        # pos and an int8 latent's scales have no feature axis
+        axis = leaf.dim() - (1 if k == "pos" or k.endswith("_s") else 2) - 1
         shape = list(leaf.shape)
         shape[axis] = n_pages
         new = (torch.full(shape, -1, dtype=leaf.dtype, device=DEV)
@@ -1977,7 +2081,7 @@ def phase_mla_model_check(params, cfg):
             write_slot=pos)
 
     n0 = {k: kern.launches for k, kern in KERNELS.items()}
-    worst = {"decode": 0.0, "paged": 0.0}
+    worst = {"decode": 0.0, "paged": 0.0, "int8": 0.0}
     with torch.no_grad(), A.paged_kernel(True):
         x, positions = M._embed_inputs(params, cfg, {"tokens": toks})
         for si, seg in enumerate(cfg.segments):
@@ -1997,6 +2101,21 @@ def phase_mla_model_check(params, cfg):
                                          paged=paged())
                 y_dec, _ = A.attn_decode(p["attn"], xn[:, s:], ring, pos,
                                          acfg, cfg.norm_eps)
+                # the same decode over the int8 latent: the reference's
+                # rule against the bf16 latent's
+                with cache_int8():
+                    ring8 = blocks.build_ring_cache(
+                        {"attn_kv": kv}, positions[:, :s], PS)["attn"]
+                y_dec8, _ = A.attn_decode(p["attn"], xn[:, s:], ring8, pos,
+                                          acfg, cfg.norm_eps)
+                err8 = float((y_dec8 - y_dec).abs().max())
+                bound8 = 0.05 * float(y_dec.abs().max()) + 0.05
+                worst["int8"] = max(worst["int8"], err8 / bound8)
+                if not (err8 < bound8 and bool(torch.isfinite(y_dec8).all())
+                        and ring8["c_kv"].dtype == torch.int8):
+                    raise SystemExit(
+                        f"MLA int8 latent at segment {si} layer {li}: "
+                        f"{err8:.3e} against the bound {bound8:.3e}")
                 for key, a, b, tol in (("decode", y_dec[:, 0], y_full[:, s],
                                         TOL_MLA),
                                        ("paged", y_pag, y_dec, TOL_MODEL)):
@@ -2015,7 +2134,9 @@ def phase_mla_model_check(params, cfg):
         f"{s + 1}-token prefill's layer inputs]: absorbed decode over the "
         f"ring vs the prefill's last row {worst['decode']:.3e} "
         f"(atol=rtol={TOL_MLA}); paged-gather decode vs ring decode "
-        f"{worst['paged']:.3e} (atol=rtol={TOL_MODEL}) ok")
+        f"{worst['paged']:.3e} (atol=rtol={TOL_MODEL}); the decode over "
+        f"the int8 latent vs the bf16 latent's at most {worst['int8']:.3f} "
+        f"of the reference's bound (0.05 x max|y| + 0.05) ok")
 
     # (b) the whole model, each MoE layer's routing recorded
     picks = []
@@ -2050,6 +2171,23 @@ def phase_mla_model_check(params, cfg):
                                            {"tokens": toks[:, -1]}, ring,
                                            pos)
             dec_picks = [t[0] for t in picks]
+            # (c) the int8 latent (models.quant): the same prefill and
+            # decode token with the ring and the pool built under
+            # cache_int8
+            with cache_int8():
+                _, ring8, _, _ = M.prefill(params, cfg,
+                                           {"tokens": toks[:, :-1]}, PS,
+                                           use_flash=True)
+            pool8 = [{"attn": _mla_pool(c["attn"])} for c in ring8]
+            x = params["embed"]["table"][toks[:, -1].long()][:, None]
+            for si in range(len(cfg.segments)):
+                x, _, _ = M.decode_segment(params, cfg, si, x, pool8[si],
+                                           pos, paged=paged())
+            paged8 = M.ramp_readout(params, cfg, x[:, 0, :])[0]
+            del picks[:]
+            dec8, _, _ = M.decode_step(params, cfg,
+                                       {"tokens": toks[:, -1]}, ring8, pos)
+            picks8 = [t[0] for t in picks]
     finally:
         MOE.route = route
     if len(dec_picks) != len(full_picks):
@@ -2080,11 +2218,374 @@ def phase_mla_model_check(params, cfg):
         f"the prefill's last token's, first MoE layer that differs by "
         f"lane (of {len(dec_picks)}): {first_flip}; logits "
         f"{float((dec - full).abs().max()):.3e} over both lanes")
+    dtypes = {k: str(t.dtype).removeprefix("torch.")
+              for k, t in ring8[0]["attn"].items()}
+    if dtypes != {"c_kv": "int8", "k_rope": "int8", "c_kv_s": "bfloat16",
+                  "k_rope_s": "bfloat16", "pos": "int32"}:
+        raise SystemExit(f"MLA int8 latent layout: {dtypes}")
+    flip8 = [next((i for i, (a, b) in enumerate(zip(picks8, dec_picks))
+                   if not torch.equal(a[lane], b[lane])), None)
+             for lane in range(2)]
+    same8 = [lane for lane in range(2) if flip8[lane] is None]
+    perr = float((paged8 - dec8).abs().max())
+    ok = (torch.allclose(paged8, dec8, atol=TOL_MODEL, rtol=TOL_MODEL)
+          and bool(torch.isfinite(dec8).all()))
+    msg = (f"model check {cfg.name} [MLA int8 latent {dtypes}]: paged-"
+           f"gather int8 decode vs ring int8 decode {perr:.3e} "
+           f"(atol=rtol={TOL_MODEL}); the int8 decode token's experts vs "
+           f"the bf16 decode's, first MoE layer that differs by lane: "
+           f"{flip8}; logits {float((dec8 - dec).abs().max()):.3e} over "
+           f"both lanes")
+    if same8:
+        err = float((dec8[same8] - dec[same8]).abs().max())
+        bound = 0.05 * float(dec[same8].abs().max()) + 0.05
+        ok &= err < bound
+        msg += (f"; lanes {same8} (routing equal) {err:.3e} (the "
+                f"reference's rule: < 0.05 x max|logit| + 0.05 = "
+                f"{bound:.3e})")
+    log(msg + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("MLA int8 latent check failed")
     launched = {k: kern.launches - n0[k] for k, kern in KERNELS.items()}
     if any(launched.values()):
         raise SystemExit(f"the MLA checks launched kernels: {launched}")
     log(f"model check {cfg.name} [MLA]: no kernel launched with "
         f"use_flash and the paged-kernel switch on")
+
+
+def ring_to_pool(ring: dict, ps: int = PS):
+    """A paged pool holding layer-stacked ring caches (L, B, C, ...)
+    whose slot t holds position t (C a multiple of ``ps``): lane b's
+    pages are 1 + b * C / ps onward, in order; page 0 is the garbage
+    sink.  Returns (pool, page table (B, C / ps) i32)."""
+    n_l, b, c = ring["pos"].shape
+    lp = c // ps
+    pool = {}
+    for k, leaf in ring.items():
+        body = leaf.reshape(n_l, b * lp, ps, *leaf.shape[3:])
+        sink = (torch.full_like(body[:, :1], -1) if k == "pos"
+                else torch.zeros_like(body[:, :1]))
+        pool[k] = torch.cat([sink, body], dim=1)
+    table = (1 + torch.arange(b * lp, dtype=torch.int32, device=DEV)) \
+        .reshape(b, lp)
+    return pool, table
+
+
+def paged_decode(params, cfg, caches, table, pos, tok, kernel):
+    """One decode token of every lane through every segment against the
+    paged pools ``caches`` (SSM state per lane), written at ``pos``:
+    (logits, node losses)."""
+    p = pos.long()
+    kv = A.PagedKV(page_table=table,
+                   write_page=table[torch.arange(len(p), device=DEV),
+                                    p // PS],
+                   write_slot=(p % PS).to(torch.int32))
+    x = params["embed"]["table"][tok.long()][:, None]
+    ells = []
+    with torch.no_grad(), A.paged_kernel(kernel):
+        for si in range(len(cfg.segments)):
+            x, _, ro = M.decode_segment(params, cfg, si, x, caches[si], pos,
+                                        paged=kv)
+            if ro is not None:
+                ells.append(ro[1])
+        logits, ell = M.ramp_readout(params, cfg, x[:, 0, :])
+    return logits, torch.stack(ells + [ell], 1)
+
+
+def _clone(tree):
+    return tree_map(lambda t: t.clone(), tree)
+
+
+HYMBA_PARAMS = 1_589_784_320   # the reference's count_params
+HYMBA_FLASH_S = 2048           # the flash check's prompt: past the window
+HYMBA_PAGED_S = 1100           # the paged decode's history
+LONG_S = 16_384                # the long-prompt routes' prompt
+
+
+def phase_hybrid_model_check(params, cfg):
+    """Full-width hymba-1.5b, weights on the card:
+      (a) its parameter count is the reference's (1 589 784 320);
+      (b) a 2048-token prompt (past the 1024-token window), two lanes,
+          prefilled through the flash and ssd_chunk kernels and through
+          the einsum paths, into 1024-slot rings: logits, node losses
+          and SSM state within TOL_MODEL, ring positions equal, ring
+          K/V and the conv window within one bf16 ulp beyond TOL_MODEL;
+      (c) an 1100-token history in the paged pool and one decode token
+          through the paged-decode kernel (its window cuts the first 77
+          keys) and through the page gather: logits and node losses
+          within TOL_MODEL, one launch a layer and none on the gather."""
+    n = count_params(M.model_defs(cfg))
+    log(f"model {cfg.name}: count_params {n} (the reference's "
+        f"{HYMBA_PARAMS}), {4 * n / 1e9:.2f} GB in f32")
+    if n != HYMBA_PARAMS:
+        raise SystemExit(f"{cfg.name}: {n} parameters, not {HYMBA_PARAMS}")
+    n_layers = sum(seg.n_layers for seg in cfg.segments)
+    rng = np.random.default_rng(11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, HYMBA_FLASH_S)),
+                           device=DEV)
+    outs = {}
+    for name, kern in (("kernels", True), ("einsum", False)):
+        n0 = (flash_attention.launches, ssd_chunk.launches)
+        with torch.no_grad():
+            logits, caches, losses, _ = M.prefill(
+                params, cfg, {"tokens": toks}, HYMBA_WINDOW, use_flash=kern,
+                use_ssd_kernel=kern)
+        got = (flash_attention.launches - n0[0], ssd_chunk.launches - n0[1])
+        if got != ((n_layers, n_layers) if kern else (0, 0)):
+            raise SystemExit(f"hymba {name} prefill launched flash / "
+                             f"ssd_chunk {got} times")
+        outs[name] = (logits.float(), losses, caches)
+        torch.cuda.empty_cache()
+    (la, na, ca), (lb, nb, cb) = outs["kernels"], outs["einsum"]
+    ok = all(torch.allclose(x, y, atol=TOL_MODEL, rtol=TOL_MODEL)
+             and bool(torch.isfinite(x).all()) for x, y in ((la, lb),
+                                                            (na, nb)))
+    ok &= all(torch.equal(x["attn"]["pos"], y["attn"]["pos"])
+              for x, y in zip(ca, cb))
+    ok &= all(_within_bf16(x["attn"][k], y["attn"][k])
+              for x, y in zip(ca, cb) for k in ("k", "v"))
+    ok &= all(torch.allclose(x["ssm"]["ssm"], y["ssm"]["ssm"],
+                             atol=TOL_MODEL, rtol=TOL_MODEL)
+              and _within_bf16(x["ssm"]["conv"], y["ssm"]["conv"])
+              for x, y in zip(ca, cb))
+    kv_err = max(float((x["attn"][k].float() - y["attn"][k].float())
+                       .abs().max()) for x, y in zip(ca, cb)
+                 for k in ("k", "v"))
+    ssm_err = max(float((x["ssm"]["ssm"] - y["ssm"]["ssm"]).abs().max())
+                  for x, y in zip(ca, cb))
+    log(f"model check {cfg.name} [prefill of 2 x {HYMBA_FLASH_S} tokens "
+        f"past the {HYMBA_WINDOW}-token window, flash + ssd_chunk vs "
+        f"einsum]: logits {float((la - lb).abs().max()):.3e}, node losses "
+        f"{float((na - nb).abs().max()):.3e}, ssm state {ssm_err:.3e} "
+        f"(atol=rtol={TOL_MODEL}); ring pos equal; ring k/v {kv_err:.3e} "
+        f"and conv state within one bf16 ulp + {TOL_MODEL} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("hymba prefill check failed")
+    del outs, ca, cb
+    torch.cuda.empty_cache()
+    # (c) the paged decode past the window
+    s = HYMBA_PAGED_S
+    ring_len = -(-(s + 1) // PS) * PS
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, s + 1)),
+                           device=DEV)
+    with torch.no_grad():
+        _, caches, _, pos = M.prefill(params, cfg, {"tokens": toks[:, :s]},
+                                      ring_len, use_flash=True,
+                                      use_ssd_kernel=True)
+    pools, table = [], None
+    for c in caches:
+        pool, table = ring_to_pool(c["attn"])
+        pools.append({"attn": pool, "ssm": c["ssm"]})
+    del caches
+    res = {}
+    for name, kern in (("kernel", True), ("gather", False)):
+        n0 = paged_attention.launches
+        res[name] = paged_decode(params, cfg, _clone(pools), table, pos,
+                                 toks[:, s], kern)
+        got = paged_attention.launches - n0
+        if got != (n_layers if kern else 0):
+            raise SystemExit(f"hymba paged decode ({name}) launched the "
+                             f"kernel {got} times")
+    errs = [float((a - b).abs().max()) for a, b in zip(res["kernel"],
+                                                       res["gather"])]
+    ok = all(torch.allclose(a, b, atol=TOL_MODEL, rtol=TOL_MODEL)
+             and bool(torch.isfinite(a).all())
+             for a, b in zip(res["kernel"], res["gather"]))
+    log(f"model check {cfg.name} [paged decode after {s} tokens, window "
+        f"{HYMBA_WINDOW}, kernel vs page gather]: logits {errs[0]:.3e}, "
+        f"node losses {errs[1]:.3e} (atol=rtol={TOL_MODEL}); "
+        f"paged_attention launched once a layer ({n_layers}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("hymba paged decode check failed")
+    shapes = [tuple(t.shape) for t in res["kernel"]]
+    if shapes != [(2, cfg.vocab), (2, cfg.n_ramps + 1)]:
+        raise SystemExit(f"hymba decode shapes {shapes}")
+
+
+def phase_long_prefill(params, cfg):
+    """hymba-1.5b, one 16 384-token prompt, by three routes: the banded
+    query chunks (the default), the chunked ones (every key for every
+    chunk) and flash, the SSD through its kernel in all three: logits
+    and node losses within TOL_MODEL of the banded route's, each route's
+    time and peak memory printed beside what the old whole-matrix path
+    needs for one layer's f32 scores.  Then 8 decode tokens on the
+    banded prefill's ring of ``cache_len_for(long_500k)`` slots, each
+    within 2.5e-2 of a prefill of the prompt so far (the reference's
+    rule), through flash."""
+    s = LONG_S
+    ring_len = cache_len_for(cfg, SHAPES["long_500k"])
+    a = cfg.segments[0].block.attn
+    whole = s * s * a.n_heads * 4
+    toks = torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab, (1, s + 8)), device=DEV)
+    n_layers = sum(seg.n_layers for seg in cfg.segments)
+    calls = collections.Counter()
+    inner = A._sdpa_chunked
+
+    def counting(*args):
+        calls[A._ATTN_IMPL.get()] += 1
+        return inner(*args)
+
+    outs = {}
+    A._sdpa_chunked = counting
+    try:
+        for route, impl, flash in (("banded", "banded", False),
+                                   ("chunked", "chunked", False),
+                                   ("flash", "banded", True)):
+            calls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            n0 = flash_attention.launches
+            t0 = time.perf_counter()
+            with torch.no_grad(), A.attention_impl(impl):
+                logits, caches, losses, pos = M.prefill(
+                    params, cfg, {"tokens": toks[:, :s]}, ring_len,
+                    use_flash=flash, use_ssd_kernel=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            fl = flash_attention.launches - n0
+            want = ({} if flash else {impl: n_layers}, n_layers if flash
+                    else 0)
+            if (dict(calls), fl) != want:
+                raise SystemExit(f"long prefill [{route}]: chunked calls "
+                                 f"{dict(calls)}, flash launches {fl}")
+            outs[route] = (logits.float(), losses, peak, wall)
+            if route == "banded":
+                ring, next_pos = caches, pos
+            del caches
+            torch.cuda.empty_cache()
+    finally:
+        A._sdpa_chunked = inner
+    lb, nb, _, _ = outs["banded"]
+    for route, (lg, nl, peak, wall) in outs.items():
+        err = (float((lg - lb).abs().max()), float((nl - nb).abs().max()))
+        ok = (torch.allclose(lg, lb, atol=TOL_MODEL, rtol=TOL_MODEL)
+              and torch.allclose(nl, nb, atol=TOL_MODEL, rtol=TOL_MODEL)
+              and bool(torch.isfinite(lg).all()))
+        if route == "banded":
+            ok &= peak < whole
+        log(f"long prefill {cfg.name} [{route}, 1 x {s} tokens, ring "
+            f"{ring_len}]: {wall:.2f} s, peak memory above the weights "
+            f"{peak / 2**30:.2f} GiB (the whole-matrix path: "
+            f"{whole / 2**30:.2f} GiB of f32 scores a layer); vs banded: "
+            f"logits {err[0]:.3e}, node losses {err[1]:.3e} "
+            f"(atol=rtol={TOL_MODEL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"long prefill [{route}] failed")
+    worst = 0.0
+    for i in range(8):
+        with torch.no_grad():
+            dec, ring, _ = M.decode_step(params, cfg,
+                                         {"tokens": toks[:, s + i]}, ring,
+                                         next_pos + i)
+            ref, _, _, _ = M.prefill(params, cfg,
+                                     {"tokens": toks[:, :s + i + 1]},
+                                     ring_len, use_flash=True,
+                                     use_ssd_kernel=True)
+        err = float((dec - ref).abs().max())
+        worst = max(worst, err)
+        if not (torch.allclose(dec, ref, atol=TOL_MLA, rtol=TOL_MLA)
+                and bool(torch.isfinite(dec).all())):
+            raise SystemExit(f"long decode token {i}: {err:.3e} from the "
+                             f"prefill of {s + i + 1} tokens")
+        torch.cuda.empty_cache()
+    log(f"long decode {cfg.name} [8 tokens on the {ring_len}-slot ring "
+        f"after {s}, full depth]: each vs the prefill of the prompt so far "
+        f"(flash) at most {worst:.3e} (atol=rtol={TOL_MLA}, the "
+        f"reference's rule) ok")
+
+
+def phase_hybrid_checks():
+    """hymba-1.5b built once on the card for `phase_hybrid_model_check`
+    and `phase_long_prefill`, then freed."""
+    cfg = get_config(HYMBA)
+    params = build_model(cfg)
+    phase_hybrid_model_check(params, cfg)
+    phase_long_prefill(params, cfg)
+    log(f"model {cfg.name}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _spec_bytes(spec) -> int:
+    """Bytes of a (shape, dtype) spec tree (lists and dicts of pairs)."""
+    if isinstance(spec, list):
+        return sum(_spec_bytes(v) for v in spec)
+    if isinstance(spec, dict):
+        return sum(_spec_bytes(v) for v in spec.values())
+    shape, dtype = spec
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def phase_int8():
+    """qwen3-4b at full width with the int8 KV cache (models.quant): a
+    24-token ring prefill of two lanes and one decode token under
+    `cache_int8` against the bf16 cache (the reference's rule: error <
+    0.05 x max |logit| + 0.05), and the same token through the paged
+    pool's page gather, int8 (with the paged-kernel switch on: an int8
+    pool takes the gather, no kernel launches) against bf16 (switch
+    off), and against the int8 ring decode within TOL_MODEL; the pool
+    bytes of the serve's layout in each."""
+    cfg = get_config("qwen3-4b")
+    params = build_model(cfg)
+    s, ring_len = 24, 2 * PS
+    toks = torch.as_tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab, (2, s + 1)), device=DEV)
+    res = {}
+    for name, on in (("bf16", False), ("int8", True)):
+        with torch.no_grad(), cache_int8(on):
+            _, caches, _, pos = M.prefill(params, cfg,
+                                          {"tokens": toks[:, :s]}, ring_len)
+            pools = []
+            for c in caches:
+                pool, table = ring_to_pool(c["attn"])
+                pools.append({"attn": pool})
+            n0 = paged_attention.launches
+            paged = paged_decode(params, cfg, pools, table, pos, toks[:, s],
+                                 kernel=on)
+            launched = paged_attention.launches - n0
+            ring = M.decode_step(params, cfg, {"tokens": toks[:, s]}, caches,
+                                 pos)[0]
+        if launched:
+            raise SystemExit(f"int8 check: the {name} paged decode "
+                             f"launched paged_attention {launched} times")
+        res[name] = (ring.float(), paged[0].float(),
+                     {k: str(t.dtype).removeprefix("torch.")
+                      for k, t in caches[0]["attn"].items()})
+    (rb, pb, _), (r8, p8, layout) = res["bf16"], res["int8"]
+    worst = 0.0
+    for what, got, ref in (("ring decode", r8, rb), ("paged gather", p8, pb)):
+        err = float((got - ref).abs().max())
+        bound = 0.05 * float(ref.abs().max()) + 0.05
+        ok = err < bound and bool(torch.isfinite(got).all())
+        worst = max(worst, err)
+        log(f"int8 check {cfg.name} [{what}, int8 vs bf16 cache]: {err:.3e} "
+            f"(the reference's rule: < 0.05 x max|logit| + 0.05 = "
+            f"{bound:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"int8 check failed: {what}")
+    perr = float((p8 - r8).abs().max())
+    if not torch.allclose(p8, r8, atol=TOL_MODEL, rtol=TOL_MODEL):
+        raise SystemExit(f"int8 paged gather vs ring: {perr:.3e}")
+    n_pages = B * -(-128 // PS) + 1
+    sizes = {}
+    for name, on in (("bf16", False), ("int8", True)):
+        with cache_int8(on):
+            sizes[name] = _spec_bytes(M.paged_cache_specs(cfg, B, n_pages,
+                                                          PS))
+    log(f"int8 check {cfg.name}: layout {layout}; int8 paged gather vs "
+        f"int8 ring decode {perr:.3e} (atol=rtol={TOL_MODEL}); no paged "
+        f"kernel launched on the int8 pool with the switch on; the "
+        f"serve's pool ({B} lanes, {n_pages} pages of {PS}): bf16 "
+        f"{sizes['bf16']} bytes, int8 {sizes['int8']} bytes "
+        f"({sizes['int8'] / sizes['bf16']:.3f} of bf16)")
+    del params
+    torch.cuda.empty_cache()
 
 
 def phase_family_model_checks():
@@ -2366,13 +2867,14 @@ def serve_config(argv, cfg):
 
 
 def phase_serve(name, argv, must, must_not, eos=None, reaped=False,
-                cfg=None):
+                cfg=None, int8=False):
     """One full-width serve; every kernel's launch counter is zeroed
     just before and read just after.  Every server serve but UNTRACED
     runs under a tracer (``--trace-out``, unless an observability flag
     is given), whose events split its step times into chunk and
     decode-only steps.  With ``cfg`` the serve runs that config through
-    `serve_config`.  Returns the launches and the run."""
+    `serve_config`; with ``int8`` inside `cache_int8` (the pool int8).
+    Returns the launches and the run."""
     args = serve.parse_args(argv)
     if args.server and name != UNTRACED and not (args.trace_out
                                                  or args.obs_dir):
@@ -2387,7 +2889,8 @@ def phase_serve(name, argv, must, must_not, eos=None, reaped=False,
     for kern in KERNELS.values():
         kern.launches = 0
     t0 = time.perf_counter()
-    run = serve.main(argv) if cfg is None else serve_config(argv, cfg)
+    with cache_int8(int8):
+        run = serve.main(argv) if cfg is None else serve_config(argv, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: kern.launches for k, kern in KERNELS.items()}
@@ -2426,6 +2929,11 @@ def phase_serve(name, argv, must, must_not, eos=None, reaped=False,
             setup += (f", server steps from the tracer: {len(chunk)} with "
                       f"a prefill chunk (p50 {_p50_ms(chunk)}), "
                       f"{len(decode)} without (p50 {_p50_ms(decode)})")
+    if int8:
+        attn = next(c["attn"] for c in run.stepper.caches if "attn" in c)
+        setup += (", int8 KV: pool leaves "
+                  + ", ".join(f"{k} {str(t.dtype).removeprefix('torch.')}"
+                              for k, t in attn.items()))
     log(f"serve [{name}]: {summary}, launches {launches}, peak memory "
         f"{peak:.0f} MiB, wall {wall:.1f} s ({setup})"
         + ("" if cfg is None else f"; config {cfg.name}"))
@@ -2809,6 +3317,14 @@ def phase_dense_serves() -> dict:
                 + json.dumps(run.controller.stats(), default=float))
         del run
         torch.cuda.empty_cache()
+    for name, argv, must, must_not, int8 in INT8_SERVES:
+        by_path[name], run = phase_serve(name, argv, must, must_not,
+                                         int8=int8)
+        kv = run.stepper.caches[0]["attn"]["k"].dtype
+        if kv != (torch.int8 if int8 else torch.bfloat16):
+            raise SystemExit(f"serve [{name}]: the pool is {kv}")
+        del run
+        torch.cuda.empty_cache()
     deadline_ms = 0.5e3 * float(np.median(e2e))
     name, argv, must, must_not = QWEN3_FAULTS
     by_path[name], run = phase_serve(
@@ -2856,6 +3372,17 @@ def phase_family_serves() -> dict:
                 f"launcher's own parse_args and _serve_traffic")
         by_path[name], run = phase_serve(name, argv, must, must_not,
                                          cfg=cfg)
+        if name == "hymba_stw_recall_index":
+            hcfg = get_config(HYMBA)
+            ctx = run.stepper.prompt_len + max(r.max_tokens
+                                               for r in run.requests)
+            fl = model_flops(hcfg, kind="decode", global_batch=1,
+                             seq_len=ctx)
+            p50 = run.metrics.summary(slo=1.0)["token_latency"]["p50"]
+            log(f"serve [{name}]: model_flops of one decode token at "
+                f"{ctx} positions of context {fl:.6e} (launch/flops.py, "
+                f"full depth); at the token p50 {1e3 * p50:.2f} ms, "
+                f"{fl / p50 / 1e12:.4f} TFLOP/s a lane")
         del run
         torch.cuda.empty_cache()
     return by_path
@@ -3123,6 +3650,18 @@ def phase_train(init_stats, steps=TRAIN_STEPS):
     return by_path, summary
 
 
+_LAP = [0.0]
+
+
+def lap(what: str) -> None:
+    """Log the script time since the previous lap (the first lap starts
+    the clock)."""
+    now = time.perf_counter()
+    if _LAP[0]:
+        log(f"phase time [{what}]: {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
+
+
 def main() -> None:
     card = card_line()
     log(f"card: {card}")
@@ -3133,9 +3672,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    lap("start")
     resources = phase_build()
+    lap("build")
     errs = phase_kernel_checks()
     errs["ramp_exit"] = phase_exit_checks()
+    lap("kernel checks")
     cfg = get_config("paper-ee-100m")
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = materialize(M.model_defs(cfg), gen, DEV)
@@ -3147,6 +3689,7 @@ def main() -> None:
     del casc
     phase_calibration_timing(params, cfg, "use_flash")
     del params, params_cpu
+    lap("paper-ee-100m checks")
     cfg = get_config("mamba2-130m")
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = materialize(M.model_defs(cfg), gen, DEV)
@@ -3155,21 +3698,32 @@ def main() -> None:
     phase_calibration_timing(params, cfg, "use_ssd_kernel")
     del params, params_cpu
     torch.cuda.empty_cache()
+    lap("mamba2-130m checks")
     phase_dense_model_checks()
+    lap("dense model checks")
     phase_family_model_checks()
+    lap("family model checks")
+    phase_hybrid_checks()
+    lap("hymba-1.5b checks and long prefill")
+    phase_int8()
+    lap("int8 checks")
     times = phase_timing()
     floor = launch_floor_ms()
     log(f"launch_floor_ms {floor:.6f} (device, graph replay of an in-place "
         f"add on one element)")
+    lap("timing")
     phase_sim_digest()
     phase_control_sim()
     phase_chaos_sim()
+    lap("sims")
     # each path's own counts; each kernel's main path is MAIN_PATH's
     by_path = {DECISION: decision}
     serves, init_stats = phase_serves()
     by_path.update(serves)
+    lap("serves")
     train_paths, train = phase_train(init_stats)
     by_path.update(train_paths)
+    lap("training")
     kernels = []
     for name in KERNELS:
         cases = times[name]

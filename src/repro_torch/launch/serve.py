@@ -107,6 +107,7 @@ from repro_torch.serving.obs.export import (profiler_capture, write_events,
                                             write_trace)
 from repro_torch.serving.obs.lossmap import goodput_lossmap
 from repro_torch.serving.obs.report import ServeReport, segments_saved_line
+from repro_torch.serving.runtime.scheduler import check_chunkable
 from repro_torch.serving.runtime.workload import WorkloadSpec, make_workload
 from repro_torch.training import checkpoint
 
@@ -872,6 +873,10 @@ def main(argv=None) -> ServeRun | BatchRun | None:
                              "rungs are random-init demos")
         return _serve_cascade(args, device)
     cfg = _token_input(get_config(args.arch, smoke=args.smoke))
+    if args.server and args.prefill_chunk:
+        # before the weights and the calibration: the stepper would
+        # refuse the same way, but only after both
+        check_chunkable(cfg, args.kv)
     if args.ckpt:
         params = load_params(args.ckpt, cfg, device)
         print(f"loaded checkpoint {args.ckpt}")

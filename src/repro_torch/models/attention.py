@@ -34,6 +34,18 @@ attends in its latent space (the absorbed-matmul decode) over the page
 gather either way, and never through the flash kernel: the kernels
 compute GQA attention only, and the MLA paths return before the
 switches are read, as in the JAX package.
+
+int8 caches (`models.quant.cache_int8`): K/V (MLA: ``c_kv`` and
+``k_rope``) are int8 beside bf16 scales ``k_s, v_s: (.., Hkv)`` (MLA
+``c_kv_s, k_rope_s``: one a position).  Each path picks its int8
+branch from the cache's own leaves; an int8 pool always takes the page
+gather, whatever `paged_kernel` says, because the kernels read bf16
+pools (the JAX package's rule).
+
+Long prompts: a whole-prompt prefill of ``S >= 16384`` tokens (``S`` a
+multiple of 2048) without flash never forms the (S, S) scores; it runs
+2048-query chunks, each against the keys it can see (`attention_impl`
+"banded", the default) or against all of them ("chunked").
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import (flash_attention, paged_attention,
                                  paged_prefill)
@@ -51,10 +64,12 @@ from repro_torch.models.common import (causal_mask, rms_norm, rope,
                                        rope_cos_sin)
 from repro_torch.models.config import AttnConfig
 from repro_torch.models.param import ParamDef
+from repro_torch.models.quant import (dequantize_rows, int8_enabled,
+                                      quantize_rows)
 
 __all__ = ["attn_defs", "attn_forward", "attn_decode",
            "attn_prefill_chunk", "init_cache_defs", "PagedKV",
-           "PrefillChunk", "paged_kernel"]
+           "PrefillChunk", "paged_kernel", "attention_impl"]
 
 # must agree with serving.kvpool.alloc.GARBAGE_PAGE (a literal, so the
 # model layer never imports the serving layer)
@@ -129,22 +144,57 @@ def attn_defs(cfg: AttnConfig, d_model: int) -> dict:
 
 def init_cache_defs(cfg: AttnConfig, batch: int, cache_len: int) -> dict:
     """(shape, dtype) spec of one layer's KV cache: bf16 K/V (MLA: the
-    bf16 latent ``c_kv`` and the shared rope key ``k_rope``), i32 pos."""
+    bf16 latent ``c_kv`` and the shared rope key ``k_rope``), i32 pos.
+    Under `cache_int8` the K/V (latent) leaves are int8, with bf16
+    scales ``k_s``/``v_s`` (B, C, Hkv) (MLA: ``c_kv_s``/``k_rope_s``
+    (B, C))."""
+    i8 = int8_enabled()
+    kv_dt = torch.int8 if i8 else torch.bfloat16
     if cfg.mla is not None:
         m = cfg.mla
-        return {
-            "c_kv": ((batch, cache_len, m.kv_lora_rank), torch.bfloat16),
-            "k_rope": ((batch, cache_len, m.qk_rope_head_dim),
-                       torch.bfloat16),
+        out = {
+            "c_kv": ((batch, cache_len, m.kv_lora_rank), kv_dt),
+            "k_rope": ((batch, cache_len, m.qk_rope_head_dim), kv_dt),
             "pos": ((batch, cache_len), torch.int32),
         }
-    return {
-        "k": ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
-              torch.bfloat16),
-        "v": ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
-              torch.bfloat16),
+        if i8:
+            out["c_kv_s"] = ((batch, cache_len), torch.bfloat16)
+            out["k_rope_s"] = ((batch, cache_len), torch.bfloat16)
+        return out
+    out = {
+        "k": ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim), kv_dt),
+        "v": ((batch, cache_len, cfg.n_kv_heads, cfg.head_dim), kv_dt),
         "pos": ((batch, cache_len), torch.int32),
     }
+    if i8:
+        out["k_s"] = ((batch, cache_len, cfg.n_kv_heads), torch.bfloat16)
+        out["v_s"] = ((batch, cache_len, cfg.n_kv_heads), torch.bfloat16)
+    return out
+
+
+def _write_kv(cache: dict, idx: tuple, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """Write new K/V rows at ``idx`` in place: cast to the cache's bf16,
+    or, in an int8 cache, quantized beside their scales."""
+    if "k_s" in cache:
+        for name, x in (("k", k), ("v", v)):
+            xq, xs = quantize_rows(x)
+            cache[name].index_put_(idx, xq)
+            cache[name + "_s"].index_put_(idx, xs)
+        return
+    cache["k"].index_put_(idx, k.to(cache["k"].dtype))
+    cache["v"].index_put_(idx, v.to(cache["v"].dtype))
+
+
+def _read_kv(cache: dict, name: str, dtype, index=None) -> torch.Tensor:
+    """Leaf ``name`` of the cache (rows ``index`` of it, if given) in
+    ``dtype``: an int8 leaf dequantized with its scales."""
+    x = cache[name] if index is None else cache[name][index]
+    if name + "_s" in cache:
+        s = cache[name + "_s"] if index is None \
+            else cache[name + "_s"][index]
+        return dequantize_rows(x, s, dtype)
+    return x.to(dtype)
 
 
 def _split_heads(x, n_heads, head_dim):
@@ -160,6 +210,98 @@ def _qk_norm(p, q, k, cfg: AttnConfig, eps):
         q = rms_norm({"scale": p["q_norm"]}, q, eps)
         k = rms_norm({"scale": p["k_norm"]}, k, eps)
     return q, k
+
+
+_CHUNK_THRESHOLD = 16_384  # chunk the queries of prompts this long
+_Q_CHUNK = 2_048
+_CAUSAL_GROUPS = 4         # causal banding: groups of chunks a key prefix
+
+# Long-prompt attention: "banded" (the default) reads each query chunk's
+# visible keys only; "chunked" reads all keys for every chunk.  Read at
+# call time.
+_ATTN_IMPL = contextvars.ContextVar("repro_torch_attn_impl",
+                                    default="banded")
+
+
+@contextlib.contextmanager
+def attention_impl(name: str):
+    """Run long-prompt attention "banded" or "chunked"."""
+    if name not in ("chunked", "banded"):
+        raise ValueError(f"attention_impl: {name!r} is not chunked or "
+                         "banded")
+    tok = _ATTN_IMPL.set(name)
+    try:
+        yield
+    finally:
+        _ATTN_IMPL.reset(tok)
+
+
+def _long_prompt(s: int) -> bool:
+    return s >= _CHUNK_THRESHOLD and s % _Q_CHUNK == 0
+
+
+def _sdpa_chunked(q, k, v, q_pos, kv_pos, window, scale):
+    """Query-chunked attention that never forms the (S, S) scores: one
+    `_sdpa` a 2048-query chunk against all keys (or, under
+    ``attention_impl("banded")``, `_sdpa_banded`).  q (B,S,H,hd); k, v
+    (B,T,Hkv,*); S a multiple of the chunk."""
+    if _ATTN_IMPL.get() == "banded":
+        return _sdpa_banded(q, k, v, q_pos, kv_pos, window, scale)
+    s = q.shape[1]
+    if s % _Q_CHUNK:
+        raise ValueError(f"_sdpa_chunked: S {s} is not a multiple of "
+                         f"{_Q_CHUNK}")
+    outs = []
+    for lo in range(0, s, _Q_CHUNK):
+        p_i = q_pos[:, lo:lo + _Q_CHUNK]
+        outs.append(_sdpa(q[:, lo:lo + _Q_CHUNK], k, v,
+                          causal_mask(p_i, kv_pos, window), scale))
+    return torch.cat(outs, dim=1)
+
+
+def _sdpa_banded(q, k, v, q_pos, kv_pos, window, scale):
+    """Banded chunked attention: each query chunk reads only the keys it
+    can see.
+
+    * windowed: a band of the window rounded up to whole chunks plus one
+      chunk, ending at the chunk's end; K/V are padded in front by
+      ``band - chunk`` rows at position -1, so every band has one size;
+    * causal: the chunks in `_CAUSAL_GROUPS` groups, group g's chunks
+      against the key prefix that ends with the group.
+
+    Assumes the prefill layout (q_pos == kv_pos, contiguous)."""
+    s = q.shape[1]
+    qc = _Q_CHUNK
+    nc = s // qc
+    if window is not None:
+        band = min(((window + qc - 1) // qc + 1) * qc, s)
+        pad = band - qc
+        kp = F.pad(k, (0, 0, 0, 0, pad, 0))
+        vp = F.pad(v, (0, 0, 0, 0, pad, 0))
+        pad_pos = F.pad(kv_pos, (pad, 0), value=-1)
+        outs = []
+        for i in range(nc):
+            lo = i * qc                  # the band ends at the chunk's end
+            p_i = q_pos[:, lo:lo + qc]
+            kp_i = pad_pos[:, lo:lo + band]
+            mask = causal_mask(p_i, kp_i, window) & (kp_i >= 0)[:, None, :]
+            outs.append(_sdpa(q[:, lo:lo + qc], kp[:, lo:lo + band],
+                              vp[:, lo:lo + band], mask, scale))
+        return torch.cat(outs, dim=1)
+    groups = min(_CAUSAL_GROUPS, nc)
+    if nc % groups:
+        raise ValueError(f"_sdpa_banded: {nc} chunks do not split into "
+                         f"{groups} groups")
+    per = nc // groups
+    outs = []
+    for g in range(groups):
+        hi = (g + 1) * per * qc
+        k_g, v_g, kp_g = k[:, :hi], v[:, :hi], kv_pos[:, :hi]
+        for lo in range(g * per * qc, hi, qc):
+            p_i = q_pos[:, lo:lo + qc]
+            outs.append(_sdpa(q[:, lo:lo + qc], k_g, v_g,
+                              causal_mask(p_i, kp_g, None), scale))
+    return torch.cat(outs, dim=1)
 
 
 def _sdpa(q, k, v, mask, scale):
@@ -185,9 +327,10 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     """Full causal self-attention (prefill).  Returns (y, {"k", "v"}).
 
     ``use_flash`` runs the attention through the flash-attention kernel
-    (plain PyTorch on CPU tensors); off, through `_sdpa`.  The prefill
-    positions are ``0..S-1`` on every row, the kernel's contract.  MLA
-    returns (y, {"c_kv", "k_rope"}) from `_mla_forward`, flash or not."""
+    (plain PyTorch on CPU tensors); off, through `_sdpa`, or, for a long
+    prompt, `_sdpa_chunked`.  The prefill positions are ``0..S-1`` on
+    every row, the kernel's contract.  MLA returns (y, {"c_kv",
+    "k_rope"}) from `_mla_forward`, flash or not."""
     if cfg.mla is not None:
         return _mla_forward(p, x, positions, cfg, eps)
     b, s, _ = x.shape
@@ -201,6 +344,9 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     if use_flash:
         out = flash_attention(q, k, v, scale=_scale(cfg), causal=True,
                               window=cfg.window)
+    elif _long_prompt(s):
+        out = _sdpa_chunked(q, k, v, positions, positions, cfg.window,
+                            _scale(cfg))
     else:
         mask = causal_mask(positions, positions, cfg.window)
         out = _sdpa(q, k, v, mask, _scale(cfg))
@@ -243,13 +389,23 @@ def _gqa_qkv_decode(p: dict, x: torch.Tensor, pos: torch.Tensor,
 
 def _gather_pages(cache: dict, table: torch.Tensor, dtype):
     """(k, v, pos) of every page in ``table`` (B, maxp), flattened to
-    (B, maxp*ps, ...)."""
+    (B, maxp*ps, ...); an int8 pool's pages dequantized after the
+    gather (never the whole pool)."""
     b, maxp = table.shape
     ps = cache["k"].shape[1]
     t = table.long()
-    k = cache["k"][t].to(dtype).reshape(b, maxp * ps, *cache["k"].shape[2:])
-    v = cache["v"][t].to(dtype).reshape(b, maxp * ps, *cache["v"].shape[2:])
+    k = _read_kv(cache, "k", dtype, t).reshape(b, maxp * ps,
+                                                *cache["k"].shape[2:])
+    v = _read_kv(cache, "v", dtype, t).reshape(b, maxp * ps,
+                                                *cache["v"].shape[2:])
     return k, v, cache["pos"][t].reshape(b, maxp * ps)
+
+
+def _paged_kernel_takes(cache: dict) -> bool:
+    """Whether this paged call goes through the kernels: the switch is
+    on and the pool is bf16 (an int8 pool takes the gather, as in the
+    JAX package: the kernels read bf16 pages)."""
+    return _PAGED_KERNEL.get() and "k_s" not in cache
 
 
 def _gqa_decode_paged(p, x, cache, pos, cfg: AttnConfig, eps,
@@ -264,13 +420,12 @@ def _gqa_decode_paged(p, x, cache, pos, cfg: AttnConfig, eps,
         wp = torch.where(write_mask, wp, _GARBAGE_PAGE)
         pw = torch.where(write_mask, pw, -1)
     ws = paged.write_slot.long()
-    cache["k"].index_put_((wp, ws), k[:, 0].to(cache["k"].dtype))
-    cache["v"].index_put_((wp, ws), v[:, 0].to(cache["v"].dtype))
+    _write_kv(cache, (wp, ws), k[:, 0], v[:, 0])
     cache["pos"].index_put_((wp, ws), pw)
 
     table = paged.page_table
     scale = _scale(cfg)
-    if _PAGED_KERNEL.get():
+    if _paged_kernel_takes(cache):
         out = paged_attention(q[:, 0], cache["k"], cache["v"], cache["pos"],
                               table, pos.to(torch.int32), scale=scale,
                               window=cfg.window)[:, None]     # (B,1,H,hd)
@@ -317,12 +472,11 @@ def attn_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
     dp = torch.where(live, chunk.dest_page, _GARBAGE_PAGE).long()
     pw = torch.where(live, chunk.pos, -1).to(torch.int32)
     ds = chunk.dest_slot.long()
-    cache["k"].index_put_((dp, ds), k.to(cache["k"].dtype))
-    cache["v"].index_put_((dp, ds), v.to(cache["v"].dtype))
+    _write_kv(cache, (dp, ds), k, v)
     cache["pos"].index_put_((dp, ds), pw)
 
     scale = _scale(cfg)
-    if _PAGED_KERNEL.get():
+    if _paged_kernel_takes(cache):
         out = paged_prefill(q, cache["k"], cache["v"], cache["pos"], table,
                             chunk.pos, chunk.start, k, v, chunk.pos,
                             scale=scale, window=cfg.window)
@@ -368,14 +522,14 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     q, k, v = _gqa_qkv_decode(p, x, pos, cfg, eps)
     slot = (pos % c).long()                                  # ring write
     bidx = torch.arange(b, device=x.device)
-    cache["k"].index_put_((bidx, slot), k[:, 0].to(cache["k"].dtype))
-    cache["v"].index_put_((bidx, slot), v[:, 0].to(cache["v"].dtype))
+    _write_kv(cache, (bidx, slot), k[:, 0], v[:, 0])
     cache["pos"].index_put_((bidx, slot), pos.to(torch.int32))
     new_pos = cache["pos"]
     mask = causal_mask(pos[:, None], new_pos, cfg.window)   # (B,1,C)
     mask &= (new_pos >= 0)[:, None, :]
-    out = _sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
-                _scale(cfg))
+    out = _sdpa(q, _read_kv(cache, "k", q.dtype), _read_kv(cache, "v",
+                                                           q.dtype),
+                mask, _scale(cfg))
     return out.reshape(b, 1, -1) @ p["wo"], cache
 
 
@@ -426,8 +580,12 @@ def _mla_forward(p, x, positions, cfg: AttnConfig, eps):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    mask = causal_mask(positions, positions, cfg.window)
-    out = _sdpa(q, k, v, mask, _mla_scale(cfg))
+    if _long_prompt(s):
+        out = _sdpa_chunked(q, k, v, positions, positions, cfg.window,
+                            _mla_scale(cfg))
+    else:
+        mask = causal_mask(positions, positions, cfg.window)
+        out = _sdpa(q, k, v, mask, _mla_scale(cfg))
     return out.reshape(b, s, -1) @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope}
 
 
@@ -438,7 +596,9 @@ def _mla_decode(p, x, cache, pos, cfg: AttnConfig, eps,
     (P, page, lora + rope) in the pool.  The new token's latent is
     written in place first (on the pool, masked lanes go to the garbage
     page at position -1); the paged pool is then read back per lane
-    through the page-table gather."""
+    through the page-table gather.  An int8 latent is quantized as it
+    is written and dequantized to bf16 as it is read (after the gather,
+    on the pool)."""
     m = cfg.mla
     b = x.shape[0]
     h = cfg.n_heads
@@ -457,18 +617,27 @@ def _mla_decode(p, x, cache, pos, cfg: AttnConfig, eps,
         wa = torch.arange(b, device=x.device)
         wb = (pos % cache["c_kv"].shape[1]).long()
         pw = pos.to(torch.int32)
-    cache["c_kv"].index_put_((wa, wb), c_new[:, 0].to(cache["c_kv"].dtype))
-    cache["k_rope"].index_put_((wa, wb),
-                               k_rope_new[:, 0].to(cache["k_rope"].dtype))
+    for name, new in (("c_kv", c_new[:, 0]), ("k_rope", k_rope_new[:, 0])):
+        if name + "_s" in cache:
+            nq, ns = quantize_rows(new)
+            cache[name].index_put_((wa, wb), nq)
+            cache[name + "_s"].index_put_((wa, wb), ns)
+        else:
+            cache[name].index_put_((wa, wb), new.to(cache[name].dtype))
     cache["pos"].index_put_((wa, wb), pw)
+    # int8 leaves read back as bf16 (dequantize_rows' default), as the
+    # JAX package reads them; bf16 leaves as they are
+    dt = torch.bfloat16 if "c_kv_s" in cache else cache["c_kv"].dtype
     if paged is not None:
         t = paged.page_table.long()
         c = t.shape[1] * cache["c_kv"].shape[1]
-        ckv = cache["c_kv"][t].reshape(b, c, -1)
-        krope = cache["k_rope"][t].reshape(b, c, -1)
+        ckv = _read_kv(cache, "c_kv", dt, t).reshape(b, c, -1)
+        krope = _read_kv(cache, "k_rope", dt, t).reshape(b, c, -1)
         kpos = cache["pos"][t].reshape(b, c)
     else:
-        ckv, krope, kpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+        ckv = _read_kv(cache, "c_kv", dt)
+        krope = _read_kv(cache, "k_rope", dt)
+        kpos = cache["pos"]
 
     # absorb W_uk into q: q_c[b,h,r] = sum_n q_nope[b,h,n] W_uk[r, h, n]
     w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)

@@ -200,7 +200,7 @@ def _refuse_kernels_under_autograd(params, cfg: ModelConfig, use_flash,
     routed = [name for name, on, mixer in (("use_flash", use_flash, "attn"),
                                            ("use_ssd_kernel", use_ssd_kernel,
                                             "ssm"))
-              if on and mixer in mixers]
+              if on and (mixer in mixers or "hybrid" in mixers)]
     if routed and torch.is_grad_enabled() and any(
             t.requires_grad for t in tree_leaves(params)):
         raise NotImplementedError(
@@ -336,8 +336,9 @@ def _stack_specs(spec, n: int):
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> list:
     """(shape, dtype) spec tree of the decode caches, per segment and
     stacked over its layers: ring ``k, v (L, B, cache_len, Hkv, hd)``,
-    ``pos (L, B, cache_len)`` for attention; ``conv (L, B, d_conv-1,
-    conv_dim)``, ``ssm (L, B, H, P, N)`` for SSM blocks."""
+    ``pos (L, B, cache_len)`` for attention (under `cache_int8` also
+    ``k_s, v_s``); ``conv (L, B, d_conv-1, conv_dim)``, ``ssm (L, B, H,
+    P, N)`` for SSM blocks; both for hybrid blocks."""
     return [_stack_specs(blocks.cache_defs(seg.block, cfg.d_model, batch,
                                            cache_len), seg.n_layers)
             for seg in cfg.segments]

@@ -1,7 +1,9 @@
 """Parameter definitions: one source of truth for shapes and init.
 
 Modules declare a nested dict of ``ParamDef``s; ``materialize`` turns it
-into tensors drawn from an explicit ``torch.Generator``.  The layout is
+into tensors drawn from an explicit ``torch.Generator``, ``abstract``
+into tensors on the meta device (shapes and dtypes, no storage), and
+``logical_specs`` into the tree of logical-axis tuples.  The layout is
 the JAX package's: layers are stacked per segment, so
 ``params["segments"][si]["blocks"]["attn"]["wq"]`` is ``(L, D, H*hd)``.
 """
@@ -13,8 +15,8 @@ import math
 
 import torch
 
-__all__ = ["ParamDef", "materialize", "tree_map", "tree_leaves",
-           "check_params"]
+__all__ = ["ParamDef", "materialize", "abstract", "logical_specs",
+           "count_params", "tree_map", "tree_leaves", "check_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +77,23 @@ def materialize(defs, generator: torch.Generator, device,
     return tree_map(
         lambda d: _init_leaf(d, generator).to(device=device, dtype=dtype),
         defs)
+
+
+def abstract(defs, dtype=torch.bfloat16):
+    """The ParamDef tree as tensors on the meta device: every shape and
+    ``dtype``, no storage allocated anywhere."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), defs)
+
+
+def logical_specs(defs):
+    """Tree of logical-axis tuples, the same structure as the params."""
+    return tree_map(lambda d: d.axes, defs)
+
+
+def count_params(defs) -> int:
+    """Number of parameters the ParamDef tree declares."""
+    return sum(math.prod(d.shape) for d in tree_leaves(defs))
 
 
 def check_params(defs, params, dtype=torch.float32, path: str = "") -> None:

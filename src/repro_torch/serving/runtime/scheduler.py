@@ -42,7 +42,8 @@ from repro_torch.serving.kvpool import KVPool, PoolExhausted
 from repro_torch.serving.runtime.request import Request, RequestQueue
 from repro_torch.strategy.base import init_lane
 
-__all__ = ["LaneScheduler", "ChunkPlanner", "EngineStepper"]
+__all__ = ["LaneScheduler", "ChunkPlanner", "EngineStepper",
+           "check_chunkable"]
 
 
 class LaneScheduler:
@@ -189,6 +190,24 @@ class ChunkPlanner:
 
 
 
+def check_chunkable(cfg, kv: str) -> None:
+    """Raise ValueError (the JAX package's message) unless chunked
+    prefill can serve ``cfg`` on ``kv``: chunks commit into the paged
+    pool, and only GQA attention segments have a prefill chunk (SSM and
+    hybrid state is sequential over the prompt; MLA has none)."""
+    if kv != "paged":
+        raise ValueError("chunked prefill needs --kv paged "
+                         "(chunks commit into the page pool)")
+    for seg in cfg.segments:
+        if seg.block.mixer != "attn" or seg.block.attn.mla is not None:
+            raise ValueError(
+                "chunked prefill currently supports GQA "
+                "attention segments only (SSM state is "
+                "sequential over the prompt; MLA chunking is a "
+                "ROADMAP item) — drop --prefill-chunk for "
+                f"mixer {seg.block.mixer!r}")
+
+
 def _materialize_cache(spec, device, key=None):
     """Zero-filled caches from a `models.model.cache_specs` or
     `paged_cache_specs` tree (``pos`` buffers start at -1 == empty
@@ -233,17 +252,7 @@ class EngineStepper:
             raise ValueError(f"unknown kv mode {kv!r} (ring|paged)")
         prefill_chunk = prefill_chunk or None      # 0 == disabled
         if prefill_chunk is not None:
-            if kv != "paged":
-                raise ValueError("chunked prefill needs --kv paged "
-                                 "(chunks commit into the page pool)")
-            for seg in cfg.segments:
-                if seg.block.mixer != "attn" \
-                        or seg.block.attn.mla is not None:
-                    raise ValueError(
-                        "chunked prefill supports GQA attention segments "
-                        "only (SSM state is sequential over the prompt) "
-                        f"— drop --prefill-chunk for mixer "
-                        f"{seg.block.mixer!r}")
+            check_chunkable(cfg, kv)
         self.params = params
         self.cfg = cfg
         self.device = params["embed"]["table"].device

@@ -2,8 +2,10 @@
 smoke sizes, with the same numpy inputs and weights carried over by the
 bridge: qwen3-14b (untied embeddings, GQA 5:1), musicgen-large
 (embeds input), phi-3-vision-4.2b (multimodal: image embeds before the
-text tokens, untied), phi3.5-moe-42b-a6.6b (MoE) and
-deepseek-v2-lite-16b (MLA attention and MoE with a shared expert).
+text tokens, untied), phi3.5-moe-42b-a6.6b (MoE),
+deepseek-v2-lite-16b (MLA attention and MoE with a shared expert) and
+hymba-1.5b (the hybrid mixer: windowed GQA attention and SSD heads on
+the same input).
 
 Tolerances, stated per test:
   * parameter shape trees: EQUAL;
@@ -13,7 +15,9 @@ Tolerances, stated per test:
     that differ is printed: 0);
   * tensors downstream of the bf16 ring caches or the paged pool
     (decode logits, node losses): atol = rtol = 1e-3, the bf16 caches
-    within atol = rtol = 1e-2 (one bf16 ulp) with equal positions;
+    within atol = rtol = 1e-2 (one bf16 ulp) with equal positions; a
+    hybrid block's f32 SSM state within 1e-3 and its bf16 conv window
+    within one bf16 ulp;
   * the reference's own decode-after-prefill check (MLA's absorbed
     decode reads the bf16 latent cache, the S + 1 prefill recomputes in
     f32): 2.5e-2, its tolerance, on the port alone; the port's decode
@@ -57,7 +61,7 @@ F32 = dict(atol=1e-5, rtol=1e-5)
 POOL = dict(atol=1e-3, rtol=1e-3)
 BF16 = dict(atol=1e-2, rtol=1e-2)
 FAMILIES = ("qwen3-14b", "musicgen-large", "phi-3-vision-4.2b",
-            "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b")
+            "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b", "hymba-1.5b")
 
 
 def _np(tree):
@@ -146,9 +150,11 @@ def test_model_defs_shapes_match(arch, smoke):
 # --------------------------------------------------------------------------
 
 def _check_caches(tcaches, jcaches):
-    """Ring caches or pools: positions EQUAL, bf16 leaves within one
-    bf16 ulp (page 0, the garbage sink, left out of pools)."""
+    """Ring caches: positions EQUAL, bf16 leaves within one bf16 ulp; a
+    hybrid block's SSM state (f32) within 1e-3 and its conv window
+    (bf16) within one bf16 ulp."""
     for tc, jc in zip(tcaches, jcaches):
+        assert set(tc) == set(jc)
         assert set(tc["attn"]) == set(jc["attn"])
         for name, leaf in tc["attn"].items():
             ref = np.asarray(jc["attn"][name])
@@ -157,6 +163,10 @@ def _check_caches(tcaches, jcaches):
             else:
                 np.testing.assert_allclose(leaf.float().numpy(),
                                            ref.astype(np.float32), **BF16)
+        for name, leaf in tc.get("ssm", {}).items():
+            ref = np.asarray(jc["ssm"][name]).astype(np.float32)
+            np.testing.assert_allclose(leaf.float().numpy(), ref,
+                                       **(POOL if name == "ssm" else BF16))
 
 
 def test_family_prefill_matches(family):
@@ -565,10 +575,11 @@ def test_family_forward_train_matches(family, remat):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "phi3.5-moe-42b-a6.6b",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "hymba-1.5b"])
 def test_checkpoints_and_bridge_carry_the_new_leaves(arch, tmp_path):
-    """The untied ``unembed``, the experts' stacks and the MLA leaves
-    need nothing new: the bridge carries them from numpy (the port's
+    """The untied ``unembed``, the experts' stacks, the MLA leaves and
+    the hybrid block's (``attn``, ``ssm``, ``attn_out_norm``,
+    ``ssm_out_norm``) need nothing new: the bridge carries them from numpy (the port's
     `check_params` accepts the tree, every leaf equal), and a smoke
     checkpoint is read both ways, every leaf EQUAL."""
     cfg = get_config(arch, smoke=True)

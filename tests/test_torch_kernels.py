@@ -828,6 +828,66 @@ def test_cuda_ssd_chunk_matches_plain():
             assert (got[0][:, -1, qv:] == 0).all()
 
 
+@pytest.mark.cuda
+def test_cuda_kernels_at_hymba_shapes():
+    """The three kernels of hymba-1.5b's serve path at its widths, on the
+    card: ssd_chunk at d_state 16 and 50 heads of 64 (its calibration's
+    64 valid rows of a 256-row chunk, an admission's 32, a full chunk,
+    two chunks with a ragged last one), atol = rtol = 2e-4, rows past
+    q_valid exactly 0; flash at 25 heads on 5 kv heads of 64 with the
+    1024-token window, past the window (S 1100) and inside it (S 200),
+    and paged decode at the same widths over 16-token pages with
+    histories of 1100-1300 positions (the window cuts every lane),
+    atol = rtol = 1e-4; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for shape, qv in (((1, 1, 256, 50, 64, 16), 64),
+                      ((1, 1, 256, 50, 64, 16), 32),
+                      ((2, 1, 256, 50, 64, 16), None),
+                      ((2, 2, 256, 50, 64, 16), 37)):
+        args = _ssd_inputs(*shape, seed=shape[0] + (qv or 0), dev=dev,
+                           q_valid=qv)
+        n = ssd_chunk.launches
+        got = ssd_chunk(*args, q_valid=qv)
+        torch.cuda.synchronize()
+        assert ssd_chunk.launches == n + 1
+        for g, w in zip(got, ssd_chunk_plain(*args, q_valid=qv)):
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-4)
+        if qv is not None:
+            assert (got[0][:, -1, qv:] == 0).all()
+    rng = np.random.default_rng(23)
+    for b, s in ((1, 1100), (2, 200)):
+        q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h, 64)).astype(
+            np.float32)).to(dev) for h in (25, 5, 5))
+        n = flash_attention.launches
+        got = flash_attention(q, k, v, scale=0.125, window=1024)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == n + 1
+        torch.testing.assert_close(
+            got, flash_attention_plain(q, k, v, scale=0.125, window=1024),
+            atol=1e-4, rtol=1e-4)
+    lens = (1100, 1300, 1025, 1201)
+    k, v, pos, pages, _ = _pool(rng, hkv=5, hd=64, ps=16, starts=lens,
+                                holes=True, stale_page=False)
+    table = _table(pages, 82, 0)
+    args = (torch.from_numpy((rng.normal(size=(4, 25, 64)) * 0.5).astype(
+                np.float32)).to(dev),
+            torch.from_numpy(k).to(dev, torch.bfloat16),
+            torch.from_numpy(v).to(dev, torch.bfloat16),
+            torch.from_numpy(pos).to(dev), torch.from_numpy(table).to(dev),
+            torch.tensor([n - 1 for n in lens], dtype=torch.int32,
+                         device=dev))
+    n = paged_attention.launches
+    got = paged_attention(*args, scale=0.125, window=1024)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == n + 1
+    torch.testing.assert_close(
+        got, paged_attention_plain(*args, scale=0.125, window=1024),
+        atol=1e-4, rtol=1e-4)
+
+
 # --------------------------------------------------------------------------
 # ramp exit (the fused exit decision)
 # --------------------------------------------------------------------------

@@ -12,8 +12,10 @@ against the JAX package's, end to end on the smoke config.
   * The same for stop-the-world admission, on the ring caches (with and
     without the flash route, whose plain version runs on the CPU) and
     on the paged pool (pool stats equal too), for the attention smoke
-    model and for the SSM one (mamba2-130m; ring, ring through the
-    ssd-chunk route, paged).
+    model, for the SSM one (mamba2-130m; ring, ring through the
+    ssd-chunk route, paged) and for the hybrid one (hymba-1.5b: ring,
+    ring through the flash and ssd-chunk routes, paged, paged through
+    every kernel route).
   * Both of those under every other online policy of the registry
     (tree_index, skip_recall, norecall_threshold, recall_threshold,
     norecall_patience, always_first, always_last), each built by the
@@ -129,8 +131,14 @@ def mla_setup():
     return _setup("deepseek-v2-lite-16b")
 
 
+@pytest.fixture(scope="module")
+def hybrid_setup():
+    return _setup("hymba-1.5b")
+
+
 # the fixture that gives each stop-the-world ``model`` case its setup
-STW_SETUPS = {"attn": "setup", "ssm": "ssm_setup", "mla": "mla_setup"}
+STW_SETUPS = {"attn": "setup", "ssm": "ssm_setup", "mla": "mla_setup",
+              "hybrid": "hybrid_setup"}
 
 
 def _requests(cls, cfg, n=6, seed=7, policy="recall_index",
@@ -344,10 +352,16 @@ def stw_reference():
      ("ssm", "paged", False, "recall_index"),
      ("mla", "ring", False, "recall_index"),
      ("mla", "ring", True, "recall_index"),
-     ("mla", "paged", False, "recall_index")]
+     ("mla", "paged", False, "recall_index"),
+     ("hybrid", "ring", False, "recall_index"),
+     ("hybrid", "ring", True, "recall_index"),
+     ("hybrid", "paged", False, "recall_index"),
+     ("hybrid", "paged", True, "recall_index")]
     + [("attn", "ring", False, p) for p in POLICIES],
     ids=["ring", "ring-flash", "paged", "ssm-ring", "ssm-ring-ssd",
-         "ssm-paged", "mla-ring", "mla-ring-flash", "mla-paged"]
+         "ssm-paged", "mla-ring", "mla-ring-flash", "mla-paged",
+         "hybrid-ring", "hybrid-ring-kernels", "hybrid-paged",
+         "hybrid-paged-kernels"]
     + [f"ring-{p}" for p in POLICIES])
 def test_stop_the_world_serves_what_the_reference_serves(
         request, stw_reference, model, kv, kernel, policy):
@@ -356,7 +370,10 @@ def test_stop_the_world_serves_what_the_reference_serves(
     whose plain versions run on the CPU.  ``mla``: deepseek-v2-lite's
     smoke size (MLA attention, MoE MLPs with a shared expert); its ring
     serve masks the inactive lanes' latent-cache slots by their
-    ``pos`` leaf (an MLA cache has no ``k``)."""
+    ``pos`` leaf (an MLA cache has no ``k``).  ``hybrid``: hymba-1.5b's
+    smoke size, whose segments hold attention and SSM state side by
+    side; ``kernel`` takes the flash and ssd-chunk routes and, paged,
+    the paged-decode switch."""
     setup = request.getfixturevalue(STW_SETUPS[model])
     cfg, _, _, tparams, tcasc = setup
     jreqs, jm, jnodes, jpool = stw_reference(setup, kv, policy)
@@ -366,7 +383,9 @@ def test_stop_the_world_serves_what_the_reference_serves(
     stepper = trt.EngineStepper(tparams, cfg, bank, n_lanes=2, cache_len=32,
                                 prompt_len=PROMPT_LEN, kv=kv, page_size=8,
                                 use_flash=kernel and model != "ssm",
-                                use_ssd_kernel=kernel and model == "ssm")
+                                use_ssd_kernel=kernel and model in (
+                                    "ssm", "hybrid"),
+                                paged_kernel=kernel and kv == "paged")
     with torch.no_grad():
         tm, tnodes = _serve_logged(trt, stepper, sid_of, requests)
     for req in jreqs:
@@ -431,8 +450,11 @@ def test_launcher_serves_smoke_on_cpu(capsys):
     ("qwen3-14b", ["--kv", "paged", "--prefill-chunk", "8"]),
     ("phi3.5-moe-42b-a6.6b", ["--kv", "paged", "--prefill-chunk", "8"]),
     ("deepseek-v2-lite-16b", ["--kv", "paged"]),
-    ("deepseek-v2-lite-16b", ["--kv", "ring"])],
-    ids=["qwen3-14b", "phi3.5-moe", "deepseek-paged", "deepseek-ring"])
+    ("deepseek-v2-lite-16b", ["--kv", "ring"]),
+    ("hymba-1.5b", ["--kv", "paged", "--ssd-kernel"]),
+    ("hymba-1.5b", ["--kv", "ring", "--ssd-kernel"])],
+    ids=["qwen3-14b", "phi3.5-moe", "deepseek-paged", "deepseek-ring",
+         "hymba-paged", "hymba-ring"])
 def test_launcher_serves_the_new_families_on_cpu(arch, extra):
     """``--arch`` takes the new token-input configs through the
     registry, with the kernel flags on (plain versions on the CPU; an
@@ -646,7 +668,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serving/obs/regret", "serving/obs/report",
                 "data/pipeline", "training/optimizer",
                 "training/checkpoint", "training/loop", "launch/train",
-                "examples/train_ee"):
+                "examples/train_ee", "configs/hymba_1_5b", "models/quant",
+                "launch/shapes", "launch/flops"):
         assert f"src/repro_torch/{mod}.py" in names
     bad = []
     for path in files:
