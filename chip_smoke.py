@@ -282,14 +282,32 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      3-5 run under torch.profiler (device busy, idle share against the
      p50 step, device ops, top device and host ops a step) and are left
      out of the step times;
-  8. prints a ``kernels`` JSON line (``launches`` is each kernel's
+  8. counts work with ``launch.op_cost`` (``phase_op_cost``): full-width
+     qwen3-4b's prefill of 1 x 4096 tokens, plain and through the
+     flash kernel (its 36 launches counted as kernel records: operand
+     and result bytes, no flops), and its decode_step of 8 lanes on a
+     4096-slot ring, on the card; the plain counts (flops, HBM bytes)
+     must EQUAL those taken on fake tensors of the same shapes, and the
+     plain prefill's attention matmuls 36 x 4 S^2 H hd exactly (the
+     flash prefill none); each step is timed with CUDA events (median
+     of 5) and its TFLOP/s and TB/s printed beside 67 TFLOP/s f32 and
+     3.35 TB/s; then the multi-pod dry run (``phase_dryrun``): ``python
+     -m repro_torch.launch.dryrun`` on the 256- or 512-rank fake world,
+     one process a combination, 8 at a time, none on the card — every
+     assigned arch at decode_32k, prefill_32k for qwen3-4b,
+     phi3.5-moe-42b-a6.6b and hymba-1.5b, long_500k for mamba2-130m,
+     hymba-1.5b and qwen3-4b, qwen3-4b decode_32k on pod2x16x16 and
+     qwen3-14b decode_32k with ``--variant gqa_mesh`` (train_4k is left
+     out: its DTensor trace takes minutes a combination), each
+     process's exit 0 required and its per-device numbers printed;
+  9. prints a ``kernels`` JSON line (``launches`` is each kernel's
      count on its own main path — for ramp_exit the decision check;
      ``launches_by_path`` holds every path's; the times are the first
      timed case's — for bellman_backup the solve's, the case its path
      runs — ``timed_cases`` holds every case of a kernel timed at more
      than one, ``resources`` what the runtime reported; the object also
-     carries ``launch_floor_ms`` and the training run's numbers,
-     ``train``), the card line, and last ``{"ok":
+     carries ``launch_floor_ms``, the training run's numbers,
+     ``train``, and ``op_cost``'s), the card line, and last ``{"ok":
      true, "device": {...}}``.
 
 It exits nonzero, printing no result, when CUDA is not available, when
@@ -334,7 +352,7 @@ from repro_torch.kernels import (bellman_backup,              # noqa: E402
                                  paged_prefill, paged_prefill_plain,
                                  ramp_exit, ramp_exit_plain, ssd_chunk,
                                  ssd_chunk_plain)
-from repro_torch.launch import serve                          # noqa: E402
+from repro_torch.launch import op_cost, serve                 # noqa: E402
 from repro_torch.launch.flops import model_flops              # noqa: E402
 from repro_torch.launch.shapes import SHAPES, cache_len_for   # noqa: E402
 from repro_torch.models import attention as A                 # noqa: E402
@@ -3650,6 +3668,224 @@ def phase_train(init_stats, steps=TRAIN_STEPS):
     return by_path, summary
 
 
+# ---- the mesh tooling: op-cost counts on the card, the dry run ----------
+
+OP_COST_ARCH = "qwen3-4b"
+OP_COST_S = 4096           # the prefill's tokens (one row)
+OP_COST_DECODE = (8, 4096)  # decode_step: lanes, ring slots
+
+
+def _fake_tree(tree, fake):
+    """A tree of real tensors as fake tensors of the same shapes."""
+    return tree_map(lambda t: fake.from_tensor(t), tree)
+
+
+def _counts(cost) -> dict:
+    """What must agree between a real and a fake count (the op records
+    may not: a size-1 dim's stride can differ between a fake tensor and
+    a real one, and matmul then folds one into ``mm`` where it keeps the
+    other a ``bmm`` of the same flops and bytes)."""
+    return {"flops": cost.flops, "hbm_bytes": cost.hbm_bytes,
+            "collectives": cost.collectives, "kernels": cost.kernels}
+
+
+def _event_ms(fn, reps=5) -> float:
+    """Median device time of ``fn`` by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        out.append(t0.elapsed_time(t1))
+    return float(np.median(out))
+
+
+def phase_op_cost(card) -> dict:
+    """`launch.op_cost` on real CUDA tensors at full-width qwen3-4b, with
+    no mesh: prefill of 1 x OP_COST_S tokens plain and through the flash
+    kernel (one kernel record a layer, bytes only), and decode_step of
+    OP_COST_DECODE[0] lanes on a ring of OP_COST_DECODE[1] slots.  The
+    plain counts must EQUAL those taken on fake tensors of the same
+    shapes; the flash prefill must count no attention matmul, the plain
+    one exactly the 2 x 2 S^2 H hd of its score and value products a
+    layer.  Each step is timed (CUDA events, median of 5) and its
+    achieved rates printed beside the card's f32 and memory rates."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = get_config(OP_COST_ARCH)
+    params = build_model(cfg)
+    n_layers = sum(seg.n_layers for seg in cfg.segments)
+    a = cfg.segments[0].block.attn
+    rng = np.random.default_rng(0)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (1, OP_COST_S)),
+                          dtype=torch.int32, device=DEV)
+    lanes, slots = OP_COST_DECODE
+    def zeros(spec):
+        if isinstance(spec, dict):
+            return {k: zeros(v) for k, v in spec.items()}
+        return torch.zeros(spec[0], dtype=spec[1], device=DEV)
+
+    caches = [zeros(spec) for spec in M.cache_specs(cfg, lanes, slots)]
+    for seg in caches:    # every slot holds a past position
+        seg["attn"]["pos"].copy_(torch.arange(slots, device=DEV))
+    dtok = torch.as_tensor(rng.integers(0, cfg.vocab, (lanes,)),
+                           dtype=torch.int32, device=DEV)
+    dpos = torch.full((lanes,), slots, dtype=torch.int32, device=DEV)
+    steps = {
+        "prefill": lambda p, t: M.prefill(p, cfg, {"tokens": t}, OP_COST_S),
+        "prefill_flash": lambda p, t: M.prefill(
+            p, cfg, {"tokens": t}, OP_COST_S, use_flash=True),
+        "decode": lambda p, t, c, q: M.decode_step(p, cfg, {"tokens": t},
+                                                   c, q),
+    }
+    args = {"prefill": (params, tok), "prefill_flash": (params, tok),
+            "decode": (params, dtok, caches, dpos)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in steps.items():
+            flash0 = FLASH_MOD.flash_attention.launches
+            cost = op_cost.analyze(fn, *args[name])
+            launched = FLASH_MOD.flash_attention.launches - flash0
+            cost.result = None
+            if name != "prefill_flash":
+                fake = FakeTensorMode()
+                with fake:
+                    fargs = _fake_tree(args[name], fake)
+                    fcost = op_cost.analyze(fn, *fargs)
+                if _counts(fcost) != _counts(cost):
+                    raise SystemExit(
+                        f"op_cost [{name}]: the real count (flops "
+                        f"{cost.flops}, bytes {cost.hbm_bytes}) differs "
+                        f"from the fake one (flops {fcost.flops}, bytes "
+                        f"{fcost.hbm_bytes})")
+                del fcost, fargs
+            ms = _event_ms(lambda: fn(*args[name]))
+            out[name] = dict(flops=cost.flops, hbm_bytes=cost.hbm_bytes,
+                             kernels=cost.kernels, launched=launched,
+                             bmm_flops=sum(r["flops"] for r in cost.records
+                                           if r["op"] == "bmm"),
+                             temp_bytes=cost.temp_bytes, ms=ms,
+                             tflops=cost.flops / ms / 1e9,
+                             tbs=cost.hbm_bytes / ms / 1e9)
+            log(f"op_cost [{OP_COST_ARCH} {name}]: flops {cost.flops:.6g}, "
+                f"HBM bytes {cost.hbm_bytes:.6g}, kernel records "
+                f"{cost.kernels}, temp {cost.temp_bytes / 2**30:.2f} GiB; "
+                f"{ms:.3f} ms (CUDA events, median of 5): "
+                f"{out[name]['tflops']:.2f} TFLOP/s "
+                f"({out[name]['tflops'] / (F32_FLOP_S / 1e12):.1%} of "
+                f"{F32_FLOP_S / 1e12:.0f} f32), {out[name]['tbs']:.3f} TB/s "
+                f"({out[name]['tbs'] / (HBM_BYTES_S / 1e12):.1%} of "
+                f"{HBM_BYTES_S / 1e12} TB/s) [{card}]"
+                + ("" if name == "prefill_flash" else "; fake count EQUAL"))
+    plain, flash = out["prefill"], out["prefill_flash"]
+    attn = n_layers * 2 * (2 * OP_COST_S ** 2 * a.n_heads * a.head_dim)
+    if flash["kernels"] != {"flash_attention": n_layers} \
+            or flash["launched"] != n_layers:
+        raise SystemExit(f"op_cost: the flash prefill reported "
+                         f"{flash['kernels']} ({flash['launched']} "
+                         f"launches), not {n_layers} flash records")
+    if plain["bmm_flops"] != attn or flash["bmm_flops"] != 0:
+        raise SystemExit(f"op_cost: attention matmuls {plain['bmm_flops']} "
+                         f"(plain) / {flash['bmm_flops']} (flash), want "
+                         f"{attn} / 0")
+    log(f"op_cost [{OP_COST_ARCH}]: plain - flash prefill = "
+        f"{plain['flops'] - flash['flops']:.6g} flops: the attention "
+        f"matmuls' {attn:.6g} and {plain['flops'] - flash['flops'] - attn:.6g}"
+        f" of masking and softmax")
+    del params, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+# each combination of the dry run: (arch, shape, extra flags).  train_4k
+# is left out: its 16 microbatches of 36 layers take the DTensor trace
+# tens of minutes (ROADMAP), far past this phase's budget.
+DRYRUN_COMBOS = (
+    [(a, "decode_32k", []) for a in (
+        "deepseek-v2-lite-16b", "qwen3-4b", "qwen3-14b", "mamba2-130m",
+        "hymba-1.5b", "phi3.5-moe-42b-a6.6b", "granite-3-2b",
+        "musicgen-large", "starcoder2-3b", "phi-3-vision-4.2b")]
+    + [(a, "prefill_32k", []) for a in ("qwen3-4b", "phi3.5-moe-42b-a6.6b",
+                                        "hymba-1.5b")]
+    + [(a, "long_500k", []) for a in ("mamba2-130m", "hymba-1.5b",
+                                      "qwen3-4b")]
+    + [("qwen3-4b", "decode_32k", ["--multi-pod"]),
+       ("qwen3-14b", "decode_32k", ["--variant", "gqa_mesh"])])
+DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
+DRYRUN_PROCS = 8
+
+
+def phase_dryrun() -> dict:
+    """`python -m repro_torch.launch.dryrun` for every DRYRUN_COMBOS
+    entry, each in a process of its own (the fake backend's 512-rank
+    world is process-wide), DRYRUN_PROCS at a time, none on the card.
+    A process that exits nonzero fails the script; each result's
+    per-device numbers and trace time are printed."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    todo = list(DRYRUN_COMBOS)
+    running, results = [], {}
+    t0 = time.perf_counter()
+    try:
+        while todo or running:
+            while todo and len(running) < DRYRUN_PROCS:
+                arch, shape, extra = todo.pop(0)
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--force",
+                       "--out", str(DRYRUN_OUT), *extra]
+                # the output goes to a file: a pipe nobody reads until
+                # the process ends would fill and stall it
+                out = DRYRUN_OUT / ("_".join([arch, shape] + [
+                    e.lstrip("-") for e in extra]) + ".log")
+                with open(out, "w") as sink:
+                    proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                            stdout=sink,
+                                            stderr=subprocess.STDOUT)
+                running.append(((arch, shape, extra, out), proc))
+            time.sleep(0.5)
+            for item in [r for r in running if r[1].poll() is not None]:
+                running.remove(item)
+                (arch, shape, extra, out), proc = item
+                if proc.returncode != 0:
+                    raise SystemExit(f"dry run {arch} {shape} {extra} "
+                                     f"exited {proc.returncode}:\n"
+                                     f"{out.read_text()[-3000:]}")
+                mesh = "pod2x16x16" if "--multi-pod" in extra else \
+                    "pod16x16"
+                tag = "baseline" if not extra or "--multi-pod" in extra \
+                    else f"baseline+{extra[1]}"
+                res = json.loads((DRYRUN_OUT / f"{arch}__{shape}__{mesh}__"
+                                  f"{tag}.json").read_text())
+                results[(arch, shape, mesh, tag)] = res
+                mem = res["memory"]
+                log(f"dryrun [{arch} x {shape} x {mesh} ({tag})]: trace "
+                    f"{res['trace_s']} s; per device: flops "
+                    f"{res['flops_per_device']:.6g}, HBM bytes "
+                    f"{res['hbm_bytes_per_device']:.6g}, wire "
+                    f"{res['wire_bytes_per_device']:.6g} (pod "
+                    f"{res['pod_wire_bytes_per_device']:.6g}), argument "
+                    f"{mem['argument_bytes']}, output {mem['output_bytes']},"
+                    f" temp {mem['temp_bytes']}; model flops "
+                    f"{res['model_flops']:.6g}; replicated ops "
+                    f"{res['replicated_ops']}")
+    finally:
+        for _, proc in running:
+            proc.kill()
+            proc.wait()
+    log(f"dryrun: {len(results)} combinations in "
+        f"{time.perf_counter() - t0:.1f} s ({DRYRUN_PROCS} processes; "
+        f"train_4k left out, see DRYRUN_COMBOS)")
+    return results
+
+
 _LAP = [0.0]
 
 
@@ -3724,6 +3960,10 @@ def main() -> None:
     train_paths, train = phase_train(init_stats)
     by_path.update(train_paths)
     lap("training")
+    counted = phase_op_cost(card)
+    lap("op_cost")
+    phase_dryrun()
+    lap("dry run")
     kernels = []
     for name in KERNELS:
         cases = times[name]
@@ -3741,7 +3981,7 @@ def main() -> None:
         kernels.append(row)
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor,
-                      "train": train}))
+                      "train": train, "op_cost": counted}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,6 +127,8 @@ def _launch(base, trans_full, costs, xvals, mi_t, cont, phi):
     if rc != 0:
         raise RuntimeError(f"Bellman kernel launch failed: CUDA error {rc}")
     bellman_backup.launches += 1
+    build.report_launch("bellman_backup", (base, trans_full, costs, xvals,
+                                           mi_t), (cont, phi))
 
 
 def _on_card(name, t, *inputs) -> None:

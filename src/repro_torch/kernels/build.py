@@ -11,7 +11,11 @@ a changed one never loads a stale library.  `build_all` starts one
 It also holds what the wrappers share around a launch: the check that
 rows copied in 16-byte pieces start on 16 bytes, and the split of a
 long key range over blocks whose partial sums the last block to finish
-merges (`split_count`, and the integer tickets of `ticket_buffer`).
+merges (`split_count`, and the integer tickets of `ticket_buffer`); and
+`report_launch`, by which each wrapper tells the active launch
+recorders (`LAUNCH_RECORDERS`: a cost model's, such as
+`repro_torch.launch.op_cost.analyze`) of a launch, which no dispatch
+mode sees.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "build_all", "library", "check_rows_aligned",
-           "sm_count", "split_count", "ticket_buffer"]
+           "sm_count", "split_count", "ticket_buffer", "LAUNCH_RECORDERS",
+           "report_launch"]
 
 SOURCES = ("paged_attention", "paged_prefill", "flash_attention",
            "bellman_backup", "ssd_chunk", "ramp_exit")
@@ -43,6 +48,9 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 _tickets: dict = {}
 _MAX_KEYS_A_BLOCK = 1024
+# objects with a ``kernel(name, inputs, outputs)`` method, told of every
+# launch while they are in the list
+LAUNCH_RECORDERS: list = []
 
 
 def _nvcc() -> str:
@@ -179,3 +187,10 @@ def ticket_buffer(kernel: str, n: int, device) -> torch.Tensor:
         t = torch.zeros(n, dtype=torch.int32, device=device)
         _tickets[(kernel, device)] = t
     return t
+
+
+def report_launch(name: str, inputs, outputs) -> None:
+    """Tell every recorder of `LAUNCH_RECORDERS` of one launch of kernel
+    ``name``: its operand and result tensors."""
+    for rec in LAUNCH_RECORDERS:
+        rec.kernel(name, inputs, outputs)

@@ -117,6 +117,7 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     flash_attention.launches += 1
+    build.report_launch("flash_attention", (q, k, v), (out,))
     return out
 
 

@@ -152,6 +152,8 @@ def paged_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos, *,
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
     paged_attention.launches += 1
+    build.report_launch("paged_attention", (q, k_pages, v_pages, pos_pages,
+                                            page_table, q_pos), (out,))
     return out
 
 

@@ -187,6 +187,8 @@ def paged_prefill(q, k_pages, v_pages, pos_pages, page_table, q_pos,
         raise RuntimeError(f"paged_prefill kernel launch failed: CUDA "
                            f"error {rc}")
     paged_prefill.launches += 1
+    build.report_launch("paged_prefill", (q, k_pages, v_pages, pos_pages,
+                                          page_table, q_pos), (out,))
     return out
 
 

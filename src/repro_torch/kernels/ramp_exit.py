@@ -153,6 +153,8 @@ def ramp_exit(logits, edges, stop_table, s_bin, x_idx, *, lam: float):
         raise RuntimeError(f"ramp_exit kernel launch failed: CUDA error "
                            f"{rc}")
     ramp_exit.launches += 1
+    build.report_launch("ramp_exit", (logits, edges, stop_table, s_bin,
+                                      x_idx), (loss, bins, new_x, stop))
     return loss, bins, new_x, stop
 
 

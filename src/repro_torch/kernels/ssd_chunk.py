@@ -158,6 +158,7 @@ def ssd_chunk(xh, dt, da, bb, cc, *, q_valid=None):
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error "
                            f"{rc}")
     ssd_chunk.launches += 1
+    build.report_launch("ssd_chunk", (xh, dt, da, bb, cc), (y, st))
     return y, st
 
 

@@ -8,8 +8,10 @@ the JAX package).
 Ring layout: GQA ``k, v: (B, C, Hkv, hd)`` bf16, MLA ``c_kv: (B, C,
 kv_lora)`` and ``k_rope: (B, C, rope_dim)`` bf16, and ``pos: (B, C)``
 i32 per lane, position p stored at slot ``p % C`` (-1 = empty slot).  Decode
-writes the new token's slot in place (``index_put_``); the engine puts
-back the slots of lanes that were not active (``_mask_lane_writes``).
+writes the new token's slot in place (a scatter along the slot dim,
+`sharding.ctx.scatter_rows_`, which a DTensor ring writes shard by
+shard); the engine puts back the slots of lanes that were not active
+(``_mask_lane_writes``).
 
 Paged layout (serving.kvpool): the same leaves with the lane axis
 replaced by a global page pool, ``k, v: (P, page, Hkv, hd)`` (MLA
@@ -66,6 +68,8 @@ from repro_torch.models.config import AttnConfig
 from repro_torch.models.param import ParamDef
 from repro_torch.models.quant import (dequantize_rows, int8_enabled,
                                       quantize_rows)
+from repro_torch.sharding.ctx import (dtensor_mesh, scatter_rows_,
+                                     sdpa_sharded)
 
 __all__ = ["attn_defs", "attn_forward", "attn_decode",
            "attn_prefill_chunk", "init_cache_defs", "PagedKV",
@@ -172,18 +176,27 @@ def init_cache_defs(cfg: AttnConfig, batch: int, cache_len: int) -> dict:
     return out
 
 
-def _write_kv(cache: dict, idx: tuple, k: torch.Tensor,
-              v: torch.Tensor) -> None:
-    """Write new K/V rows at ``idx`` in place: cast to the cache's bf16,
-    or, in an int8 cache, quantized beside their scales."""
+def _put(buf: torch.Tensor, idx, rows: torch.Tensor) -> None:
+    """``buf[idx] = rows`` in place.  ``idx`` is a (page, slot) pair on
+    the paged pool, or the ring slot of each row, (B,): row b goes to
+    ``buf[b, idx[b]]`` (`sharding.ctx.scatter_rows_`)."""
+    if isinstance(idx, tuple):
+        buf.index_put_(idx, rows)
+    else:
+        scatter_rows_(buf, idx, rows)
+
+
+def _write_kv(cache: dict, idx, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write new K/V rows at ``idx`` (see `_put`) in place: cast to the
+    cache's bf16, or, in an int8 cache, quantized beside their scales."""
     if "k_s" in cache:
         for name, x in (("k", k), ("v", v)):
             xq, xs = quantize_rows(x)
-            cache[name].index_put_(idx, xq)
-            cache[name + "_s"].index_put_(idx, xs)
+            _put(cache[name], idx, xq)
+            _put(cache[name + "_s"], idx, xs)
         return
-    cache["k"].index_put_(idx, k.to(cache["k"].dtype))
-    cache["v"].index_put_(idx, v.to(cache["v"].dtype))
+    _put(cache["k"], idx, k.to(cache["k"].dtype))
+    _put(cache["v"], idx, v.to(cache["v"].dtype))
 
 
 def _read_kv(cache: dict, name: str, dtype, index=None) -> torch.Tensor:
@@ -304,21 +317,33 @@ def _sdpa_banded(q, k, v, q_pos, kv_pos, window, scale):
     return torch.cat(outs, dim=1)
 
 
-def _sdpa(q, k, v, mask, scale):
-    """Plain einsum + softmax attention.  q (B,S,H,hd), k (B,T,Hkv,hd),
-    v (B,T,Hkv,vd) with H = G*Hkv; mask (B,S,T) or (S,T)."""
+def _scores(q, k, mask, scale):
+    """`_sdpa`'s masked f32 scores (B, Hkv, G, S, T)."""
     b, s, h, hd = q.shape
     hkv = k.shape[2]
-    vd = v.shape[-1]
-    g = h // hkv
-    q = q.reshape(b, s, hkv, g, hd)
+    q = q.reshape(b, s, hkv, h // hkv, hd)
     logits = torch.einsum("bskgd,btkd->bkgst", q, k).float() * scale
     if mask.dim() == 2:
         mask = mask[None]
-    logits = logits.masked_fill(~mask[:, None, None, :, :], -1e30)
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return logits.masked_fill(~mask[:, None, None, :, :], -1e30)
+
+
+def _mix(w, v):
+    """`_sdpa`'s weighted values: w (B, Hkv, G, S, T) -> (B, S, H, vd)."""
+    b, hkv, g, s, _ = w.shape
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(b, s, h, vd)
+    return out.reshape(b, s, hkv * g, v.shape[-1])
+
+
+def _sdpa(q, k, v, mask, scale):
+    """Plain einsum + softmax attention.  q (B,S,H,hd), k (B,T,Hkv,hd),
+    v (B,T,Hkv,vd) with H = G*Hkv; mask (B,S,T) or (S,T).  DTensors go
+    through `sdpa_sharded`, which runs `_scores` and `_mix` shard by
+    shard."""
+    if dtensor_mesh(q) is not None:
+        return sdpa_sharded(q, k, v, mask, scale, _scores, _mix)
+    w = torch.softmax(_scores(q, k, mask, scale), dim=-1).to(v.dtype)
+    return _mix(w, v)
 
 
 def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -521,9 +546,8 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     c = cache["k"].shape[1]
     q, k, v = _gqa_qkv_decode(p, x, pos, cfg, eps)
     slot = (pos % c).long()                                  # ring write
-    bidx = torch.arange(b, device=x.device)
-    _write_kv(cache, (bidx, slot), k[:, 0], v[:, 0])
-    cache["pos"].index_put_((bidx, slot), pos.to(torch.int32))
+    _write_kv(cache, slot, k[:, 0], v[:, 0])
+    _put(cache["pos"], slot, pos.to(torch.int32))
     new_pos = cache["pos"]
     mask = causal_mask(pos[:, None], new_pos, cfg.window)   # (B,1,C)
     mask &= (new_pos >= 0)[:, None, :]
@@ -612,19 +636,18 @@ def _mla_decode(p, x, cache, pos, cfg: AttnConfig, eps,
         if write_mask is not None:
             wa = torch.where(write_mask, wa, _GARBAGE_PAGE)
             pw = torch.where(write_mask, pw, -1)
-        wb = paged.write_slot.long()
+        idx = (wa, paged.write_slot.long())
     else:
-        wa = torch.arange(b, device=x.device)
-        wb = (pos % cache["c_kv"].shape[1]).long()
+        idx = (pos % cache["c_kv"].shape[1]).long()         # ring write
         pw = pos.to(torch.int32)
     for name, new in (("c_kv", c_new[:, 0]), ("k_rope", k_rope_new[:, 0])):
         if name + "_s" in cache:
             nq, ns = quantize_rows(new)
-            cache[name].index_put_((wa, wb), nq)
-            cache[name + "_s"].index_put_((wa, wb), ns)
+            _put(cache[name], idx, nq)
+            _put(cache[name + "_s"], idx, ns)
         else:
-            cache[name].index_put_((wa, wb), new.to(cache[name].dtype))
-    cache["pos"].index_put_((wa, wb), pw)
+            _put(cache[name], idx, new.to(cache[name].dtype))
+    _put(cache["pos"], idx, pw)
     # int8 leaves read back as bf16 (dequantize_rows' default), as the
     # JAX package reads them; bf16 leaves as they are
     dt = torch.bfloat16 if "c_kv_s" in cache else cache["c_kv"].dtype

@@ -13,6 +13,7 @@ from repro_torch.models import attention, mlp as mlp_lib, moe as moe_lib, \
 from repro_torch.models.common import rms_norm, rms_norm_def
 from repro_torch.models.config import BlockConfig
 from repro_torch.models.quant import int8_enabled, quantize_rows
+from repro_torch.sharding.ctx import reduce_partial, scatter_rows_
 
 __all__ = ["block_defs", "block_forward", "block_decode",
            "block_prefill_chunk", "cache_defs", "build_ring_cache"]
@@ -65,8 +66,9 @@ def _mlp(p, x, cfg: BlockConfig, eps, with_aux=False):
     if cfg.mlp == "moe":
         y, aux = moe_lib.moe_forward(p["moe"], xn, cfg.moe, cfg.act,
                                      with_aux)
-        return x + y, aux
-    return x + mlp_lib.mlp_forward(p["mlp"], xn, cfg.act), {}
+        return x + reduce_partial(y), aux
+    return x + reduce_partial(mlp_lib.mlp_forward(p["mlp"], xn,
+                                                  cfg.act)), {}
 
 
 def block_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -83,9 +85,11 @@ def block_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     if cfg.mixer in ("attn", "hybrid"):
         ya, entry["attn_kv"] = attention.attn_forward(
             p["attn"], xn, positions, cfg.attn, eps, use_flash)
+        ya = reduce_partial(ya)
     if cfg.mixer in ("ssm", "hybrid"):
         ys, entry["ssm"] = ssm_lib.ssm_forward(p["ssm"], xn, cfg.ssm, eps,
                                                use_ssd_kernel)
+        ys = reduce_partial(ys)
     mix = (_fuse(p, ya, ys, eps) if cfg.mixer == "hybrid"
            else ya if cfg.mixer == "attn" else ys)
     x, aux = _mlp(p, x + mix, cfg, eps, with_aux=True)
@@ -110,9 +114,11 @@ def block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
         ya, cache["attn"] = attention.attn_decode(
             p["attn"], xn, cache["attn"], pos, cfg.attn, eps, paged=paged,
             write_mask=write_mask)
+        ya = reduce_partial(ya)
     if cfg.mixer in ("ssm", "hybrid"):
         state = cache["ssm"]
         ys, new = ssm_lib.ssm_decode(p["ssm"], xn, state, cfg.ssm, eps)
+        ys = reduce_partial(ys)
         for name, leaf in state.items():
             upd = new[name].to(leaf.dtype)
             if write_mask is not None:
@@ -138,7 +144,7 @@ def block_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
     mix, cache["attn"] = attention.attn_prefill_chunk(
         p["attn"], rms_norm(p["norm1"], x, eps), cache["attn"], cfg.attn,
         eps, table, chunk)
-    return _mlp(p, x + mix, cfg, eps)[0], cache
+    return _mlp(p, x + reduce_partial(mix), cfg, eps)[0], cache
 
 
 def build_ring_cache(cache_entry: dict, positions: torch.Tensor,
@@ -158,23 +164,20 @@ def build_ring_cache(cache_entry: dict, positions: torch.Tensor,
         pos_tail = positions[:, -cache_len:]
         slots = (pos_tail % cache_len).long()                # (B, C')
         b = pos_tail.shape[0]
-        bidx = torch.arange(b, device=positions.device)[:, None]
 
         def scatter(src):
-            tail = src[:, -cache_len:]
-            buf = torch.zeros((b, cache_len) + tail.shape[2:],
-                              dtype=torch.bfloat16, device=src.device)
-            buf[bidx, slots] = tail.to(torch.bfloat16)
-            return buf
+            # buf[b, slots[b, i]] = tail[b, i]
+            tail = reduce_partial(src[:, -cache_len:]).to(torch.bfloat16)
+            buf = tail.new_zeros((b, cache_len) + tail.shape[2:])
+            return scatter_rows_(buf, slots, tail)
 
         entry = {name: scatter(t) for name, t in kv.items()}
         if int8_enabled():
             for name in list(entry):
                 entry[name], entry[name + "_s"] = quantize_rows(entry[name])
-        pos_buf = torch.full((b, cache_len), -1, dtype=torch.int32,
-                             device=positions.device)
-        pos_buf[bidx, slots] = pos_tail.to(torch.int32)
-        entry["pos"] = pos_buf
+        entry["pos"] = scatter_rows_(
+            positions.new_full((b, cache_len), -1, dtype=torch.int32),
+            slots, pos_tail.to(torch.int32))
         out["attn"] = entry
     if "ssm" in cache_entry:
         out["ssm"] = cache_entry["ssm"]

@@ -42,6 +42,8 @@ from repro_torch.models import blocks
 from repro_torch.models.common import embed_def, rms_norm, rms_norm_def
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamDef, tree_leaves, tree_map
+from repro_torch.sharding.ctx import (constrain_batch, embed_rows,
+                                     reduce_partial)
 
 __all__ = ["model_defs", "forward_train", "prefill", "decode_step",
            "decode_segment", "prefill_chunk_segment", "cache_specs",
@@ -127,18 +129,18 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
     (B,S_text), "image_embeds" (B,image_tokens,D)}: the image embeds
     come before the text tokens."""
     if cfg.input_mode == "tokens":
-        x = params["embed"]["table"][batch["tokens"].long()]
+        x = embed_rows(params["embed"]["table"], batch["tokens"].long())
     elif cfg.input_mode == "embeds":
         x = batch["embeds"]
     elif cfg.input_mode == "multimodal":
-        tok = params["embed"]["table"][batch["tokens"].long()]
+        tok = embed_rows(params["embed"]["table"], batch["tokens"].long())
         x = torch.cat([batch["image_embeds"].to(tok.dtype), tok], dim=1)
     else:
         raise ValueError(cfg.input_mode)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    return x, positions
+    return constrain_batch(x), positions
 
 
 def _train_layer(p_layer, x, positions, block, eps, use_flash,
@@ -174,6 +176,7 @@ def _run_segments(params, cfg: ModelConfig, x, positions, *, remat: bool,
             x, a = (checkpoint(_train_layer, *args, use_reentrant=False)
                     if remat else _train_layer(*args))
             seg_aux.append(a)
+        x = constrain_batch(x)  # re-anchor residual-stream sharding
         aux = _merge_aux(aux, seg_aux)
         if seg.ramp:
             ramps.append((si, x))
@@ -185,7 +188,8 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     (B,S,V), labels (B,S)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    ll = reduce_partial(torch.gather(lf, -1, labels.clamp(min=0).long()[
+        ..., None]))[..., 0]
     valid = labels >= 0
     ce = torch.where(valid, lse - ll, 0.0)
     return ce.sum() / valid.sum().clamp(min=1)
@@ -261,6 +265,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int, *,
             rings.append(blocks.build_ring_cache(entry, positions,
                                                  cache_len))
         caches.append(_stack_layers(rings))
+        x = constrain_batch(x)
         if seg.ramp:
             node_losses.append(
                 ramp_readout(params, cfg, x[:, -1, :], segment=si)[1])
@@ -286,6 +291,7 @@ def decode_segment(params, cfg: ModelConfig, si: int, x: torch.Tensor,
         x, _ = blocks.block_decode(layer(p_seg, li), x, layer(cache_seg, li),
                                    pos, seg.block, cfg.norm_eps,
                                    paged=paged, write_mask=write_mask)
+    x = constrain_batch(x)
     readout = None
     if seg.ramp:
         readout = ramp_readout(params, cfg, x[:, 0, :], segment=si)
@@ -304,7 +310,7 @@ def prefill_chunk_segment(params, cfg: ModelConfig, si: int,
         x, _ = blocks.block_prefill_chunk(layer(p_seg, li), x,
                                           layer(cache_seg, li), seg.block,
                                           cfg.norm_eps, table, chunk)
-    return x, cache_seg
+    return constrain_batch(x), cache_seg
 
 
 def decode_step(params, cfg: ModelConfig, batch: dict, caches, pos):
@@ -313,9 +319,11 @@ def decode_step(params, cfg: ModelConfig, batch: dict, caches, pos):
     an embeds-input model.  Returns (logits (B,V), caches, node_losses
     (B, n_nodes))."""
     if cfg.input_mode in ("tokens", "multimodal"):
-        x = params["embed"]["table"][batch["tokens"].long()][:, None, :]
+        x = embed_rows(params["embed"]["table"],
+                       batch["tokens"].long())[:, None, :]
     else:
         x = batch["embeds"][:, None, :]
+    x = constrain_batch(x)
     node_losses = []
     for si in range(len(cfg.segments)):
         x, _, ro = decode_segment(params, cfg, si, x, caches[si], pos)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.mlp import mlp_defs, mlp_forward
 from repro_torch.models.param import ParamDef
+from repro_torch.sharding.ctx import constrain_batch
 
 __all__ = ["moe_defs", "moe_forward", "route", "capacity"]
 
@@ -128,15 +129,18 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     # token row g * ng is the zero row an empty slot reads
     x_pad = torch.cat([xg.reshape(g * ng, d), xg.new_zeros((1, d))])
     xe = x_pad[buf_tok[:-1]].reshape(e, g * cap, d)
+    # anchor the (G * C) buffer dim, group-major, on the batch mesh axes
+    xe = constrain_batch(xe, batch_dim=1)
 
     # ---- per-expert batched products (the transients dropped early) -------
     up = torch.bmm(xe, p["w_up"])
     gate = torch.bmm(xe, p["w_gate"]) if act == "swiglu" else None
     del xe
-    h = _act(up, gate, act)
+    h = constrain_batch(_act(up, gate, act), batch_dim=1)
     del up, gate
     ye = torch.bmm(h, p["w_down"])                            # (E, G*C, D)
     del h
+    ye = constrain_batch(ye, batch_dim=1)
     ye = ye * buf_gate[:-1].reshape(e, g * cap, 1)
 
     # ---- combine: each token's k outputs in ascending buffer order (expert
@@ -147,10 +151,10 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     parts = ye.reshape(e * g * cap, d)[slot_of.clamp(max=e * g * cap - 1)]
     parts.masked_fill_(dropped[..., None], 0.0)               # (G, Ng, k, D)
     del ye
-    y = torch.zeros_like(xg)
+    y = constrain_batch(torch.zeros_like(xg), batch_dim=0)
     for j in range(k):
         y = y + parts[:, :, j]
-    y = y.reshape(b, s, d)
+    y = constrain_batch(y, batch_dim=0).reshape(b, s, d)
 
     if cfg.num_shared > 0:
         y = y + mlp_forward(p["shared"], x, act)

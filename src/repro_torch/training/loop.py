@@ -60,8 +60,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
             ws = [p.detach().requires_grad_() for p in masters]
         p_c = _rebuild(params, iter(ws))
         m = max(num_microbatches, 1)
-        g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in masters]
+        g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in masters]
         metrics: dict = {}
         for j in range(m):
             micro = {k: v[j::m] for k, v in batch.items()} if m > 1 \

@@ -16,10 +16,19 @@ Tolerances, stated per test:
     of the reference's own bf16 gradient from it (bf16 has an 8-bit
     mantissa, and a small leaf such as an SSM's a_log carries bf16
     noise as large as itself); the step's grad norm rtol 1e-2;
-  * five `train` steps on the same batches: losses rtol 2e-3.
+  * five `train` steps on the same batches: losses rtol 2e-3;
+  * `launch.train --mesh 2x1` / `1x2` on two gloo ranks against the
+    one-device run: the printed (4-decimal) losses within 5e-4 (bf16
+    steps whose sharded reductions add in another order), the saved
+    parameters within 1e-3 (AdamW's first steps move a weight by about
+    lr = 3e-4 each, whatever the gradient's size, so a near-zero
+    gradient that changes sign moves it the other way).
 """
 
 import json
+import os
+import re
+import subprocess
 import sys
 
 import jax
@@ -44,17 +53,20 @@ from repro.training import checkpoint as jckpt
 from repro.training import loop as jloop
 from repro.training import optimizer as jopt
 from repro_torch.bridge import opt_state_from_numpy, params_from_numpy
+from repro_torch.configs import get_config as tget_config
 from repro_torch.data import pipeline as tdata
 from repro_torch.examples import train_ee
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import model as TM
+from repro_torch.models.param import materialize as tmaterialize
 from repro_torch.models.param import tree_leaves, tree_map
 from repro_torch.training import checkpoint as tckpt
 from repro_torch.training import loop as tloop
 from repro_torch.training import optimizer as topt
 
 ARCHS = ("paper-ee-100m", "mamba2-130m")
+SRC_DIR = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
 def _np(tree):
@@ -562,7 +574,7 @@ def test_launch_train_on_cpu_then_serve_its_checkpoint(tmp_path, capsys):
 
 
 def test_launchers_refuse_what_they_cannot_do(tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="A10"):
+    with pytest.raises(SystemExit, match="torch.distributed.run"):
         tlaunch.main(["--smoke", "--device", "cpu", "--mesh", "2x1"])
     cfg = get_config("paper-ee-100m", smoke=True)
     params = _np(materialize(JM.model_defs(cfg), jax.random.PRNGKey(0)))
@@ -634,3 +646,96 @@ def test_launchers_serve_the_same_checkpoint(tmp_path, monkeypatch):
     # the threshold splits the tokens between the two nodes
     means = {r["mean_served_node"] for r in ref}
     assert min(means) < 1.0
+
+
+# ---- launch.train --mesh on two gloo ranks -----------------------------------
+
+MESH_STEPS, MESH_LR = 4, 3e-4
+MESH_ARGV = ["--smoke", "--device", "cpu", "--steps", str(MESH_STEPS),
+             "--seq", "64", "--batch", "4", "--log-every", "1", "--lr",
+             str(MESH_LR)]
+
+
+def _logged_losses(text):
+    return [float(x) for x in re.findall(r"^step +\d+ loss (\S+)", text,
+                                         re.M)]
+
+
+@pytest.fixture(scope="module")
+def one_device_run(tmp_path_factory):
+    """The 1x1 run's logged losses, its last checkpoint, and the
+    parameters it started from (the launcher's seed-0 materialize)."""
+    torch.set_num_threads(2)
+    path = tmp_path_factory.mktemp("mesh1x1")
+    hist = tlaunch.main(MESH_ARGV + ["--ckpt-dir", str(path)])
+    cfg = tget_config("paper-ee-100m", smoke=True)
+    p0 = tmaterialize(TM.model_defs(cfg), torch.Generator().manual_seed(0),
+                      torch.device("cpu"))
+    return ([h["loss"] for h in hist],
+            str(path / f"state_{MESH_STEPS}.ckpt"), _np(p0))
+
+
+def _update_agreement(got, want, p0, lr):
+    """Over the entries the one-device run moved by lr/2 or more: the
+    share whose update (p - p0) in ``got`` is within lr/10 of the
+    one-device update, over the whole tree and the least of any leaf."""
+    ok = n = 0
+    least = 1.0
+    for g, w, p in zip(tree_leaves(got), tree_leaves(want), tree_leaves(p0)):
+        moved = np.abs(w - p) >= lr / 2
+        good = (np.abs((g - p) - (w - p)) <= lr / 10)[moved]
+        ok, n = ok + good.sum(), n + moved.sum()
+        if moved.any():
+            least = min(least, good.mean())
+    return ok / n, least
+
+
+def test_launch_train_mesh_without_torchrun_raises(monkeypatch):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="--nproc-per-node 2 -m "
+                                         "repro_torch.launch.train"):
+        tlaunch.main(MESH_ARGV + ["--mesh", "2x1"])
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "1x2"])
+def test_launch_train_mesh_matches_one_device(one_device_run, mesh,
+                                              tmp_path):
+    """Two gloo ranks under torch.distributed.run: parameters and moments
+    sharded by FSDP_TRAIN_RULES (and the batch over "data" at 2x1) train
+    as the one-device run does; the gathered checkpoint loads in both
+    packages; no op fell back to replicated operands.
+
+    Four steps at lr 3e-4 (warm-up 1): every logged loss, steps 2 and 3
+    after one and two updates included, within 5e-4 of the 1x1 run's
+    (its 4-decimal print).  And the updates themselves: of the entries
+    the 1x1 run moved by lr/2 or more (AdamW moves an entry about lr a
+    step), at least 98% in all and 90% of every leaf moved within lr/10
+    of the 1x1 update.  Not all: the step runs in bf16, so the two runs'
+    reduction orders part the sign of some near-zero gradients, and
+    Adam's normalized step turns such a flip into a move of up to 2 lr
+    a step (measured: 99.5-99.7% in all, 98.2% the least leaf).  A run
+    that applied no update agrees on none of them, one that trained on
+    half the batch on far fewer."""
+    losses, ckpt_1x1, p0 = one_device_run
+    env = dict(os.environ, PYTHONPATH=SRC_DIR)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         *MESH_ARGV, "--mesh", mesh, "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = _logged_losses(out.stdout)
+    assert len(got) == MESH_STEPS, out.stdout
+    # every op of this model has a DTensor strategy: none ran replicated
+    assert "replicated ops" not in out.stdout, out.stdout
+    np.testing.assert_allclose(got, [round(x, 4) for x in losses],
+                               rtol=0, atol=5e-4)
+    path = str(tmp_path / f"state_{MESH_STEPS}.ckpt")
+    want = _np(tckpt.load(ckpt_1x1)[0]["params"])
+    for tree in (tckpt.load(path)[0], jckpt.load(path)[0]):
+        a = _np(tree["params"])
+        for x, y in zip(tree_leaves(a), tree_leaves(want)):
+            assert x.shape == y.shape and x.dtype == y.dtype
+        share, least = _update_agreement(a, want, p0, MESH_LR)
+        assert share >= 0.98 and least >= 0.9, (share, least)
