@@ -39,7 +39,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      24, 2, 128) with its 4096-token window, (512, 64, 40, 8, 128)),
      and hymba-1.5b's calibration, admission and a 2048-token prompt
      past its window ((512 | 1, 64 | 32 | 2048, 25, 5, 64), window
-     1024), atol = rtol = 1e-4 (f32 sums in another order); bellman_backup at
+     1024), head_dims 24 and 48 at S in {1, 63, 65, 129} and the
+     skip-cascade example's three prefills ((2000, 24, 4, 4, 24 | 48 |
+     64)), atol = rtol = 1e-4 (f32 sums in another order); bellman_backup at
      K = 24 and 64 on row-stochastic transitions, atol = rtol = 1e-5,
      and the whole solve in one launch (n = 6 at K = 24, n = 13 at K =
      64) within 1e-5 of its plain
@@ -282,6 +284,19 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      3-5 run under torch.profiler (device busy, idle share against the
      p50 step, device ops, top device and host ops a step) and are left
      out of the step times;
+  7b. runs the four examples of ``repro_torch.examples`` on the card
+     (``phase_examples``), each beside the same example with its kernel
+     routes off on the card: quickstart (the line solve through the
+     Bellman kernel), forest_cascade (numpy), skip_cascade (its three
+     models' prefills through flash at head_dims 24, 48, 64) and
+     serve_cascade at full width (paper-ee-100m trained 80 steps, 24
+     tokens; calibration and engine prefills through flash, the line
+     solve through Bellman; the kernel-free run serves the trained
+     weights) — objectives and probe rates within 1e-5, tokens, served
+     nodes and segment counts EQUAL; prints each example's wall time
+     and numbers, serve_cascade's tok/s, lane-segments saved, served-node
+     mean and token agreement per strategy, and counts each example's
+     launches (``example_*`` paths of the ``kernels`` line);
   8. counts work with ``launch.op_cost`` (``phase_op_cost``): full-width
      qwen3-4b's prefill of 1 x 4096 tokens, plain and through the
      flash kernel (its 36 launches counted as kernel records: operand
@@ -307,7 +322,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      runs — ``timed_cases`` holds every case of a kernel timed at more
      than one, ``resources`` what the runtime reported; the object also
      carries ``launch_floor_ms``, the training run's numbers,
-     ``train``, and ``op_cost``'s), the card line, and last ``{"ok":
+     ``train``, the examples' (``examples``) and ``op_cost``'s), the
+     card line, and last ``{"ok":
      true, "device": {...}}``.
 
 It exits nonzero, printing no result, when CUDA is not available, when
@@ -352,6 +368,9 @@ from repro_torch.kernels import (bellman_backup,              # noqa: E402
                                  paged_prefill, paged_prefill_plain,
                                  ramp_exit, ramp_exit_plain, ssd_chunk,
                                  ssd_chunk_plain)
+from repro_torch.examples import (forest_cascade,            # noqa: E402
+                                  quickstart, serve_cascade,
+                                  skip_cascade)
 from repro_torch.launch import op_cost, serve                 # noqa: E402
 from repro_torch.launch.flops import model_flops              # noqa: E402
 from repro_torch.launch.shapes import SHAPES, cache_len_for   # noqa: E402
@@ -799,12 +818,22 @@ FLASH_CASES = [("calibration", (512, 64, 12, 12, 64, None)),
     # past the window
     ("hymba-calibration", (512, 64, 25, 5, 64, HYMBA_WINDOW)),
     ("hymba-admission", (1, 32, 25, 5, 64, HYMBA_WINDOW)),
-    ("hymba-past-window", (1, 2048, 25, 5, 64, HYMBA_WINDOW))]
+    ("hymba-past-window", (1, 2048, 25, 5, 64, HYMBA_WINDOW))] + [
+    # the head dims of the skip-cascade example's models (24 and 48: not
+    # multiples of 16) at the 64-row tile's edges, then its three
+    # models' prefills of the 2000 x 24 query stream (4 heads of 24, 48,
+    # 64)
+    (f"s{s}-hd{hd}", (2, s, 4, 2, hd, 24 if s > 64 else None))
+    for s in (1, 63, 65, 129) for hd in (24, 48)] + [
+    (f"skip-cascade-{i}", (skip_cascade.T, skip_cascade.SEQ, 4, 4,
+                           c.segments[0].block.attn.head_dim, None))
+    for i, c in enumerate(skip_cascade.make_family())]
 # timed beside SDPA(is_causal=True): each prompt fits its window, so
 # that call computes the same function
 FLASH_TIMED = ("calibration", "ring-admission", "qwen3-4b-calibration",
                "starcoder2-3b-calibration", "qwen3-14b-calibration",
-               "hymba-calibration", "hymba-admission")
+               "hymba-calibration", "hymba-admission", "skip-cascade-0",
+               "skip-cascade-1")
 
 
 def flash_case(seed, b, s, h, hkv, hd, window):
@@ -3668,6 +3697,160 @@ def phase_train(init_stats, steps=TRAIN_STEPS):
     return by_path, summary
 
 
+# ---- the examples (repro_torch.examples) on the card -------------------
+
+TOL_EXAMPLE = 1e-5   # objectives, probe rates: kernel routes vs plain
+EXAMPLE_MUST = {"quickstart": ("bellman_backup",),
+                "forest_cascade": (),
+                "skip_cascade": ("flash_attention",),
+                "serve_cascade": ("flash_attention", "bellman_backup")}
+SERVE_CASCADE_TRAIN, SERVE_CASCADE_TOKENS = 80, 24   # the reference's
+
+
+def _example_run(name, fn):
+    """``fn()`` with every launch counter zeroed just before and read
+    just after; the kernels the example does not run must not launch.
+    Returns (result, launches, wall seconds)."""
+    for kern in KERNELS.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    for k, n in launches.items():
+        if (n > 0) != (k in EXAMPLE_MUST[name]):
+            raise SystemExit(f"example [{name}]: {k} launched {n} times "
+                             f"(must {'' if k in EXAMPLE_MUST[name] else 'not '}"
+                             f"launch)")
+    return out, launches, wall
+
+
+def _close(name, what, a, b):
+    """a and b (numbers or lists of them) within TOL_EXAMPLE."""
+    err = float(np.max(np.abs(np.asarray(a, np.float64)
+                              - np.asarray(b, np.float64))))
+    if not err <= TOL_EXAMPLE:
+        raise SystemExit(f"example [{name}]: {what} {a} through the "
+                         f"kernels, {b} without them (|diff| {err:.3e} > "
+                         f"{TOL_EXAMPLE})")
+    return err
+
+
+def phase_examples(card) -> dict:
+    """The four examples (``repro_torch.examples``) on the card, each
+    against the same example with its kernel routes off on the card:
+    quickstart (20 000 x 8 traces, K 32; the line solve through the
+    Bellman kernel), forest_cascade (numpy: no kernel), skip_cascade
+    (2 x 96, 2 x 192, 4 x 256 on a 2000 x 24 query stream; the three
+    prefills through flash at head_dims 24, 48 and 64) and serve_cascade
+    at full width (paper-ee-100m, 80 training steps, 24 tokens, the
+    calibration and the engine's prefills through flash, the line solve
+    through Bellman; the kernel-free run serves the trained weights).
+    Objectives and probe rates within TOL_EXAMPLE, tokens and served
+    nodes EQUAL.  Returns each example's launches (its kernel-route run
+    only)."""
+    by_path, res = {}, {}
+    q, by_path["example_quickstart"], wall = _example_run(
+        "quickstart", lambda: quickstart.main(["--device", "cuda"]))
+    q0 = quickstart.main(["--device", "cuda"], kernels=False)
+    errs = [_close("quickstart", "online optimum", q["optimum"],
+                   q0["optimum"])]
+    for n, row in q["strategies"].items():
+        errs += [_close("quickstart", f"{n} {f}", row[f],
+                        q0["strategies"][n][f]) for f in row]
+    log(f"example [quickstart] ({card}): {wall:.2f} s with the kernel "
+        f"route; online optimum {q['optimum']:.6f}; "
+        + "; ".join(f"{n}: objective {r['objective']:.6f}, explored "
+                    f"{r['explored']:.4f}, served node "
+                    f"{r['served_node']:.4f}"
+                    for n, r in q["strategies"].items())
+        + f"; T-Tamer {q['better_than_threshold_pct']:.2f}% better than "
+        f"the best threshold; launches {by_path['example_quickstart']}; "
+        f"without the kernels within {max(errs):.3e}")
+    res["quickstart"] = dict(wall_s=wall, optimum=q["optimum"],
+                             better_pct=q["better_than_threshold_pct"])
+
+    f, by_path["example_forest_cascade"], wall = _example_run(
+        "forest_cascade", lambda: forest_cascade.main(["--device", "cuda"]))
+    if not f["gap"] <= 1e-9:
+        raise SystemExit(f"example [forest_cascade]: the index policy is "
+                         f"{f['gap']:.3e} from the expectimax optimum")
+    log(f"example [forest_cascade] ({card}): {wall:.2f} s (numpy, no "
+        f"kernel); expectimax {f['expectimax']:.6f}, index policy "
+        f"{f['index_policy']:.6f} (gap {f['gap']:.2e}), simulated "
+        f"{f['simulated']:.6f} with {f['mean_probed']:.4f} of "
+        f"{f['n_nodes']} nodes probed")
+    res["forest_cascade"] = dict(wall_s=wall, expectimax=f["expectimax"],
+                                 simulated=f["simulated"])
+
+    k, by_path["example_skip_cascade"], wall = _example_run(
+        "skip_cascade", lambda: skip_cascade.main(["--device", "cuda"]))
+    k0 = skip_cascade.main(["--device", "cuda"], kernels=False)
+    errs = [_close("skip_cascade", "raw model losses", k["raw_losses"],
+                   k0["raw_losses"])]
+    for fld in ("skip_value", "objective", "mean_probed", "probe_rates",
+                "skip_fraction", "line_value"):
+        errs.append(_close("skip_cascade", fld, k[fld], k0[fld]))
+    log(f"example [skip_cascade] ({card}): {wall:.2f} s with the flash "
+        f"route; skip optimum {k['skip_value']:.6f}, eval objective "
+        f"{k['objective']:.6f} with {k['mean_probed']:.4f} models probed, "
+        f"probe rates {[round(r, 4) for r in k['probe_rates']]}, small -> "
+        f"large {k['skip_fraction']:.4f}, strict line "
+        f"{k['line_value']:.6f}; launches "
+        f"{by_path['example_skip_cascade']}; without the kernels within "
+        f"{max(errs):.3e}")
+    res["skip_cascade"] = dict(wall_s=wall, objective=k["objective"],
+                               probe_rates=k["probe_rates"])
+
+    cfg = get_config("paper-ee-100m")
+    v, by_path["example_serve_cascade"], wall = _example_run(
+        "serve_cascade", lambda: serve_cascade.run(
+            cfg, train_steps=SERVE_CASCADE_TRAIN,
+            tokens=SERVE_CASCADE_TOKENS, device="cuda"))
+    v0 = serve_cascade.run(cfg, train_steps=None,
+                           tokens=SERVE_CASCADE_TOKENS, device="cuda",
+                           kernels=False, params=v["params"])
+    errs = [_close("serve_cascade", "optimal objective", v["objective"],
+                   v0["objective"])]
+    for name in serve_cascade.STRATEGIES:
+        a, b = v["stats"][name], v0["stats"][name]
+        if not (np.array_equal(a.tokens, b.tokens)
+                and np.array_equal(a.served_nodes, b.served_nodes)
+                and (a.segments_run_batch, a.segments_run_policy)
+                == (b.segments_run_batch, b.segments_run_policy)):
+            raise SystemExit(f"example [serve_cascade]: {name} serves "
+                             f"other tokens, nodes or segments through "
+                             f"the kernels than without them")
+    hist = np.bincount(v["stats"]["T-Tamer recall"].served_nodes.ravel(),
+                       minlength=v["nodes"]).tolist()
+    log(f"example [serve_cascade] ({card}): {cfg.name} ({cfg.n_layers} "
+        f"layers, d {cfg.d_model}, V {cfg.vocab}, {v['nodes']} nodes), "
+        f"{wall:.2f} s with the kernel routes (training "
+        f"{SERVE_CASCADE_TRAIN} steps included): loss {v['loss'][0]:.4f} "
+        f"-> {v['loss'][1]:.4f}, optimal objective {v['objective']:.6f}; "
+        + "; ".join(f"{n}: {r['tok_s']:.1f} tok/s, lane-segments saved "
+                    f"{100 * r['lane_segments_saved']:.1f}%, served-node "
+                    f"mean {r['served_node_mean']:.4f}"
+                    + (f", token agreement with full depth "
+                       f"{100 * v['agreement'][n]:.1f}%"
+                       if n in v["agreement"] else "")
+                    for n, r in v["served"].items())
+        + f"; recall_index served-node histogram {hist}; launches "
+        f"{by_path['example_serve_cascade']}; without the kernels: "
+        f"objective within {max(errs):.3e}, tokens, served nodes and "
+        f"segment counts EQUAL for all {len(serve_cascade.STRATEGIES)} "
+        f"strategies")
+    res["serve_cascade"] = dict(
+        wall_s=wall, objective=v["objective"], loss=list(v["loss"]),
+        served={n: dict(r) for n, r in v["served"].items()},
+        agreement=v["agreement"])
+    del v, v0
+    torch.cuda.empty_cache()
+    return by_path, res
+
+
 # ---- the mesh tooling: op-cost counts on the card, the dry run ----------
 
 OP_COST_ARCH = "qwen3-4b"
@@ -3960,6 +4143,9 @@ def main() -> None:
     train_paths, train = phase_train(init_stats)
     by_path.update(train_paths)
     lap("training")
+    example_paths, examples = phase_examples(card)
+    by_path.update(example_paths)
+    lap("examples")
     counted = phase_op_cost(card)
     lap("op_cost")
     phase_dryrun()
@@ -3981,7 +4167,8 @@ def main() -> None:
         kernels.append(row)
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor,
-                      "train": train, "op_cost": counted}))
+                      "train": train, "examples": examples,
+                      "op_cost": counted}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

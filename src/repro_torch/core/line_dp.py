@@ -29,7 +29,7 @@ from repro_torch.kernels.bellman_backup import (bellman_solve,
                                                 bellman_solve_plain)
 
 __all__ = ["LineTables", "solve_line", "suffix_tables", "x_values",
-           "INF_SENTINEL_MULT"]
+           "x_index_of_bin", "INF_SENTINEL_MULT"]
 
 INF_SENTINEL_MULT = 1e4  # sentinel = grid[-1]*MULT + MULT (finite "+inf")
 
@@ -38,6 +38,11 @@ def x_values(grid: torch.Tensor) -> torch.Tensor:
     """(K+2,) X axis: [0, v_1..v_K, INF-sentinel]."""
     big = grid[-1:] * INF_SENTINEL_MULT + INF_SENTINEL_MULT
     return torch.cat([torch.zeros_like(grid[:1]), grid, big])
+
+
+def x_index_of_bin(bins: torch.Tensor) -> torch.Tensor:
+    """Map a loss bin (0..K-1) to its X-axis index (1..K)."""
+    return bins + 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,6 +41,17 @@ class Support:
         """Sentinel bin index representing X = +inf."""
         return self.size
 
+    def values_with_inf(self) -> torch.Tensor:
+        """(K+1,) grid extended with a large-but-finite sentinel for X=inf.
+
+        The sentinel only ever appears as a stopping value before any node
+        was probed, which the optimal policy never chooses (it must serve
+        some model), so any value strictly above ``grid[-1] + sum(costs)``
+        is equivalent to +inf; a large multiple of the top grid value
+        stays finite in f32.
+        """
+        return torch.cat([self.grid, self.grid[-1:] * 1e4 + 1e4])
+
     def to(self, device) -> "Support":
         return Support(grid=self.grid.to(device), edges=self.edges.to(device))
 

@@ -41,7 +41,10 @@
 //   * O += P V: the thread accumulates its 4 rows x output dims
 //     tx + 16i (i < hd / 16), reading P as float4 over keys (a
 //     broadcast in its half warp) and V rows as neighbouring words:
-//     (4 + hd / 16) words per 4 hd / 16 FMAs.
+//     (4 + hd / 16) words per 4 hd / 16 FMAs.  At a head dim that is
+//     not a multiple of 16 (24: the small models of the skip-cascade
+//     example) the last i runs on the lanes with tx + 16i < hd only;
+//     the other instances compile without that test.
 // The masked half of the diagonal tile is skipped by 16-key sub-tiles:
 // a warp holds 8 neighbouring rows, and a sub-tile wholly above its
 // last row (or, with a window, wholly left of its first row's window)
@@ -134,7 +137,8 @@ flash_attention_kernel(const float* __restrict__ q,
                        long long k_sh, long long v_sb, long long v_ss,
                        long long v_sh, float scale, int window) {
   using L = Layout<HD>;
-  constexpr int DPT = HD / 16;                  // output dims per thread
+  constexpr int DPT = (HD + 15) / 16;           // output dims per thread
+  constexpr bool kWhole = HD % 16 == 0;         // every lane owns DPT dims
   extern __shared__ float4 smem4[];             // 16-byte aligned
   float* qs = reinterpret_cast<float*>(smem4);  // [kRows][kLd]
   float* ps = qs + L::kQ;                       // [kRows][kLdP]
@@ -281,7 +285,8 @@ flash_attention_kernel(const float* __restrict__ q,
           const float* vrow = vs + (jj + u) * HD + tx;
 #pragma unroll
           for (int i = 0; i < DPT; ++i) {
-            const float vv = vrow[16 * i];
+            const float vv =
+                kWhole || tx + 16 * i < HD ? vrow[16 * i] : 0.f;
 #pragma unroll
             for (int r = 0; r < 4; ++r)
               acc[r][i] = fmaf(comp(pv[r], u), vv, acc[r][i]);
@@ -299,7 +304,8 @@ flash_attention_kernel(const float* __restrict__ q,
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     float* orow = out + (((long long)b * S + qi) * H + h) * HD + tx;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) orow[16 * i] = acc[r][i] * inv;
+    for (int i = 0; i < DPT; ++i)
+      if (kWhole || tx + 16 * i < HD) orow[16 * i] = acc[r][i] * inv;
   }
 }
 
@@ -351,8 +357,8 @@ int info(int S, int* out) {
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = success).  hd must be 32,
-// 64, 96 or 128 and H a multiple of Hkv; window <= 0 means none.
+// Returns the cudaError_t of the launch (0 = success).  hd must be 24,
+// 32, 48, 64, 96 or 128 and H a multiple of Hkv; window <= 0 means none.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int H, int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh,
@@ -366,8 +372,14 @@ extern "C" int repro_flash_attention(
   auto vf = static_cast<const float*>(v);
   auto of = static_cast<float*>(out);
   switch (hd) {
+    case 24:
+      return launch<24>(B, S, H, Hkv, qf, kf, vf, of, q_sb, q_ss, q_sh, k_sb,
+                        k_ss, k_sh, v_sb, v_ss, v_sh, scale, window, st);
     case 32:
       return launch<32>(B, S, H, Hkv, qf, kf, vf, of, q_sb, q_ss, q_sh, k_sb,
+                        k_ss, k_sh, v_sb, v_ss, v_sh, scale, window, st);
+    case 48:
+      return launch<48>(B, S, H, Hkv, qf, kf, vf, of, q_sb, q_ss, q_sh, k_sb,
                         k_ss, k_sh, v_sb, v_ss, v_sh, scale, window, st);
     case 64:
       return launch<64>(B, S, H, Hkv, qf, kf, vf, of, q_sb, q_ss, q_sh, k_sb,
@@ -390,7 +402,9 @@ extern "C" int repro_flash_attention(
 // cudaError_t.
 extern "C" int repro_flash_attention_info(int hd, int S, int* out) {
   switch (hd) {
+    case 24: return info<24>(S, out);
     case 32: return info<32>(S, out);
+    case 48: return info<48>(S, out);
     case 64: return info<64>(S, out);
     case 96: return info<96>(S, out);
     case 128: return info<128>(S, out);

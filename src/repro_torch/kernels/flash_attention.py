@@ -34,7 +34,7 @@ from repro_torch.kernels import build
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
            "kernel_info"]
 
-HEAD_DIMS = (32, 64, 96, 128)      # the kernel's template instances
+HEAD_DIMS = (24, 32, 48, 64, 96, 128)   # the kernel's template instances
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float

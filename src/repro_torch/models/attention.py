@@ -68,8 +68,9 @@ from repro_torch.models.config import AttnConfig
 from repro_torch.models.param import ParamDef
 from repro_torch.models.quant import (dequantize_rows, int8_enabled,
                                       quantize_rows)
-from repro_torch.sharding.ctx import (dtensor_mesh, scatter_rows_,
-                                     sdpa_sharded)
+from repro_torch.sharding.ctx import (dtensor_mesh, kv_heads,
+                                     scatter_rows_, sdpa_sharded,
+                                     split_heads)
 
 __all__ = ["attn_defs", "attn_forward", "attn_decode",
            "attn_prefill_chunk", "init_cache_defs", "PagedKV",
@@ -208,10 +209,6 @@ def _read_kv(cache: dict, name: str, dtype, index=None) -> torch.Tensor:
             else cache[name + "_s"][index]
         return dequantize_rows(x, s, dtype)
     return x.to(dtype)
-
-
-def _split_heads(x, n_heads, head_dim):
-    return x.reshape(*x.shape[:-1], n_heads, head_dim)
 
 
 def _scale(cfg: AttnConfig) -> float:
@@ -359,9 +356,9 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     if cfg.mla is not None:
         return _mla_forward(p, x, positions, cfg, eps)
     b, s, _ = x.shape
-    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
-    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim, True)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim, True)
     q, k = _qk_norm(p, q, k, cfg, eps)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     q = rope(q, cos, sin)
@@ -376,7 +373,8 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
         mask = causal_mask(positions, positions, cfg.window)
         out = _sdpa(q, k, v, mask, _scale(cfg))
     y = out.reshape(b, s, -1) @ p["wo"]
-    return y, {"k": k, "v": v}
+    return y, {"k": kv_heads(k, cfg.n_kv_heads),
+               "v": kv_heads(v, cfg.n_kv_heads)}
 
 
 # Paged attention implementation: the page-table gather + _sdpa (off,
@@ -404,12 +402,13 @@ def _gqa_qkv_decode(p: dict, x: torch.Tensor, pos: torch.Tensor,
                     cfg: AttnConfig, eps: float):
     """The new token's q/k/v (+ qk-norm + rope).  x (B,1,D) -> q/k/v
     (B,1,H*,hd)."""
-    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
-    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim, True)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim, True)
     q, k = _qk_norm(p, q, k, cfg, eps)
     cos, sin = rope_cos_sin(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    return rope(q, cos, sin), rope(k, cos, sin), v
+    return (rope(q, cos, sin), kv_heads(rope(k, cos, sin), cfg.n_kv_heads),
+            kv_heads(v, cfg.n_kv_heads))
 
 
 def _gather_pages(cache: dict, table: torch.Tensor, dtype):
@@ -482,9 +481,9 @@ def attn_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
             "must admit through the whole-prompt prefill path")
     b, c, _ = x.shape
     rpos = torch.clamp(chunk.pos, min=0)       # rope of pad rows: masked
-    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
-    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim, True)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim, True)
     q, k = _qk_norm(p, q, k, cfg, eps)
     cos, sin = rope_cos_sin(rpos, cfg.head_dim, cfg.rope_theta)
     q = rope(q, cos, sin)

@@ -43,7 +43,7 @@ from repro_torch.models.common import embed_def, rms_norm, rms_norm_def
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamDef, tree_leaves, tree_map
 from repro_torch.sharding.ctx import (constrain_batch, embed_rows,
-                                     reduce_partial)
+                                     max_softmax, reduce_partial)
 
 __all__ = ["model_defs", "forward_train", "prefill", "decode_step",
            "decode_segment", "prefill_chunk_segment", "cache_specs",
@@ -102,8 +102,7 @@ def ramp_readout(params, cfg: ModelConfig, h: torch.Tensor,
     -> the final head norm).  Returns ``(logits (..., V), ell (...))``.
     """
     logits = readout_logits(params, cfg, h, segment)
-    p = torch.softmax(logits.float(), dim=-1)
-    return logits, 1.0 - p.amax(dim=-1)
+    return logits, 1.0 - max_softmax(logits.float())
 
 
 def readout_logits(params, cfg: ModelConfig, h: torch.Tensor,

@@ -28,6 +28,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import prefix_sum, ssd_chunk
 from repro_torch.models.common import rms_norm
 from repro_torch.models.config import SSMConfig
+from repro_torch.sharding.ctx import (dtensor_mesh, local_shard,
+                                     reduce_partial, split_heads)
 from repro_torch.models.param import ParamDef
 
 __all__ = ["ssm_defs", "ssm_forward", "ssm_decode", "ssm_state_defs",
@@ -70,13 +72,39 @@ def ssm_state_defs(cfg: SSMConfig, d_model: int, batch: int) -> dict:
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along seq, then SiLU.  x (B,S,C), w (K,C),
-    b (C): out[t] = sum_k x[t + k - (K-1)] * w[k]."""
+    b (C): out[t] = sum_k x[t + k - (K-1)] * w[k].  A DTensor x whose
+    seq dim is whole convolves each device's own rows and channels
+    (`_conv_shard`)."""
+    if dtensor_mesh(x) is not None:
+        return _conv_shard(x, w, b)
     k, s = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = xp[:, 0:s] * w[0]
     for i in range(1, k):
         out = out + xp[:, i:i + s] * w[i]
     return F.silu(out + b)
+
+
+def _conv_shard(x, w, b):
+    """`_causal_conv` of a DTensor x on its local tensor: the conv mixes
+    no channels, so a device needs the weights of its own channels only
+    (w and b are redistributed to x's channel placements) and, its seq
+    dim whole, no other device's rows; the result keeps x's
+    placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    x = reduce_partial(x)
+    if any(p.is_shard(1) for p in x.placements):
+        x = x.redistribute(mesh, tuple(Replicate() if p.is_shard(1) else p
+                                       for p in x.placements))
+    chan = [Shard(1) if p.is_shard(2) else Replicate() for p in x.placements]
+    wl = local_shard(w, mesh, chan)
+    bl = local_shard(b, mesh, [Shard(0) if p.is_shard(1) else Replicate()
+                               for p in chan])
+    out = _causal_conv(x.to_local(), wl, bl)
+    return DTensor.from_local(out, mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -156,7 +184,7 @@ def _heads(t: torch.Tensor, cfg: SSMConfig, h: int) -> torch.Tensor:
     """(..., G*N) group projections -> (..., H, N), head j reading group
     j // (H/G); a stride-0 view when there is one group."""
     g, n = cfg.n_groups, cfg.d_state
-    t = t.reshape(*t.shape[:-1], g, 1, n)
+    t = split_heads(t, g, n)[..., None, :]
     t = t.expand(*t.shape[:-2], h // g, n)
     return t.reshape(*t.shape[:-3], h, n)
 
@@ -182,7 +210,7 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: SSMConfig,
         dt = F.pad(dt, (0, 0, 0, pad))
     sp = s + pad
     xs, bb, cc = torch.split(xbc, [di, gn, gn], dim=-1)
-    xh = xs.reshape(b, sp, h, cfg.head_dim)
+    xh = split_heads(xs, h, cfg.head_dim)
     y, final = ssd_chunked(xh, dt, a, _heads(bb, cfg, h), _heads(cc, cfg, h),
                            cfg.chunk, use_kernel=use_kernel,
                            q_valid=cfg.chunk - pad if pad else None)

@@ -522,16 +522,20 @@ class Server:
         return wake
 
     # ---- the loop ------------------------------------------------------
-    def serve(self, requests) -> RuntimeMetrics:
+    def serve(self, requests, warmup: bool = True) -> RuntimeMetrics:
         """Run the full open-loop session: admit every request at its
         arrival time, decode until all streams drain, return metrics.
 
-        The stepper runs once before the serving clock starts (on the
-        card this builds and loads the kernels), so wall-clock latency
-        percentiles measure serving."""
+        ``warmup`` runs the stepper once before the serving clock starts
+        (on the card this builds and loads the kernels), so wall-clock
+        latency percentiles measure serving; without it the stepper's
+        lane state is only allocated."""
         sched = self.scheduler
         stepper = self.stepper
-        stepper.warmup()
+        if warmup:
+            stepper.warmup()
+        else:
+            stepper.alloc()
         metrics = RuntimeMetrics(stepper.full_depth, sched.n_lanes)
         if self.controller is not None:
             self.controller.begin(metrics, stepper)

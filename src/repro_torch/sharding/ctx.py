@@ -8,7 +8,9 @@ expert dims).  Outside a launcher, and on any tensor that is not a
 DTensor, both return their input itself, so the plain paths see no
 change at all; so does `reduce_partial`.  `embed_rows` is the
 embedding lookup and `scatter_rows_` the ring write, plain or shard by
-shard; `sdpa_sharded` is the attention of DTensors.  `ReplicateRefused`
+shard; `sdpa_sharded` is the attention of DTensors; `split_heads` /
+`kv_heads` the head split of a projection and its undoing, `max_softmax`
+the readout's largest probability, each shard-local.  `ReplicateRefused`
 is the dispatch mode under which a DTensor op that DTensor cannot shard
 runs on replicated operands (the dry run and ``launch.train --mesh``).
 """
@@ -17,14 +19,15 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["activation_sharding", "constrain_batch", "constrain_expert",
            "dtensor_mesh", "local_shard", "shard_offset", "reduce_partial",
-           "embed_rows", "scatter_rows_", "sdpa_sharded",
-           "ReplicateRefused"]
+           "embed_rows", "scatter_rows_", "sdpa_sharded", "split_heads",
+           "kv_heads", "max_softmax", "ReplicateRefused"]
 
 _BATCH_AXES: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_batch_axes", default=None)
@@ -159,7 +162,7 @@ def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     mesh = dtensor_mesh(table)
     if mesh is None:
         return table[ids]
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     ids_pl = ids.placements if dtensor_mesh(ids) is not None \
         else (Replicate(),) * mesh.ndim
@@ -178,10 +181,8 @@ def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     rows = loc_ids - shard_offset(table.shape, mesh, table.placements)[0]
     inside = ((rows >= 0) & (rows < loc.shape[0]))[..., None]
     out = torch.where(inside, loc[rows.clamp(0, loc.shape[0] - 1)], 0)
-    shape = tuple(ids.shape) + (table.shape[1],)
-    return reduce_partial(DTensor.from_local(
-        out, mesh, out_pl, run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(shape, device="meta").stride()))
+    return reduce_partial(_from_local(out, mesh, out_pl,
+                                      (*ids.shape, table.shape[1])))
 
 
 def scatter_rows_(buf: torch.Tensor, index: torch.Tensor,
@@ -228,6 +229,121 @@ def scatter_rows_(buf: torch.Tensor, index: torch.Tensor,
     return buf
 
 
+@functools.cache
+def _split_mesh_dim(mesh, md: int, sizes: tuple):
+    """``mesh`` with its dim ``md`` split into two dims of ``sizes`` (the
+    same ranks, the first factor outer; once a mesh, since the split
+    registers the two dims' names with it): a view whose two dims place
+    what one dim of ``mesh`` places, a factor each."""
+    name = mesh.mesh_dim_names[md]
+    names = (f"{name}_heads{sizes[0]}", f"{name}_part{sizes[1]}")
+    with _without_fake_mode():
+        return mesh._unflatten(md, sizes, names)
+
+
+def _from_local(t, mesh, placements, shape):
+    """The DTensor of global ``shape`` whose local tensor is ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    return DTensor.from_local(t, mesh, tuple(placements), run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def split_heads(x: torch.Tensor, n_heads: int, head_dim: int,
+                head_slots: bool = False):
+    """x (..., n_heads * head_dim) viewed as (..., n_heads, head_dim).
+
+    With ``head_slots`` (the kv heads of GQA attention), on a DTensor
+    whose last dim one mesh dim of n devices shards, with n a multiple
+    of ``n_heads`` that does not divide it (8 kv heads on a 16-way
+    axis), each device views its own shard as GSPMD's
+    ``n_heads x (n / n_heads)`` split places it: part ``rank % r`` of
+    head ``rank // r`` (r = n / n_heads); the r parts of a head are
+    all-gathered, so each device holds its head whole.  The result has
+    n head slots, slot j holding head ``j // r`` (its placements shard
+    the slots over that mesh dim): a GQA group of the n slots is a
+    group of query heads on one device, so attention reads it in place;
+    `kv_heads` gives the n_heads heads back.  Any other split that the
+    mesh cannot place (5 kv heads on 16) is viewed on the rows
+    all-gathered over the mesh dims that shard them; plain tensors and
+    even splits are reshaped."""
+    shape = (*x.shape[:-1], n_heads, head_dim)
+    mesh = dtensor_mesh(x)
+    if mesh is None:
+        return x.reshape(shape)
+    from torch.distributed.tensor import Replicate, Shard
+
+    x = reduce_partial(x)
+    last = x.ndim - 1
+    mds = [d for d, p in enumerate(x.placements) if p.is_shard(last)]
+    n = 1
+    for d in mds:
+        n *= mesh.size(d)
+    if n_heads % n == 0:
+        return x.reshape(shape)
+    if head_slots and len(mds) == 1 and n % n_heads == 0 \
+            and head_dim % (n // n_heads) == 0:
+        md, r = mds[0], n // n_heads
+        split = _split_mesh_dim(mesh, md, (n_heads, r))
+        outer = [p for d, p in enumerate(x.placements) if d != md]
+        pl = outer[:md] + [Shard(last), Shard(last + 1)] + outer[md:]
+        loc = x.to_local()
+        part = _from_local(loc.reshape(*loc.shape[:-1], 1, head_dim // r),
+                           split, pl, shape)
+        with _without_fake_mode():
+            whole = part.redistribute(
+                split, tuple(pl[:md + 1] + [Replicate()] + pl[md + 2:]))
+        slots = list(x.placements)
+        slots[md] = Shard(last)
+        return _from_local(whole.to_local(), mesh, slots,
+                           (*x.shape[:-1], n, head_dim))
+    with _without_fake_mode():
+        x = x.redistribute(mesh, tuple(Replicate() if d in mds else p
+                                       for d, p in enumerate(x.placements)))
+    return x.reshape(shape)
+
+
+def kv_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The ``n_heads`` heads of `split_heads`' head slots (x itself when
+    x already has them): each device's head is all-gathered with the
+    other heads over the mesh dim that shards the slots, so every device
+    of that dim holds all of them (what a ring write needs)."""
+    if x.shape[-2] == n_heads:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    dim = x.ndim - 2
+    md = next(d for d, p in enumerate(x.placements) if p.is_shard(dim))
+    r = x.shape[-2] // n_heads
+    split = _split_mesh_dim(mesh, md, (n_heads, r))
+    outer = [p for d, p in enumerate(x.placements) if d != md]
+    pl = outer[:md] + [Shard(dim), Replicate()] + outer[md:]
+    shape = (*x.shape[:-2], n_heads, x.shape[-1])
+    heads = _from_local(x.to_local(), split, pl, shape)
+    with _without_fake_mode():
+        heads = heads.redistribute(
+            split, tuple(pl[:md] + [Replicate()] + pl[md + 1:]))
+    out = list(x.placements)
+    out[md] = Replicate()
+    return _from_local(heads.to_local(), mesh, out, shape)
+
+
+def max_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """The largest probability of ``softmax(logits, -1)``.  On a DTensor
+    whose last dim (the vocab) is sharded it is ``1 / sum(exp(l - m))``
+    from the all-reduced max m and sum: the logits stay sharded."""
+    if dtensor_mesh(logits) is None or not any(
+            p.is_shard(logits.ndim - 1) for p in logits.placements):
+        return torch.softmax(logits, dim=-1).amax(dim=-1)
+    m = reduce_partial(logits.amax(dim=-1, keepdim=True))
+    total = reduce_partial(torch.exp(logits - m).sum(dim=-1))
+    return 1.0 / total
+
+
 def sdpa_sharded(q, k, v, mask, scale, scores, mix):
     """Attention on DTensors, each device on its own shards: ``scores(q,
     k, mask, scale)`` gives the masked f32 scores (B, Hkv, G, S, T) and
@@ -243,7 +359,7 @@ def sdpa_sharded(q, k, v, mask, scale, scores, mix):
     from a kv tensor sharded or replicated there).  Every other axis
     replicates.  The result keeps the batch and head placements."""
     import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
     b, s, h, _ = q.shape
@@ -296,13 +412,8 @@ def sdpa_sharded(q, k, v, mask, scale, scores, mix):
         out = mix((p / den).to(vl.dtype), vl)
         for d in t_dims:
             out = funcol.all_reduce(out, "sum", (mesh, d))
-    shape = (b, s, h, v.shape[-1])
     out_pl = tuple(p if p.is_shard() else Replicate() for p in q_pl)
-    return DTensor.from_local(out.contiguous(), mesh, out_pl,
-                              run_check=False,
-                              shape=torch.Size(shape),
-                              stride=torch.empty(shape,
-                                                 device="meta").stride())
+    return _from_local(out.contiguous(), mesh, out_pl, (b, s, h, v.shape[-1]))
 
 
 class ReplicateRefused(TorchDispatchMode):

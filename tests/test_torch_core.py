@@ -105,6 +105,27 @@ def test_suffix_tables_match(ee, start):
     np.testing.assert_allclose(tt.sigma.numpy(), np.asarray(jt.sigma), **TOL)
 
 
+def test_x_index_of_bin_matches():
+    bins = np.random.default_rng(5).integers(0, 24, (7, 9)).astype(np.int32)
+    got = line_dp.x_index_of_bin(torch.from_numpy(bins))
+    want = np.asarray(jline.x_index_of_bin(bins))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_values_with_inf_matches(ee):
+    losses, _, _ = ee
+    for k in (8, 32):
+        jc = jstrategy.Cascade.from_traces(losses, np.full(6, 0.01), k=k,
+                                           lam=0.6, solve=False)
+        tc = strategy.Cascade.from_traces(losses, np.full(6, 0.01), k=k,
+                                          lam=0.6, solve=False)
+        got = tc.support.values_with_inf()
+        assert got.shape == (k + 1,) and got.dtype == torch.float32
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jc.support.values_with_inf()))
+
+
 @pytest.mark.parametrize("ctor", ["edge_costs_skip_free",
                                      "edge_costs_cumulative"])
 def test_edge_costs_match(ctor):

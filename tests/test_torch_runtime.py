@@ -315,7 +315,8 @@ def _engine_requests(cls, cfg, n=6, seed=3):
             for rid in range(n)]
 
 
-def _engine_serve(rt, params, cfg, casc, requests, mode, eos=None):
+def _engine_serve(rt, params, cfg, casc, requests, mode, eos=None,
+                  warmup=True):
     bank, sid_of = rt.build_bank(requests, rt.cascade_factory(casc),
                                  ("recall_index", None))
     stepper = rt.EngineStepper(params, cfg, bank, n_lanes=2, cache_len=32,
@@ -336,7 +337,7 @@ def _engine_serve(rt, params, cfg, casc, requests, mode, eos=None):
     stepper.step = logged
     server = rt.Server(stepper, sched, sid_of, order=mode["order"],
                        slo=5.0, static_batching=mode["static"], eos=eos)
-    metrics = server.serve(requests)
+    metrics = server.serve(requests, warmup=warmup)
     return metrics, nodes
 
 
@@ -399,6 +400,28 @@ def test_engine_modes_serve_what_the_reference_serves(jx, engine_setup,
         order = [r.rid for r in sorted(tm.records.values(),
                                        key=lambda r: r.admitted)]
         assert order == [5, 4, 3, 2, 1, 0]
+
+
+def test_serve_without_warmup_serves_the_same_streams(jx, engine_setup):
+    """``Server.serve(warmup=False)`` only allocates the stepper's lane
+    state: the streams equal the warmed serve's and the reference's
+    ``serve(warmup=False)``'s."""
+    cfg, params, casc, tparams, tcasc = engine_setup
+    kw = {"order": "fifo", "static": False}
+    jm, jnodes = _engine_serve(jx.rt, params, cfg, casc,
+                               _engine_requests(jx.Request, cfg), kw,
+                               warmup=False)
+    runs = {}
+    with torch.no_grad():
+        for warm in (True, False):
+            runs[warm] = _engine_serve(trt, tparams, cfg, tcasc,
+                                       _engine_requests(TRequest, cfg), kw,
+                                       warmup=warm)
+    for rid, rec in jm.records.items():
+        for warm, (tm, tnodes) in runs.items():
+            assert tm.records[rid].tokens == rec.tokens, (rid, warm)
+            assert tnodes[rid] == jnodes[rid], (rid, warm)
+    assert runs[True][0].steps == runs[False][0].steps == jm.steps
 
 
 # --------------------------------------------------------------------------

@@ -671,7 +671,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "examples/train_ee", "configs/hymba_1_5b", "models/quant",
                 "launch/shapes", "launch/flops", "sharding/__init__",
                 "sharding/rules", "sharding/ctx", "launch/mesh",
-                "launch/op_cost", "launch/dryrun", "launch/diagnose"):
+                "launch/op_cost", "launch/dryrun", "launch/diagnose",
+                "examples/quickstart", "examples/forest_cascade",
+                "examples/skip_cascade", "examples/serve_cascade"):
         assert f"src/repro_torch/{mod}.py" in names
     bad = []
     for path in files:

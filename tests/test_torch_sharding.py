@@ -289,6 +289,7 @@ def test_meshes_need_a_world():
 DRYRUN = textwrap.dedent("""
     import json
     import torch
+    import torch.distributed._functional_collectives as funcol
     from repro_torch.launch import dryrun, op_cost
     from repro_torch.configs import ASSIGNED, get_config
     from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
@@ -319,13 +320,41 @@ DRYRUN = textwrap.dedent("""
             out["arg_bytes"][f"{arch}|{shape}"] = dryrun.local_bytes(args)
 
     # the wire of a full-width decode whose vocab shards over "model"
-    cost = dryrun.trace("qwen3-4b", "decode_32k", mesh, BASELINE_RULES)[0]
+    # (8 kv heads on the 16-way axis), the ops it ran replicated
+    cost, _, retried, _ = dryrun.trace("qwen3-4b", "decode_32k", mesh,
+                                       BASELINE_RULES)
     gathers = [r for r in cost.records if r["op"] == "all-gather"]
     out["decode_wire"] = [cost.wire_bytes,
                           max(r["bytes"] / r["count"] for r in gathers)]
+    out["decode_replicated"] = retried
+
+    # phi3.5-moe's prefill, cut to 32 x 256 tokens: each device's
+    # groups dispatched on the device
+    SHAPES["prefill_256"] = ShapeSpec("prefill_256", 256, 32, "prefill")
+    cost, _, retried, _ = dryrun.trace("phi3.5-moe-42b-a6.6b", "prefill_256",
+                                       mesh, BASELINE_RULES)
+    gathers = [r for r in cost.records if r["op"] == "all-gather"]
+    out["moe_prefill"] = [cost.wire_bytes, retried,
+                          max(r["bytes"] / r["count"] for r in gathers)]
+    # hymba-1.5b's, cut the same way: the SSM's causal conv on the device
+    cost, _, retried, _ = dryrun.trace("hymba-1.5b", "prefill_256", mesh,
+                                       BASELINE_RULES)
+    gathers = [r for r in cost.records if r["op"] == "all-gather"]
+    out["hybrid_prefill"] = [retried,
+                             max(r["bytes"] / r["count"] for r in gathers)]
+
+    # all-reduces over the "pod" dim and the "data" dim of the 512-rank
+    # mesh, counted from a DTensor on it (whose mesh names the pods)
+    from torch.distributed.tensor import DTensor, Replicate
+    with dryrun.fake_mode():
+        x = torch.empty(64, 32)
+    xd = DTensor.from_local(x, pod, (Replicate(),) * 3, run_check=False)
+    for axis in ("pod", "data"):
+        cost = op_cost.analyze(lambda t: funcol.all_reduce(
+            t.to_local(), "sum", pod.get_group(axis)), xd)
+        out[f"{axis}_all_reduce"] = [cost.wire_bytes, cost.pod_wire_bytes]
 
     # an all-reduce of a known size on the model axis of a 2x4 mesh
-    import torch.distributed._functional_collectives as funcol
     small = make_local_mesh(2, 4)
     with dryrun.fake_mode():
         x = torch.empty(64, 32)
@@ -400,6 +429,54 @@ def test_dryrun_decode_wire_within_the_reference(_dryrun_results):
     table = 151936 * 2560 * 2
     assert biggest_gather < table / 100
     assert 0 < wire <= 76_988_800
+
+
+def test_op_cost_counts_pod_crossing_wire(_dryrun_results):
+    """An all-reduce over the "pod" dim of pod2x16x16 (groups {r, r +
+    256}) is all pod-crossing wire; one over "data" (inside a pod) none."""
+    wire, pod_wire = _dryrun_results["pod_all_reduce"]
+    assert wire == pod_wire == 2 * 64 * 32 * 4
+    wire, pod_wire = _dryrun_results["data_all_reduce"]
+    assert wire == 2 * 64 * 32 * 4 and pod_wire == 0
+
+
+def test_dryrun_decode_views_kv_heads_shard_locally(_dryrun_results):
+    """qwen3-4b decode_32k's 8 kv heads on the 16-way model axis: every
+    op shards (no ``view`` retried replicated) and the wire stays at or
+    below the reference's 76,988,800 bytes."""
+    assert _dryrun_results["decode_replicated"] == {}
+    assert 0 < _dryrun_results["decode_wire"][0] <= 76_988_800
+
+
+def test_dryrun_readout_keeps_the_vocab_sharded(_dryrun_results):
+    """The readouts' largest softmax probability comes from all-reduced
+    maxima and sums: no all-gather moves one device's vocab shard of the
+    decode's logits (8 x 9496 f32, 303,872 bytes; a gather of the whole
+    vocab was 71% of this decode's wire)."""
+    assert _dryrun_results["decode_wire"][1] < 8 * 9496 * 4
+
+
+def test_dryrun_moe_dispatch_stays_on_the_device(_dryrun_results):
+    """phi3.5-moe's prefill (32 x 256 tokens on pod16x16): each device
+    routes and dispatches its own sequences, so no all-gather carries
+    the token buffer (a device holds 2 x 256 x 4096 bf16 = 4 MiB of it;
+    the global dispatch gathered all 32 sequences and their expert
+    slots) and no op runs replicated."""
+    wire, retried, biggest_gather = _dryrun_results["moe_prefill"]
+    assert retried == {}
+    assert 0 < biggest_gather < 2 * 256 * 4096 * 2
+
+
+def test_dryrun_ssm_conv_stays_on_the_device(_dryrun_results):
+    """hymba-1.5b's prefill (32 x 256 tokens on pod16x16): the SSM's
+    depthwise causal conv runs on each device's own rows and channels,
+    so no all-gather carries its input (a device's 2 x 256 x 3232 bf16
+    rows, 3.3 MB: DTensor gathered them over "model", and the card's
+    torch gathered the whole batch for the conv's pad) and no op runs
+    replicated."""
+    retried, biggest_gather = _dryrun_results["hybrid_prefill"]
+    assert retried == {}
+    assert 0 < biggest_gather < 2 * 256 * 3232 * 2
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "phi3.5-moe-42b-a6.6b",
@@ -495,6 +572,52 @@ SHARDED_ATTENTION = textwrap.dedent("""
                           dt(v, kv_pl), dt(mask, (Shard(0), Replicate())),
                           0.25).full_tensor()
             worst = max(worst, (got - want).abs().max().item())
+
+    # a projection whose kv heads the model axis splits unevenly (one kv
+    # head on 2 devices, 2 query heads a device: `split_heads`' head
+    # slots): the prefill and a ring decode against the plain ones, their
+    # outputs and the caches they write
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models.config import AttnConfig
+    mesh = make_local_mesh(1, 2)
+    cfg = AttnConfig(n_heads=4, n_kv_heads=1, head_dim=16, qk_norm=True)
+    b, s, d, c = 2, 5, 32, 8
+    p = {n: torch.randn(shape) * 0.2 for n, shape in (
+        ("wq", (d, 64)), ("wk", (d, 16)), ("wv", (d, 16)), ("wo", (64, d)),
+        ("q_norm", (16,)), ("k_norm", (16,)))}
+    cols = {"wq": Shard(1), "wk": Shard(1), "wv": Shard(1), "wo": Shard(0)}
+    pd = {n: distribute_tensor(t, mesh, (Replicate(), cols.get(
+        n, Replicate())), src_data_rank=None) for n, t in p.items()}
+    x = torch.randn(b, s, d)
+    pos = torch.arange(s)[None].expand(b, s)
+    rep = (Replicate(), Replicate())
+    y, kv = A.attn_forward(p, x, pos, cfg)
+    with implicit_replication():
+        yd, kvd = A.attn_forward(
+            pd, distribute_tensor(x, mesh, rep, src_data_rank=None),
+            distribute_tensor(pos, mesh, rep, src_data_rank=None), cfg)
+    worst = max(worst, (yd.full_tensor() - y).abs().max().item(),
+                *((kvd[n].full_tensor() - kv[n]).abs().max().item()
+                  for n in ("k", "v")))
+    cache = {"k": torch.randn(b, c, 1, 16).to(torch.bfloat16),
+             "v": torch.randn(b, c, 1, 16).to(torch.bfloat16),
+             "pos": torch.tensor([[0, 1, 2, 3, -1, -1, -1, -1]] * b,
+                                 dtype=torch.int32)}
+    slots = {"k": (Replicate(), Shard(1)), "v": (Replicate(), Shard(1)),
+             "pos": (Replicate(), Shard(1))}
+    cd = {n: distribute_tensor(t.clone(), mesh, slots[n],
+                               src_data_rank=None)
+          for n, t in cache.items()}
+    x1 = torch.randn(b, 1, d)
+    at = torch.tensor([4, 4], dtype=torch.int32)
+    y1, cache = A.attn_decode(p, x1, cache, at, cfg)
+    with implicit_replication():
+        y1d, cd = A.attn_decode(
+            pd, distribute_tensor(x1, mesh, rep, src_data_rank=None), cd,
+            distribute_tensor(at, mesh, rep, src_data_rank=None), cfg)
+    worst = max(worst, (y1d.full_tensor() - y1).abs().max().item(),
+                *((cd[n].full_tensor().float() - cache[n].float()).abs()
+                  .max().item() for n in ("k", "v", "pos")))
     if dist.get_rank() == 0:
         print("WORST", worst)
     dist.destroy_process_group()
@@ -508,6 +631,78 @@ def test_sharded_attention_matches_plain(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", str(script)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    worst = float(out.stdout.split("WORST")[-1])
+    assert worst <= 1e-5, worst
+
+
+SHARDED_MOE = textwrap.dedent("""
+    import torch, torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.config import MoEConfig
+    from repro_torch.sharding.ctx import activation_sharding, reduce_partial
+
+    dist.init_process_group("gloo")
+    torch.manual_seed(0)
+    worst = 0.0
+    d = 16
+    for shared in (0, 1):
+        cfg = MoEConfig(num_experts=4, top_k=2, d_ff_expert=32,
+                        num_shared=shared, d_ff_shared=24 * shared)
+        p = {"router": torch.randn(d, 4) * 0.3,
+             "w_up": torch.randn(4, d, 32) * 0.2,
+             "w_gate": torch.randn(4, d, 32) * 0.2,
+             "w_down": torch.randn(4, 32, d) * 0.2}
+        pl = {"router": (Replicate(), Replicate())}
+        if shared:
+            p["shared"] = {"w_up": torch.randn(d, 24) * 0.2,
+                           "w_gate": torch.randn(d, 24) * 0.2,
+                           "w_down": torch.randn(24, d) * 0.2}
+        x = torch.randn(4, 6, d)
+        y, aux = MOE.moe_forward(p, x, cfg, "swiglu")
+        # batch on "data", experts on "model", in every split of 4 ranks
+        for dd, mm in ((2, 2), (4, 1), (1, 4)):
+            mesh = make_local_mesh(dd, mm)
+
+            def put(t, dim):
+                return distribute_tensor(t, mesh, (Replicate(), Shard(dim)
+                                                   if dim is not None
+                                                   else Replicate()),
+                                         src_data_rank=None)
+            pd = {n: put(t, None if n == "router" else 0)
+                  for n, t in p.items() if n != "shared"}
+            if shared:
+                pd["shared"] = {n: put(t, 0 if n == "w_down" else 1)
+                                for n, t in p["shared"].items()}
+            xd = distribute_tensor(x, mesh, (Shard(0), Replicate()),
+                                   src_data_rank=None)
+            with implicit_replication(), activation_sharding(("data",)):
+                yd, auxd = MOE.moe_forward(pd, xd, cfg, "swiglu")
+                yd = reduce_partial(yd)
+            worst = max(worst, (yd.full_tensor() - y).abs().max().item(),
+                        *(abs(float(auxd[k].full_tensor()) - float(aux[k]))
+                          for k in aux))
+    if dist.get_rank() == 0:
+        print("WORST", worst)
+    dist.destroy_process_group()
+""")
+
+
+def test_sharded_moe_matches_plain(tmp_path):
+    """`moe_forward` on 4 gloo ranks, the batch sharded on "data" and the
+    experts on "model" (2 x 2, 4 x 1, 1 x 4), with and without a shared
+    expert: each device dispatches its own sequences to its experts,
+    and the output and aux losses equal the plain layer's within 1e-5."""
+    script = tmp_path / "sharded_moe.py"
+    script.write_text(SHARDED_MOE)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", str(script)],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     worst = float(out.stdout.split("WORST")[-1])
