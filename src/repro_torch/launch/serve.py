@@ -532,6 +532,8 @@ def _finish_obs(args, obs: Observability | None,
     `FaultPlan` the serve ran under is embedded in the trace and events
     artifacts (``faults/v1``) so a replay reproduces the chaos."""
     if obs is not None:
+        if obs.probe is not None:
+            report.add_step_probe(obs.probe.totals)
         report.add_trace(obs.tracer, obs.flight)
         if obs.ledger is not None:
             report.add_ledger(obs.ledger.report())

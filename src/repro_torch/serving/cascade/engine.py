@@ -96,6 +96,20 @@ class CascadeEngineStepper:
         for st in self.steppers:
             st.tracer = t
 
+    # the server's `StepProbe` fans out the same way: each rung's step
+    # times its own parts and transfers
+    _probe = None
+
+    @property
+    def probe(self):
+        return self._probe
+
+    @probe.setter
+    def probe(self, p) -> None:
+        self._probe = p
+        for st in self.steppers:
+            st.probe = p
+
     def __init__(self, bank: ModelBank, strategies: tuple, *,
                  cache_len: int, prompt_len: int, page_size: int = 16,
                  chunk: int = 8, budgets=None, pages=None,

@@ -84,22 +84,29 @@ def _ring_slots(cache_seg: dict, pos: torch.Tensor) -> dict:
 
 
 def _mask_lane_writes(cache_seg: dict, saved: dict, pos: torch.Tensor,
-                      active: torch.Tensor) -> None:
+                      active: torch.Tensor, probe=None) -> None:
     """Keep inactive lanes' ring-cache bits: put back, in place, the
     slots `_ring_slots` saved for the lanes that are not ``active``.
     (On the paged pool the decode already redirected masked lanes'
     writes to the garbage page, and SSM state is masked by the decode's
-    ``write_mask`` in both modes, so there is nothing to do for them.)"""
+    ``write_mask`` in both modes, so there is nothing to do for them.)
+    A ``probe`` counts and times the gate and each boolean index, each
+    a read of the mask's count."""
     if not saved:
         return
+    flag = bool if probe is None else probe.flag
     keep = ~active
-    if not bool(keep.any()):
+    if not flag(keep.any()):                          # host sync
         return
     attn = cache_seg["attn"]
+    if probe is not None:
+        probe.enter("sync", "tt.sync")
     slot = (pos % attn["pos"].shape[2]).long()[keep]
     bidx = torch.nonzero(keep)[:, 0]
     for name, leaf in attn.items():
         leaf[:, bidx, slot] = saved[name][:, keep]
+    if probe is not None:
+        probe.leave(reads=2 + len(attn))
 
 
 def bank_observe(strategies, states, node, losses, preds, active, sid):
@@ -190,11 +197,13 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
         cannot also carry a mid-token handoff.
 
     Returns ``step(tok (B,) i32, caches, pos (B,) i32, occupied (B,)
-    bool, sid (B,) i32, kv=None, states=None, chunk=None, walk=None) ->
-    (next_tok, caches, served_node, seg_batch, seg_policy[, states][,
-    walk])``; the caches are updated in place, and seg_* are int32
-    device scalars counting this token's launched segments and per-lane
-    probes.
+    bool, sid (B,) i32, kv=None, states=None, chunk=None, walk=None,
+    probe=None) -> (next_tok, caches, served_node, seg_batch,
+    seg_policy[, states][, walk])``; the caches are updated in place,
+    and seg_* are int32 device scalars counting this token's launched
+    segments and per-lane probes.  A `serving.obs.probe.StepProbe`
+    (``probe``) counts and times the step's gate reads and marks its
+    segments, folds, head and chunk for the profiler.
     """
     strategies = tuple(_check_online(s) for s in strategies)
     if prefill_slots and not paged:
@@ -212,7 +221,8 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
     embed = params["embed"]["table"]
 
     def step(tok, caches, pos, occupied, sid, kv=None, states_in=None,
-             chunk=None, walk=None):
+             chunk=None, walk=None, probe=None):
+        flag = bool if probe is None else probe.flag
         b = tok.shape[0]
         dev = tok.device
         x = embed[tok.long()][:, None, :]
@@ -239,10 +249,12 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
         node = node_offset
         with paged_kernel(paged_kernel_on):
             for si, seg in enumerate(cfg.segments):
-                any_active = bool(active.any())      # host sync
+                any_active = flag(active.any())      # host sync
                 seg_batch += int(any_active)
                 seg_policy += active.sum(dtype=torch.int32)
                 if any_active:
+                    if probe is not None:
+                        probe.push("tt.segment")
                     if paged:
                         x, _, ro = M.decode_segment(
                             params, cfg, si, x, caches[si], pos, paged=kv,
@@ -252,21 +264,37 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
                         x, _, ro = M.decode_segment(params, cfg, si, x,
                                                     caches[si], pos,
                                                     write_mask=active)
-                        _mask_lane_writes(caches[si], saved, pos, active)
+                        _mask_lane_writes(caches[si], saved, pos, active,
+                                          probe)
+                    if probe is not None:
+                        probe.pop()
                     if ro is not None:
+                        if probe is not None:
+                            probe.push("tt.fold")
                         states, active, best = fold_readout(
                             strategies, states, node, *ro, active, sid,
                             best)
+                        if probe is not None:
+                            probe.pop()
                 if seg.ramp:
                     node += 1
-            if bool(active.any()):                   # host sync
+            if flag(active.any()):                   # host sync
+                if probe is not None:
+                    probe.push("tt.head")
                 logits, ell = M.ramp_readout(params, cfg, x[:, 0, :])
+                if probe is not None:
+                    probe.pop()
+                    probe.push("tt.fold")
                 states, active, best = fold_readout(
                     strategies, states, node, logits, ell, active, sid,
                     best)
+                if probe is not None:
+                    probe.pop()
             next_tok = torch.argmax(best, dim=-1).to(torch.int32)
 
-            if prefill_slots and bool(chunk.active.any()):   # host sync
+            if prefill_slots and flag(chunk.active.any()):   # host sync
+                if probe is not None:
+                    probe.push("tt.chunk")
                 xc = embed[chunk.tok.long()]
                 for si in range(len(cfg.segments)):
                     xc, _ = M.prefill_chunk_segment(
@@ -277,6 +305,8 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
                 t0 = torch.argmax(logits, dim=-1).to(torch.int32)
                 # finishing lanes: seed the lane with its first token
                 next_tok = torch.where(chunk.emit, t0, next_tok)
+                if probe is not None:
+                    probe.pop()
 
         served = bank_serve(strategies, states, sid)
         out = (next_tok, caches, served, seg_batch, seg_policy)

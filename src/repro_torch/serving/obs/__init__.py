@@ -7,6 +7,10 @@ One package threads through every serving subsystem:
     escalate/recall/de-escalate → finish), fed only from data the
     steppers already sync once per token.  Zero overhead when absent:
     every producer guards with ``if tracer is not None``.
+  * `probe`    — `StepProbe`: a traced wall-clock serve's turns split
+    by part (serve loop, plan, step host, sync, trace), every host-device
+    transfer counted and timed, the card's idle time between steps, and
+    ``tt.*`` profiler ranges; its record rides each turn's ``counter``.
   * `registry` — `MetricsRegistry`: counters/gauges/histograms with
     labels, absorbing the per-subsystem stats dicts behind one
     ``snapshot()`` / Prometheus-text / JSON surface.
@@ -42,6 +46,7 @@ from dataclasses import dataclass, field
 from repro_torch.serving.obs.audit import InvariantLedger, audit_events
 from repro_torch.serving.obs.flight import FlightRecorder
 from repro_torch.serving.obs.pareto import ParetoTracker
+from repro_torch.serving.obs.probe import StepProbe
 from repro_torch.serving.obs.regret import RegretMeter, regret_events
 from repro_torch.serving.obs.registry import MetricsRegistry
 from repro_torch.serving.obs.trace import SpanTracer, decision_attribution
@@ -54,6 +59,7 @@ __all__ = [
     "ParetoTracker",
     "RegretMeter",
     "SpanTracer",
+    "StepProbe",
     "audit_events",
     "decision_attribution",
     "regret_events",
@@ -66,10 +72,12 @@ class Observability:
     observability is on), an optional flight recorder, invariant
     ledger and regret meter riding the same event stream, and an
     optional ``torch.profiler`` logdir for kernel-level capture around
-    the serve loop."""
+    the serve loop.  A serve whose stepper runs in wall time leaves
+    its `StepProbe` here (``probe``), for the report to read."""
 
     tracer: SpanTracer = field(default_factory=SpanTracer)
     flight: FlightRecorder | None = None
     ledger: InvariantLedger | None = None
     regret: RegretMeter | None = None
     profile_dir: str | None = None
+    probe: StepProbe | None = None

@@ -87,6 +87,12 @@ class ServeReport:
         self.registry.absorb("chunked_prefill", cs)
         self._sections.append("chunk")
 
+    def add_step_probe(self, totals: Mapping[str, Any]) -> None:
+        """A traced wall-clock serve's running totals of its turns' parts
+        and transfers (`StepProbe.totals`)."""
+        self.registry.absorb("probe", totals)
+        self._sections.append("probe")
+
     def add_adaptive(self, st: Mapping[str, Any]) -> None:
         self._gear = st.get("gear")
         self._switches = list(st.get("switches", ()))
@@ -232,6 +238,28 @@ class ServeReport:
                  f"{max(total, 1):.0f} skipped via prefix cache "
                  f"({v('chunked_prefill_prefills', 0):.0f} admissions)")]
 
+    def _probe_lines(self) -> list[str]:
+        v = self._v
+        n = max(v("probe_turns", 0), 1)
+        ms = {p: 1e3 * v(f"probe_{p}_s", 0.0) / n
+              for p in ("turn", "loop", "plan", "step_host", "sync",
+                        "trace")}
+        line = (f"step host time: {v('probe_turns', 0):.0f} turns of "
+                f"{ms['turn']:.2f}ms = loop {ms['loop']:.2f} + plan "
+                f"{ms['plan']:.2f} + step {ms['step_host']:.2f} + sync "
+                f"{ms['sync']:.2f} + trace {ms['trace']:.2f}; "
+                f"{v('probe_reads', 0) / n:.1f} reads + "
+                f"{v('probe_uploads', 0) / n:.1f} uploads "
+                f"({v('probe_upload_bytes', 0) / n:.0f} B) a turn")
+        idle = v("probe_idle_steps", 0)
+        if idle:
+            line += (f"; device idle between steps "
+                     f"{1e3 * v('probe_idle_before_s', 0.0) / idle:.2f}ms")
+        if "cascade" in self._sections:
+            # the cascade's own uploads between rungs go around the probe
+            line += "; the cascade's handoff uploads not counted"
+        return [line]
+
     def _adaptive_lines(self) -> list[str]:
         v = self._v
         lines = [(f"adaptive: final gear {self._gear}, "
@@ -312,7 +340,7 @@ class ServeReport:
 
     def lines(self) -> list[str]:
         order = ("runtime", "adaptive", "segments", "cascade", "pool",
-                 "chunk", "trace", "ledger", "lossmap", "regret",
+                 "chunk", "probe", "trace", "ledger", "lossmap", "regret",
                  "pareto")
         render = {"runtime": self._runtime_lines,
                   "adaptive": self._adaptive_lines,
@@ -320,6 +348,7 @@ class ServeReport:
                   "cascade": self._cascade_lines,
                   "pool": self._pool_lines,
                   "chunk": self._chunk_lines,
+                  "probe": self._probe_lines,
                   "trace": self._trace_lines,
                   "ledger": self._ledger_lines,
                   "lossmap": self._lossmap_lines,

@@ -99,6 +99,9 @@ class SpanTracer:
         self._clock: Callable[[], float] | None = None
         self.listener: Callable[[Event], None] | None = None
         self.n_emitted = 0
+        # a `StepProbe` the server sets for a wall-clock serve: each
+        # emit's time, listeners included, is charged to its trace part
+        self.timer = None
 
     # ---------------------------------------------------------- wiring
     def bind_clock(self, clock: Callable[[], float]) -> None:
@@ -126,6 +129,9 @@ class SpanTracer:
     # ---------------------------------------------------------- emit
     def emit(self, kind: str, *, t: float | None = None, rid: int = -1,
              lane: int = -1, model: int = -1, **data: Any) -> None:
+        timer = self.timer
+        if timer is not None:
+            timer.enter("trace")
         if t is None:
             t = self._clock() if self._clock is not None else 0.0
         ev = Event(float(t), kind, int(rid), int(lane), int(model),
@@ -146,6 +152,8 @@ class SpanTracer:
                 self._retire(ev.rid)
         if self.listener is not None:
             self.listener(ev)
+        if timer is not None:
+            timer.leave()
 
     def _retire(self, rid: int) -> None:
         span = self._live.pop(rid, None)
@@ -160,9 +168,6 @@ class SpanTracer:
     def request_span(self, rid: int) -> list[Event]:
         """Full recorded span for ``rid`` — live or recently finished."""
         return list(self._live.get(rid) or self._done.get(rid) or ())
-
-    def live_rids(self) -> list[int]:
-        return list(self._live)
 
     def span_dropped(self, rid: int) -> int:
         return int(self._span_dropped.get(rid, 0))

@@ -234,8 +234,11 @@ class EngineStepper:
     virtual_time = False
     emits_tokens = True    # `emitted` really is token ids (EOS applies)
     # the server installs a `SpanTracer` here when one is attached: each
-    # prefill chunk lands as an event, from host values only
+    # prefill chunk lands as an event, from host values only; and with
+    # it a `serving.obs.probe.StepProbe`, which times the step's parts
+    # and counts and times its transfers
     tracer = None
+    probe = None
 
     def __init__(self, params, cfg, strategies: tuple, *, n_lanes: int,
                  cache_len: int, prompt_len: int, kv: str = "ring",
@@ -287,8 +290,23 @@ class EngineStepper:
         self.alloc()
 
     def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.device)
+        probe = self.probe
+        if probe is not None:
+            probe.enter("sync", "tt.sync")
+        t = torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        if probe is not None:
+            probe.leave(uploads=1, nbytes=t.numel() * t.element_size())
+        return t
+
+    def _unset(self, pos: torch.Tensor, pages: torch.Tensor) -> None:
+        """``pos[:, pages] = -1`` in place.  On the card the -1 crosses
+        in a blocking copy of its own: the probe counts it an upload."""
+        probe = self.probe
+        if probe is not None:
+            probe.enter("sync", "tt.sync")
+        pos[:, pages] = -1
+        if probe is not None:
+            probe.leave(uploads=1, nbytes=pos.element_size())
 
     # ---- paged device ops (in place) ------------------------------------
 
@@ -299,7 +317,7 @@ class EngineStepper:
         by construction, so resetting it again changes nothing)."""
         for seg_c in self.caches:
             if "attn" in seg_c:
-                seg_c["attn"]["pos"][:, pages.long()] = -1
+                self._unset(seg_c["attn"]["pos"], pages.long())
 
     def _paged_prep(self, fresh, cow_src, cow_dst) -> None:
         """Pre-step page ops: COW page copies (src -> dst in every layer;
@@ -313,7 +331,7 @@ class EngineStepper:
             attn = seg_c["attn"]
             for leaf in attn.values():
                 leaf[:, dst] = leaf[:, src]
-            attn["pos"][:, fresh.long()] = -1
+            self._unset(attn["pos"], fresh.long())
 
     # ---- lane state ------------------------------------------------------
 
@@ -395,7 +413,7 @@ class EngineStepper:
             if "attn" not in seg_c:
                 continue
             attn = seg_c["attn"]
-            attn["pos"][:, fresh] = -1
+            self._unset(attn["pos"], fresh)
             for name, leaf in attn.items():
                 leaf[:, dp, ds] = pos_vals if name == "pos" \
                     else one["attn"][name][:, 0].to(leaf.dtype)
@@ -539,7 +557,15 @@ class EngineStepper:
         — and return an extra last element ``(walk_active (B,) bool on
         the host, best on the device)``: the escalation handoff the
         cascade stashes for the next ladder model.
+
+        With a probe, the time before the token step is its ``plan``
+        part and the rest its ``step_host`` part, and every upload and
+        read is counted and timed.
         """
+        probe = self.probe
+        if probe is not None:
+            probe.step_start(self.device)
+            probe.enter("plan", "tt.plan")
         decode = np.asarray(occupied, bool).copy()
         widths: dict = {}
         if self._prefilling:
@@ -568,8 +594,12 @@ class EngineStepper:
                                device=self.device),
                     torch.zeros((self.n_lanes, self.cfg.vocab),
                                 dtype=torch.float32, device=self.device))
+        if probe is not None:
+            probe.leave()
+            probe.enter("step_host", "tt.token_step")
         out = self._step(self.tok, self.caches, self.pos, occ,
-                         self._dev(sid), kv, self.states, chunk, walk)
+                         self._dev(sid), kv, self.states, chunk, walk,
+                         probe=probe)
         tok, self.caches, served, sb, sp, self.states = out[:6]
         if self.pool is not None:
             self.pool.note_written(decode)
@@ -585,9 +615,15 @@ class EngineStepper:
             for lane in finished:
                 st = self._prefilling.pop(lane)
                 self.pool.commit_prefix(lane, st["prompt"])
+        if probe is not None:
+            probe.enter("sync", "tt.sync")
         host = (tok.cpu().numpy(), served.cpu().numpy(), int(sb), int(sp),
                 decode)
         if self.walk_io:
             walk_active, best = out[6]
-            return host + ((walk_active.cpu().numpy(), best),)
+            host = host + ((walk_active.cpu().numpy(), best),)
+        if probe is not None:
+            probe.leave(reads=4 + self.walk_io)
+            probe.step_end(self.device)
+            probe.leave()
         return host

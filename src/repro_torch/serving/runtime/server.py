@@ -26,9 +26,12 @@ The control plane (`serving.control`) drives the loop through the
 stepper (``faults``, ``governor``, read with ``getattr``) and the
 requests (``cancel_at``, ``deadline``).  The observability plane
 (`serving.obs`) rides an ``obs`` bundle: the server binds its clock to
-the tracer and hands the tracer to the stepper and the controller; every
-producer guards on ``tracer is not None``, so an untraced serve does no
-extra work.
+the tracer and hands the tracer to the stepper and the controller, and,
+on a wall-clock stepper, a `StepProbe` that splits each turn's host
+time by part and times every transfer (its record rides the turn's
+``counter`` event); every producer guards on ``tracer is not None`` or
+``probe is not None``, so an untraced serve does no extra work.  The
+serve unbinds both from the stepper when it ends.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.engine import bank_observe, bank_serve
+from repro_torch.serving.obs.probe import StepProbe
 from repro_torch.serving.runtime.metrics import RuntimeMetrics
 from repro_torch.serving.runtime.request import Request, RequestQueue
 from repro_torch.serving.runtime.scheduler import ChunkPlanner, LaneScheduler
@@ -447,6 +451,7 @@ class Server:
         self.controller = controller
         self._vt = 0.0
         self._t0 = 0.0
+        self._probe = None
 
     # ---- clock ---------------------------------------------------------
     def _now(self) -> float:
@@ -458,6 +463,8 @@ class Server:
         if self.stepper.virtual_time:
             self._vt = max(self._vt, t)
         else:
+            if self._probe is not None:
+                self._probe.waited()
             gap = t - self._now()
             if gap > 0:
                 time.sleep(gap)
@@ -540,8 +547,9 @@ class Server:
         if self.controller is not None:
             self.controller.begin(metrics, stepper)
         tracer = self.obs.tracer if self.obs is not None else None
+        probe = None
         if tracer is not None:
-            self._bind_obs(tracer, metrics)
+            probe = self._bind_obs(tracer, metrics)
         deadline_of = None
         if self.order == "edf" and self.slo is not None:
             deadline_of = lambda r: r.arrival + self.slo  # noqa: E731
@@ -570,6 +578,8 @@ class Server:
                 return ok
 
         while pending or len(queue) or sched.busy():
+            if probe is not None:
+                probe.begin_turn()
             now = self._now()
             if clocked:
                 stepper.fault_now = now
@@ -588,6 +598,8 @@ class Server:
                 self.controller.on_arrivals(pushed)
             if reaping:
                 self._reap(queue, metrics, tracer, release, now)
+            if probe is not None:
+                probe.push("tt.admit")
             for lane, req in sched.admit(
                     queue, self.sid_of,
                     static_batching=self.static_batching,
@@ -597,6 +609,8 @@ class Server:
                 if tracer is not None:
                     tracer.emit("admitted", rid=req.rid, lane=lane,
                                 sid=int(sched.sid[lane]))
+            if probe is not None:
+                probe.pop()
             if not sched.busy():
                 if not pending:
                     # nothing running, nothing arriving — the queue may
@@ -628,6 +642,8 @@ class Server:
             # emit marks lanes whose entry is a real token this step;
             # lanes mid-prefill are occupied but still silent
             metrics.on_step(sb, sp, int(np.asarray(emit).sum()))
+            if probe is not None:
+                probe.push("tt.tokens")
             for lane in np.flatnonzero(emit):
                 req = sched.lane_req[lane]
                 metrics.on_token(req.rid, int(served[lane]), tnow,
@@ -647,11 +663,15 @@ class Server:
                     sched.release(lane)
                     if tracer is not None:
                         tracer.emit("finish", rid=req.rid, lane=int(lane))
+            if probe is not None:
+                probe.pop()
             if tracer is not None:
                 data = {"queue": len(queue)}
                 pool = getattr(stepper, "pool", None)
                 if pool is not None:
                     data["pages_in_use"] = int(pool.pages_in_use)
+                if probe is not None:
+                    data.update(probe.end_turn())
                 tracer.emit("counter", **data)
             if self.controller is not None:
                 # step boundary: no lane is mid-token — the one atomic
@@ -664,13 +684,18 @@ class Server:
                 self.obs.ledger.finalize(self._now())
             if self.obs.regret is not None:
                 self.obs.regret.finalize(self._now())
+        if tracer is not None:
+            self._unbind_obs(tracer, probe)
         return metrics
 
     # ---- observability -------------------------------------------------
-    def _bind_obs(self, tracer, metrics) -> None:
+    def _bind_obs(self, tracer, metrics) -> StepProbe | None:
         """Bind the tracer to this serve: the server's clock, the stepper
         and the controller as producers, and the flight recorder, ledger
-        and regret meter as listeners (they never emit or sync).
+        and regret meter as listeners (they never emit or sync).  A
+        stepper that runs in wall time gets a fresh `StepProbe`, which
+        times the tracer's emits too, lands in ``obs.probe`` and is
+        returned.
 
         The tracer outlives the serve (the launcher returns it), so
         nothing bound here holds the server: the clock reaches it through
@@ -680,6 +705,11 @@ class Server:
         stepper = self.stepper
         tracer.bind_clock(_weak_clock(self))
         stepper.tracer = tracer
+        probe = None
+        if not stepper.virtual_time:
+            probe = StepProbe()
+            stepper.probe = tracer.timer = self._probe = probe
+        self.obs.probe = probe
         if self.controller is not None:
             self.controller.tracer = tracer
         flight = self.obs.flight
@@ -694,6 +724,16 @@ class Server:
         if self.obs.regret is not None:
             self.obs.regret.bind(tracer, stepper=stepper, flight=flight,
                                  controller=self.controller)
+        return probe
+
+    def _unbind_obs(self, tracer, probe) -> None:
+        """The serve is over: a later step or serve without a tracer
+        emits nothing and reads no probe clock (``obs.probe`` keeps the
+        totals)."""
+        self.stepper.tracer = None
+        if probe is not None:
+            probe.close()
+            self.stepper.probe = tracer.timer = self._probe = None
 
     @staticmethod
     def _emit_queued(tracer, req) -> None:

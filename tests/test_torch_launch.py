@@ -148,10 +148,10 @@ def test_launcher_obs_bundle_on_cpu(tmp_path, capsys):
     assert run.calib_s > 0.0
 
 
-def test_launcher_cascade_obs_on_cpu(tmp_path):
+def test_launcher_cascade_obs_on_cpu(tmp_path, capsys):
     """``--trace-out``, ``--metrics-out`` and ``--flight-recorder`` on the
     cascade path: the trace carries the escalations, the artifacts are
-    valid."""
+    valid, and the step probe's report line says what it leaves out."""
     from benchmarks.check_trace import validate_metrics, validate_trace
     torch.set_num_threads(2)
     run = tserve.main([
@@ -173,6 +173,10 @@ def test_launcher_cascade_obs_on_cpu(tmp_path):
         assert any(ev["pid"] == 1 for ev in doc["traceEvents"]
                    if ev["ph"] == "i")
     assert run.calib_s > 0.0
+    assert run.obs.probe.totals["turns"] > 0
+    [line] = [ln for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("step host time: ")]
+    assert line.endswith("; the cascade's handoff uploads not counted")
 
 
 def test_launcher_profile_dir_writes_a_chrome_trace(tmp_path, monkeypatch):

@@ -17,6 +17,10 @@ BOTH packages on the same fixtures:
     port does not).
 
 The port's steppers decide on the CPU here (``device="cpu"``).
+
+The last tests are the port's own: the step probe
+(`repro_torch.serving.obs.probe`) on a traced chunked paged engine serve
+of the smoke model, which the reference has no counterpart of.
 """
 
 import json
@@ -1214,3 +1218,222 @@ def test_perfetto_regret_counter_track(sim_cascade, tmp_path):
         return doc
     out = _both(sim_cascade, run)
     assert out["torch"] == out["jax"]
+
+
+# --------------------------------------------------------------------------
+# the port's own: the step probe on a traced wall-clock engine serve
+# (the reference has no counterpart: its step syncs once a token)
+# --------------------------------------------------------------------------
+
+PROBE_PARTS = ("loop_s", "plan_s", "step_host_s", "sync_s", "trace_s")
+PROBE_FIELDS = ("turn_s",) + PROBE_PARTS + ("reads", "uploads",
+                                            "upload_bytes")
+PROBE_RANGES = ("tt.turn", "tt.admit", "tt.plan", "tt.token_step",
+                "tt.tokens", "tt.segment", "tt.fold", "tt.head",
+                "tt.chunk", "tt.sync")
+
+
+@pytest.fixture(scope="module")
+def probe_model():
+    """The smoke model on the CPU with its own calibrated cascade."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models.param import materialize
+    torch.set_num_threads(2)
+    cfg = get_config("paper-ee-100m", smoke=True)
+    params = materialize(TM.model_defs(cfg),
+                         torch.Generator().manual_seed(0), "cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (64, 16))
+    casc = tstrategy.Cascade.calibrate(params, cfg, tokens, 0.5, k=8)
+    return cfg, params, casc
+
+
+def _probe_serve(model, *, traced=True, stepper=None,
+                 policy="recall_index", kv="paged", occupancy=None):
+    """A chunked paged (or, ``kv="ring"``, a stop-the-world ring)
+    engine serve of six requests (the later ones arrive after the first
+    steps, so some turns wait); returns (metrics, obs, stepper, {rid:
+    served nodes}).  ``occupancy`` collects each step's lane mask."""
+    cfg, params, casc = model
+    rng = np.random.default_rng(5)
+    ring = kv == "ring"
+    reqs = [Request(rid=r, prompt=rng.integers(
+                        0, cfg.vocab, 12 if ring else 9 + 3 * r,
+                        dtype=np.int32),
+                    max_tokens=3 + r % 4, arrival=0.02 * r)
+            for r in range(6)]
+    bank, sid_of = trt.build_bank(reqs, trt.cascade_factory(casc),
+                                  (policy, None))
+    if stepper is None:
+        paging = {} if ring else {"page_size": 8, "paged_kernel": True,
+                                  "prefill_chunk": 8}
+        stepper = trt.EngineStepper(params, cfg, bank, n_lanes=3,
+                                    cache_len=64, prompt_len=12, kv=kv,
+                                    **paging)
+    sched = trt.LaneScheduler(3)
+    nodes = {r.rid: [] for r in reqs}
+    step = stepper.step
+
+    def logged(occupied, sid):
+        if occupancy is not None:
+            occupancy.append(np.array(occupied, bool))
+        out = step(occupied, sid)
+        for lane in np.flatnonzero(out[-1]):
+            if sched.lane_req[lane] is not None:
+                nodes[sched.lane_req[lane].rid].append(int(out[1][lane]))
+        return out
+
+    stepper.step = logged
+    obs = tobs.Observability() if traced else None
+    try:
+        with torch.no_grad():
+            metrics = trt.Server(stepper, sched, sid_of, obs=obs).serve(reqs)
+    finally:
+        del stepper.step
+    return metrics, obs, stepper, nodes
+
+
+@pytest.mark.parametrize("kv", ["paged", "ring"])
+def test_probe_splits_every_wall_clock_turn(probe_model, kv):
+    """Every counter event of a traced engine serve carries the turn's
+    parts, which sum to the turn; the reads are exact: a gate a segment,
+    the head's, the chunk's (paged) and the four final reads; on the
+    ring caches each segment also gates the put-back of its inactive
+    lanes' slots and then reads the mask's count for the slots, the lane
+    indices and each cache leaf (``always_last``: every occupied lane
+    runs every segment, so the lane mask decides).  The running totals
+    are the events' sums."""
+    occupancy = []
+    metrics, obs, stepper, _ = _probe_serve(
+        probe_model, policy="always_last", kv=kv, occupancy=occupancy)
+    counters = [dict(ev.data) for ev in obs.tracer.events
+                if ev.kind == "counter"]
+    occupancy = occupancy[-metrics.steps:]    # the warm-up's step first
+    assert len(counters) == len(occupancy) == metrics.steps
+    n_seg = len(stepper.cfg.segments)
+    leaves = len(stepper.caches[0]["attn"])
+    for d, occ in zip(counters, occupancy):
+        assert set(PROBE_FIELDS) <= set(d), d
+        assert all(d[k] >= 0 for k in PROBE_FIELDS), d
+        parts = sum(d[k] for k in PROBE_PARTS)
+        assert abs(parts - d["turn_s"]) <= max(0.1 * d["turn_s"], 5e-4), d
+        if kv == "paged":
+            assert d["reads"] == n_seg + 1 + 1 + 4, d
+        else:
+            masked = 0 if occ.all() else 2 + leaves
+            assert d["reads"] == n_seg * (2 + masked) + 1 + 4, (d, occ)
+        # paged: the occupancy mask, the page table and write slots, the
+        # eight chunk tensors (or the idle chunk, built once) and sid;
+        # ring: the occupancy mask and sid
+        assert d["uploads"] >= (5 if kv == "paged" else 2), d
+        assert d["upload_bytes"] > 0
+        assert "idle_before_s" not in d          # the card only
+    if kv == "paged":
+        assert max(d["uploads"] for d in counters) >= 13
+    else:
+        assert any(not occ.all() for occ in occupancy)
+    tot = obs.probe.totals
+    assert tot["turns"] == len(counters)
+    for k in PROBE_FIELDS:
+        assert tot[k] == pytest.approx(sum(d[k] for d in counters))
+    assert tot["idle_steps"] == 0
+
+
+def test_probe_is_a_pure_observer(probe_model, tmp_path):
+    """Tokens and served nodes are the same with and without the tracer
+    and its probe; the event log still validates, and the Perfetto
+    export draws each new field as a counter track."""
+    from benchmarks.check_trace import validate_events, validate_trace
+    m_off, _, _, n_off = _probe_serve(probe_model, traced=False)
+    m_on, obs, _, n_on = _probe_serve(probe_model)
+    assert {r: rec.tokens for r, rec in m_on.records.items()} == \
+        {r: rec.tokens for r, rec in m_off.records.items()}
+    assert n_on == n_off
+    assert validate_events(_json(texport.events_doc(obs.tracer))) == []
+    doc = texport.write_trace(obs.tracer, str(tmp_path / "trace.json"))
+    assert validate_trace(_json(doc)) == []
+    tracks = {ev["name"] for ev in doc["traceEvents"] if ev["ph"] == "C"}
+    assert set(PROBE_FIELDS) | {"queue", "pages_in_use"} <= tracks
+
+
+def _ranges(prof) -> dict:
+    """{range name: [names of its enclosing ranges, innermost first]}."""
+    out = {}
+    for ev in prof.events():
+        if not ev.name.startswith("tt."):
+            continue
+        up, p = [], ev.cpu_parent
+        while p is not None:
+            if p.name.startswith("tt."):
+                up.append(p.name)
+            p = p.cpu_parent
+        out.setdefault(ev.name, []).append(up)
+    return out
+
+
+def test_probe_ranges_nest_under_the_profiler(probe_model):
+    """Under a CPU `torch.profiler` session a traced serve opens the
+    ``tt.*`` ranges, nested as the probe's docstring says; an untraced
+    serve opens none.  (``always_last``: every lane reaches the head.)"""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        _probe_serve(probe_model, policy="always_last")
+    ranges = _ranges(prof)
+    assert set(ranges) == set(PROBE_RANGES)
+    for name in ("tt.admit", "tt.plan", "tt.token_step", "tt.tokens"):
+        assert all(up == ["tt.turn"] for up in ranges[name]), name
+    assert all(up == [] for up in ranges["tt.turn"])
+    for name in ("tt.segment", "tt.fold", "tt.head", "tt.chunk"):
+        assert all(up[-2:] == ["tt.token_step", "tt.turn"]
+                   for up in ranges[name]), name
+    assert all(up[0] in ("tt.admit", "tt.plan", "tt.token_step")
+               and up[-1] == "tt.turn" for up in ranges["tt.sync"])
+    with torch.profiler.profile(activities=acts) as prof:
+        _probe_serve(probe_model, traced=False, policy="always_last")
+    assert _ranges(prof) == {}
+
+
+def test_untraced_serve_costs_no_probe(probe_model, monkeypatch):
+    """Without a tracer a serve makes no probe, reads no probe clock and
+    emits nothing, also on a stepper a traced serve ran on before; the
+    report renders a traced serve's totals."""
+    from repro_torch.serving.obs import probe as tprobe
+    _, obs, stepper, _ = _probe_serve(probe_model)
+    totals = dict(obs.probe.totals)
+
+    def refuse(*a, **k):
+        raise AssertionError("an untraced serve used the probe")
+
+    monkeypatch.setattr(tprobe, "_clock", refuse)
+    monkeypatch.setattr(tprobe.StepProbe, "__init__", refuse)
+    emitted = obs.tracer.n_emitted
+    metrics, none, stepper, _ = _probe_serve(probe_model, traced=False,
+                                             stepper=stepper)
+    assert none is None and stepper.probe is None and stepper.tracer is None
+    assert obs.tracer.n_emitted == emitted and metrics.steps > 0
+    rep = treport.ServeReport()
+    rep.add_step_probe(totals)
+    [line] = rep.lines()
+    assert line.startswith(f"step host time: {totals['turns']} turns of ")
+    assert rep.registry.value("probe_reads") == totals["reads"]
+
+
+def test_a_traced_serve_unbinds_its_probe(probe_model, monkeypatch):
+    """A traced serve leaves neither its tracer nor its probe on the
+    stepper or the tracer: a step driven directly after it reads no
+    probe clock and emits nothing, and the totals stay in ``obs.probe``.
+    (The ring caches: a paged step wants pages a serve has released.)"""
+    from repro_torch.serving.obs import probe as tprobe
+    _, obs, stepper, _ = _probe_serve(probe_model, kv="ring")
+    assert stepper.probe is None and stepper.tracer is None
+    assert obs.tracer.timer is None and obs.probe.totals["turns"] > 0
+
+    def refuse(*a, **k):
+        raise AssertionError("a step after the serve read the probe clock")
+
+    monkeypatch.setattr(tprobe, "_clock", refuse)
+    emitted = obs.tracer.n_emitted
+    n = stepper.n_lanes
+    with torch.no_grad():
+        stepper.step(np.ones(n, bool), np.zeros(n, np.int32))
+    assert obs.tracer.n_emitted == emitted
