@@ -15,14 +15,18 @@ merges (`split_count`, and the integer tickets of `ticket_buffer`); and
 `report_launch`, by which each wrapper tells the active launch
 recorders (`LAUNCH_RECORDERS`: a cost model's, such as
 `repro_torch.launch.op_cost.analyze`) of a launch, which no dispatch
-mode sees.
+mode sees.  A CUDA graph's capture launches nothing: `held_launches`
+holds back what the wrappers report while it records, and
+`replay_launches` reports it again, and counts it, at each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -33,8 +37,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "build_all", "library", "check_rows_aligned",
-           "sm_count", "split_count", "ticket_buffer", "LAUNCH_RECORDERS",
-           "report_launch"]
+           "sm_count", "split_count", "ticket_buffer", "ticket_buffers",
+           "LAUNCH_RECORDERS", "report_launch", "held_launches",
+           "replay_launches"]
 
 SOURCES = ("paged_attention", "paged_prefill", "flash_attention",
            "bellman_backup", "ssd_chunk", "ramp_exit")
@@ -189,8 +194,60 @@ def ticket_buffer(kernel: str, n: int, device) -> torch.Tensor:
     return t
 
 
+def ticket_buffers() -> tuple:
+    """Every ticket buffer allocated so far.  A CUDA graph that recorded
+    a split launch holds its tickets' address, so it keeps these alive
+    while a later, larger call of the kernel allocates new ones."""
+    return tuple(_tickets.values())
+
+
 def report_launch(name: str, inputs, outputs) -> None:
     """Tell every recorder of `LAUNCH_RECORDERS` of one launch of kernel
     ``name``: its operand and result tensors."""
     for rec in LAUNCH_RECORDERS:
         rec.kernel(name, inputs, outputs)
+
+
+@functools.cache
+def _wrapper(name: str):
+    """Kernel ``name``'s wrapper: the function of that name in the
+    module of that name, which counts its launches on ``launches``."""
+    module = importlib.import_module(f"{__name__.rpartition('.')[0]}.{name}")
+    return getattr(module, name)
+
+
+class _Holder:
+    def __init__(self, held: list):
+        self.held = held
+
+    def kernel(self, name, inputs, outputs):
+        self.held.append((name, tuple(inputs), tuple(outputs)))
+
+
+@contextlib.contextmanager
+def held_launches():
+    """Hold back the launches the wrappers report inside the block: no
+    recorder of `LAUNCH_RECORDERS` is told of them, and each kernel's
+    ``launches`` counter ends the block where it began.  Yields the list
+    of held ``(name, inputs, outputs)``, which a CUDA graph that
+    recorded those launches hands to `replay_launches` at each
+    replay."""
+    held: list = []
+    saved = LAUNCH_RECORDERS[:]
+    LAUNCH_RECORDERS[:] = [_Holder(held)]
+    try:
+        yield held
+    finally:
+        LAUNCH_RECORDERS[:] = saved
+        for name, _, _ in held:
+            _wrapper(name).launches -= 1
+
+
+def replay_launches(held) -> None:
+    """Count and report the launches ``held`` (`held_launches`) as a
+    CUDA graph that recorded them replays: each one adds one to its
+    kernel's ``launches`` and is told to every recorder, with the
+    tensors the graph reads and writes, as the wrapper would have."""
+    for name, inputs, outputs in held:
+        _wrapper(name).launches += 1
+        report_launch(name, inputs, outputs)

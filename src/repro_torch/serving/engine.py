@@ -198,12 +198,18 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
 
     Returns ``step(tok (B,) i32, caches, pos (B,) i32, occupied (B,)
     bool, sid (B,) i32, kv=None, states=None, chunk=None, walk=None,
-    probe=None) -> (next_tok, caches, served_node, seg_batch,
-    seg_policy[, states][, walk])``; the caches are updated in place,
-    and seg_* are int32 device scalars counting this token's launched
-    segments and per-lane probes.  A `serving.obs.probe.StepProbe`
-    (``probe``) counts and times the step's gate reads and marks its
-    segments, folds, head and chunk for the profiler.
+    probe=None, run_chunk=None) -> (next_tok, caches, served_node,
+    seg_batch, seg_policy[, states][, walk])``; the caches are updated
+    in place, and seg_* are int32 device scalars counting this token's
+    launched segments and per-lane probes.  A
+    `serving.obs.probe.StepProbe` (``probe``) counts and times the
+    step's gate reads and marks its segments, folds, head and chunk for
+    the profiler.  The step's ``chunk_pass(caches, page_table, chunk)
+    -> t0 (B,) i32`` attribute is the prefill chunk's pass, which the
+    step runs eagerly, before the decode; ``run_chunk``, called with the
+    same arguments, begins it in its place and returns a function that
+    gives ``t0`` once the decode is queued (the stepper's CUDA graph of
+    it, replayed on a stream of its own, `serving.runtime.chunk_graph`).
     """
     strategies = tuple(_check_online(s) for s in strategies)
     if prefill_slots and not paged:
@@ -220,9 +226,41 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
                     "state cannot double as a mid-token walk handoff")
     embed = params["embed"]["table"]
 
+    def chunk_pass(caches, page_table, chunk):
+        """The prefill chunk at full depth against the pool (written in
+        place), then the head's argmax at each lane's last chunk row:
+        the first token of the lanes whose chunk ends their prompt.
+        Every shape is the chunk's ``(B, prefill_slots)``, and nothing
+        reads the device's values back on the host."""
+        with paged_kernel(paged_kernel_on):
+            xc = embed[chunk.tok.long()]
+            for si in range(len(cfg.segments)):
+                xc, _ = M.prefill_chunk_segment(params, cfg, si, xc,
+                                                caches[si], page_table,
+                                                chunk)
+            rows = torch.arange(xc.shape[0], device=xc.device)
+            h = xc[rows, chunk.last_idx.long()]
+            logits, _ = M.ramp_readout(params, cfg, h)
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def eager_chunk(caches, page_table, chunk):
+        t0 = chunk_pass(caches, page_table, chunk)
+        return lambda: t0
+
     def step(tok, caches, pos, occupied, sid, kv=None, states_in=None,
-             chunk=None, walk=None, probe=None):
+             chunk=None, walk=None, probe=None, run_chunk=None):
         flag = bool if probe is None else probe.flag
+        finish_chunk = None
+        if prefill_slots and flag(chunk.active.any()):   # host sync
+            # the chunk's lanes are not decoding: it reads and writes
+            # other pages than the decode (and the garbage page, at
+            # position -1), so it goes first and may run beside it
+            if probe is not None:
+                probe.push("tt.chunk")
+            finish_chunk = (run_chunk or eager_chunk)(caches, kv.page_table,
+                                                      chunk)
+            if probe is not None:
+                probe.pop()
         b = tok.shape[0]
         dev = tok.device
         x = embed[tok.long()][:, None, :]
@@ -291,22 +329,10 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
                 if probe is not None:
                     probe.pop()
             next_tok = torch.argmax(best, dim=-1).to(torch.int32)
-
-            if prefill_slots and flag(chunk.active.any()):   # host sync
-                if probe is not None:
-                    probe.push("tt.chunk")
-                xc = embed[chunk.tok.long()]
-                for si in range(len(cfg.segments)):
-                    xc, _ = M.prefill_chunk_segment(
-                        params, cfg, si, xc, caches[si], kv.page_table,
-                        chunk)
-                h = xc[torch.arange(b, device=dev), chunk.last_idx.long()]
-                logits, _ = M.ramp_readout(params, cfg, h)
-                t0 = torch.argmax(logits, dim=-1).to(torch.int32)
+            if finish_chunk is not None:
                 # finishing lanes: seed the lane with its first token
-                next_tok = torch.where(chunk.emit, t0, next_tok)
-                if probe is not None:
-                    probe.pop()
+                next_tok = torch.where(chunk.emit, finish_chunk(),
+                                       next_tok)
 
         served = bank_serve(strategies, states, sid)
         out = (next_tok, caches, served, seg_batch, seg_policy)
@@ -318,6 +344,7 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
             out = out + ((active, best),)
         return out
 
+    step.chunk_pass = chunk_pass
     return step
 
 

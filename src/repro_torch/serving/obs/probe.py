@@ -30,7 +30,9 @@ makes another current; `leave` returns to the one before.  So the parts
 of a turn sum to the turn, apart from the probe's own clock reads.
 `end_turn` gives the turn's record, which the server adds to the turn's
 ``counter`` event (``turn_s``, ``<part>_s``, ``reads``, ``uploads``,
-``upload_bytes``, ``idle_before_s``), and adds it to ``totals``.  That
+``upload_bytes``, ``idle_before_s``, and the counts the stepper gives
+`count`: ``chunk_graph_replays`` and ``chunk_graph_captures`` where it
+graphs its chunk pass), and adds it to ``totals``.  That
 ``counter`` emit itself falls after the record is taken, outside every
 turn.
 
@@ -92,6 +94,7 @@ class StepProbe:
         self.acc = dict.fromkeys(PARTS, 0.0)
         self.reads = self.uploads = self.upload_bytes = 0
         self.idle = None
+        self.counts: dict = {}
 
     def end_turn(self) -> dict:
         """The turn's record, for its ``counter`` event."""
@@ -102,14 +105,14 @@ class StepProbe:
         for p in PARTS:
             out[f"{p}_s"] = self.acc[p]
         out.update(reads=self.reads, uploads=self.uploads,
-                   upload_bytes=self.upload_bytes)
+                   upload_bytes=self.upload_bytes, **self.counts)
         if self.idle is not None:
             out["idle_before_s"] = self.idle
             self.totals["idle_steps"] += 1
         tot = self.totals
         tot["turns"] += 1
         for k, v in out.items():
-            tot[k] += v
+            tot[k] = tot.get(k, 0) + v
         return out
 
     def close(self) -> None:
@@ -155,6 +158,11 @@ class StepProbe:
     def pop(self) -> None:
         if self.profiling:
             self._ranges.pop().__exit__(None, None, None)
+
+    def count(self, **counts: int) -> None:
+        """Add named counts to the turn's record (and the totals)."""
+        for k, v in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
 
     # ------------------------------------------------------------ transfers
     def flag(self, t: torch.Tensor) -> bool:

@@ -24,7 +24,9 @@ Three layers:
     planner-budgeted prefill chunk for the admitting lanes through the
     shared `serving.engine.make_token_step`.  Caches are updated in
     place (``index_put_`` / indexed assignment), where the JAX package
-    builds new ones each step.
+    builds new ones each step.  On the card the chunk's pass is one CUDA
+    graph a pool, recorded when the lane state is allocated and replayed
+    by every chunk step beside the decode (`serving.runtime.chunk_graph`).
 
   * `ChunkPlanner` — the per-step token budget for those chunks, split
     fairly across prompt-length buckets.
@@ -39,6 +41,7 @@ from repro_torch.models import model as M
 from repro_torch.models.attention import PagedKV, PrefillChunk
 from repro_torch.serving.engine import make_token_step
 from repro_torch.serving.kvpool import KVPool, PoolExhausted
+from repro_torch.serving.runtime.chunk_graph import ChunkGraph, pool_key
 from repro_torch.serving.runtime.request import Request, RequestQueue
 from repro_torch.strategy.base import init_lane
 
@@ -229,7 +232,15 @@ class EngineStepper:
     builds one stepper per ladder rung over one strategy bank.
     ``max_lane_pages`` and ``model_key`` go to the paged pool (a lane's
     page cap for `KVPool.grow`, and the key that keeps two rungs'
-    prefix caches apart)."""
+    prefix caches apart).
+
+    A chunked stepper whose weights are on a CUDA device replays its
+    chunk pass as a CUDA graph (`serving.runtime.chunk_graph`): `alloc`
+    records it on the new pool, before any serve's clock starts, and a
+    chunk step whose pool is not the graph's records it again.
+    ``chunk_stats`` then also counts ``chunk_graph_replays`` and
+    ``chunk_graph_captures``, and with a probe every step adds both to
+    its turn's record.  Elsewhere the pass runs eagerly."""
 
     virtual_time = False
     emits_tokens = True    # `emitted` really is token ids (EOS applies)
@@ -272,6 +283,9 @@ class EngineStepper:
         self.planner = None if prefill_chunk is None else ChunkPlanner(
             self.prefill_chunk, prefill_budget)
         self.walk_io = bool(walk_io)
+        self._chunk_graphed = (self.prefill_chunk is not None
+                               and self.device.type == "cuda")
+        self._chunk_graph = None
         self._step = make_token_step(params, cfg, strategies,
                                      carry_state=True,
                                      paged=(kv == "paged"),
@@ -287,7 +301,7 @@ class EngineStepper:
                                n_pages=n_pages,
                                max_lane_pages=max_lane_pages,
                                model_key=model_key)
-        self.alloc()
+        self._new_lane_state()
 
     def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
         probe = self.probe
@@ -336,7 +350,16 @@ class EngineStepper:
     # ---- lane state ------------------------------------------------------
 
     def alloc(self) -> None:
-        """(Re)build empty lane state: empty caches, fresh bank states."""
+        """(Re)build empty lane state: empty caches, fresh bank states;
+        and record the chunk pass's graph on the new pool, where the
+        stepper graphs it."""
+        self._new_lane_state()
+        if self._chunk_graphed:
+            self._chunk_graph_ready(self.caches)
+
+    def _new_lane_state(self) -> None:
+        # the old graph holds the old pool: both go before the new pool
+        self._chunk_graph = None
         if self.pool is not None:
             self.pool.reset()
             specs = M.paged_cache_specs(self.cfg, self.n_lanes,
@@ -355,6 +378,34 @@ class EngineStepper:
         self._idle_chunk = None
         self.chunk_stats = {"tokens_computed": 0, "tokens_skipped": 0,
                             "chunk_steps": 0, "prefills": 0}
+        if self._chunk_graphed:
+            self.chunk_stats.update(chunk_graph_replays=0,
+                                    chunk_graph_captures=0)
+
+    def _chunk_graph_ready(self, caches) -> int:
+        """Record the chunk pass's graph on ``caches`` unless the graph
+        held was recorded on them; returns the recordings made (0 or
+        1)."""
+        graph = self._chunk_graph
+        if graph is not None and graph.key == pool_key(caches):
+            return 0
+        graph = self._chunk_graph = None       # its memory goes first
+        self._chunk_graph = ChunkGraph(
+            self._step.chunk_pass, caches, self.n_lanes,
+            self.prefill_chunk, self.pool.table.shape[1], self.device)
+        self.chunk_stats["chunk_graph_captures"] += 1
+        return 1
+
+    def _replay_chunk(self, caches, page_table, chunk):
+        """The token step's chunk pass on the card (its ``run_chunk``):
+        the pool's graph replayed on ``chunk``, beside the decode."""
+        captured = self._chunk_graph_ready(caches)
+        finish = self._chunk_graph.run(page_table, chunk)
+        self.chunk_stats["chunk_graph_replays"] += 1
+        if self.probe is not None:
+            self.probe.count(chunk_graph_replays=1,
+                             chunk_graph_captures=captured)
+        return finish
 
     def reserve(self, req: Request) -> bool:
         """Admission gate (the scheduler's ``can_admit``): reserve the
@@ -566,6 +617,8 @@ class EngineStepper:
         if probe is not None:
             probe.step_start(self.device)
             probe.enter("plan", "tt.plan")
+            if self._chunk_graphed:     # every step's record has both
+                probe.count(chunk_graph_replays=0, chunk_graph_captures=0)
         decode = np.asarray(occupied, bool).copy()
         widths: dict = {}
         if self._prefilling:
@@ -599,7 +652,8 @@ class EngineStepper:
             probe.enter("step_host", "tt.token_step")
         out = self._step(self.tok, self.caches, self.pos, occ,
                          self._dev(sid), kv, self.states, chunk, walk,
-                         probe=probe)
+                         probe=probe, run_chunk=self._replay_chunk
+                         if self._chunk_graphed else None)
         tok, self.caches, served, sb, sp, self.states = out[:6]
         if self.pool is not None:
             self.pool.note_written(decode)
