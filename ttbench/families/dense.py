@@ -1,12 +1,15 @@
 """Dense early-exit decoders: the program's configuration from the
-file's numbers, the benchmark's weights, and the plain reference."""
+file's numbers, the benchmark's weights, the plain reference and the
+useful-FLOP counts."""
 
 from __future__ import annotations
 
+from ttbench.lib.flops import probe_flops, prompt_flops
 from ttbench.lib.shapes import dense as shapes
-from ttbench.reference.dense import make_weights
+from ttbench.reference.dense import Model, make_weights
 
-__all__ = ["shapes", "make_weights", "program_config"]
+__all__ = ["shapes", "make_weights", "program_config", "Model",
+           "prompt_flops", "probe_flops"]
 
 
 def program_config(cfg: dict):

@@ -58,9 +58,17 @@ def _module(path: Path):
     return mod
 
 
+def cost_modules(directory: Path) -> dict:
+    """``{launch name: module}`` of every kernel's cost module in
+    ``directory`` (`ttbench.costs`)."""
+    return {p.stem: _module(p) for p in sorted(directory.glob("*.py"))
+            if not p.stem.startswith("_")}
+
+
 class Cell:
-    """A cell of ``BENCHMARK.json`` with its configuration, traffic and
-    metric readers, found by name under ``root / paths[0]``."""
+    """A cell of ``BENCHMARK.json`` with its configuration, traffic,
+    family, metric readers and kernels' cost modules, found by name
+    under ``root / paths[0]``."""
 
     def __init__(self, root: Path, workload: str):
         bench = _json(root / "BENCHMARK.json")
@@ -78,6 +86,7 @@ class Cell:
         self.family = _module(here / "families"
                               / f"{self.config['family']}.py")
         self.m = self.family.shapes(self.config)
+        self.costs = cost_modules(here / "costs")
 
         def mine(metric):
             return workload in metric.get("workloads", (workload,))
@@ -273,20 +282,19 @@ def setup(cell, seed, device, laps):
 
 class _LaunchCost:
     """A launch recorder (`repro_torch.kernels.build.LAUNCH_RECORDERS`)
-    that reckons each paged launch's bytes and operations on the device
-    from its tensors, without a host sync."""
+    that reckons the bytes and operations of each launch of a kernel
+    with a cost module (``costs``, `cost_modules`; the benchmark's own
+    by default) on the device from its tensors, without a host sync."""
 
-    def __init__(self):
-        from ttbench.lib.kernel_bytes import decode_cost, prefill_cost
-        self.fns = {"paged_attention": decode_cost,
-                    "paged_prefill": prefill_cost}
+    def __init__(self, costs: dict | None = None):
+        self.fns = cost_modules(Path(__file__).parent / "costs") \
+            if costs is None else costs
         self.costs = {name: [] for name in self.fns}
 
     def kernel(self, name, inputs, outputs):
-        fn = self.fns.get(name)
-        if fn is not None:
-            q, k_pages, _, pos_pages, table, q_pos = inputs[:6]
-            self.costs[name].append(fn(q, k_pages, pos_pages, table, q_pos))
+        mod = self.fns.get(name)
+        if mod is not None:
+            self.costs[name].append(mod.cost(inputs, outputs))
 
     def totals(self) -> dict:
         out = {}
@@ -305,7 +313,7 @@ class _Profiled:
     (8-10 s on the card), so starting the real one does not stall the
     serve; the real one is stopped and read after the serve."""
 
-    def __init__(self, out_dir: Path):
+    def __init__(self, out_dir: Path, costs: dict):
         self.a0 = PROFILE_AT
         self.b0 = PROFILE_AT + PROFILE_S
         self.path = out_dir / "profile.json"
@@ -313,7 +321,7 @@ class _Profiled:
                      torch.profiler.ProfilerActivity.CUDA]
         self.prof = self.rf = None
         self.in_b = False
-        self.cost = _LaunchCost()
+        self.cost = _LaunchCost(costs)
         self.laps = {}
         t = time.perf_counter()
         with torch.profiler.profile(activities=self.acts):
@@ -427,7 +435,7 @@ def profile_phase(cell, prog, seed, out_dir) -> dict | None:
     phase's own `Run` (its steps and events)."""
     if prog.stepper.device.type != "cuda":
         return None
-    prof = _Profiled(out_dir)
+    prof = _Profiled(out_dir, cell.costs)
     run = serve_window(cell, prog, PROFILE_AT + 2 * PROFILE_S, seed, True,
                        hooks=(prof.hook,), check=False)
     run.profile = prof.finish()
@@ -538,17 +546,20 @@ def sample(run, seed) -> list:
 
 
 def reference_tables(cell, params, calib_tokens):
-    """The reference's own calibration and tables."""
+    """The reference's own calibration and tables, through the cell's
+    family's reference."""
     from ttbench.reference.check import tables_of
     cal = cell.config["calibration"]
-    return tables_of(cell.m, params, calib_tokens, cal["lam"], cal["k"])
+    return tables_of(cell.family.Model, cell.m, params, calib_tokens,
+                     cal["lam"], cal["k"])
 
 
 def judge(cell, params, tables, chosen, cols, control=False) -> dict:
     """The reference's readings on the sample: the program's, or with
-    ``control`` the control's in its place at the same positions."""
+    ``control`` the control's in its place at the same positions, through
+    the cell's family's reference."""
     from ttbench.reference.check import served_gap
-    out = served_gap(cell.m, params,
+    out = served_gap(cell.family.Model, cell.m, params,
                      cell.config["serving"]["prefill_chunk"], tables,
                      chosen, cols, control=control)
     out["requests"] = len(chosen)

@@ -12,6 +12,9 @@ one number, the served logit gap: the widest of
   ``cols`` (vocabulary entries drawn from the run's seed) and at the
   served token.
 
+``Model`` is the configuration family's plain reference (its family
+module's ``Model``, `ttbench.families`); this module imports none.
+
 The program's side is what its timed path produced: its tokens, and the
 rows of the served node's logits the harness read back from the step.
 With ``control=True`` the reference computed on TF32-rounded operands
@@ -25,7 +28,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ttbench.reference.dense import Model
 from ttbench.reference.tables import calibrate
 
 __all__ = ["tables_of", "served_gap"]
@@ -36,13 +38,13 @@ def _f32_only() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def tables_of(m, params, calib_tokens: np.ndarray, lam: float, k: int,
-              block: int = 32):
+def tables_of(Model, m, params, calib_tokens: np.ndarray, lam: float,
+              k: int, block: int = 32):
     """The reference's own calibration: node losses of the calibration
     prompts, in blocks of ``block`` prompts, then the tables."""
     _f32_only()
     model = Model(m, params, chunk=1)
-    dev = params["embed"]["table"].device
+    dev = model.device
     out = []
     with torch.no_grad():
         for i in range(0, len(calib_tokens), block):
@@ -51,7 +53,7 @@ def tables_of(m, params, calib_tokens: np.ndarray, lam: float, k: int,
     return calibrate(np.concatenate(out), lam, k)
 
 
-def served_gap(m, params, chunk: int, tables, sample, cols,
+def served_gap(Model, m, params, chunk: int, tables, sample, cols,
                control: bool = False) -> dict:
     """The widest served logit gap over ``sample``.  Each entry has
     ``prompt`` (int ids), ``first`` (the first token, fed but not
@@ -62,7 +64,7 @@ def served_gap(m, params, chunk: int, tables, sample, cols,
     _f32_only()
     ref = Model(m, params, chunk)
     ctl = Model(m, params, chunk, control=True) if control else None
-    dev = params["embed"]["table"].device
+    dev = ref.device
     cols_t = torch.as_tensor(np.asarray(cols), device=dev).long()
     worst, n, nodes, other_node = 0.0, 0, [], 0
     with torch.no_grad():

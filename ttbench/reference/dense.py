@@ -89,14 +89,15 @@ class Model:
     """The reference model over the benchmark's weights ``params``.
 
     ``chunk`` is the serve's prefill chunk: prompt rows are computed in
-    blocks of ``chunk`` positions from 0, as the serve feeds them."""
+    blocks of ``chunk`` positions from 0, as the serve feeds them;
+    ``device`` is the weights' device."""
 
     def __init__(self, m: Dense, params: dict, chunk: int,
                  control: bool = False):
         self.m, self.p, self.chunk, self.control = m, params, chunk, control
         self.scale = 1.0 / math.sqrt(m.head_dim)
         half = m.head_dim // 2
-        dev = params["embed"]["table"].device
+        dev = self.device = params["embed"]["table"].device
         exps = torch.arange(half, dtype=torch.float32, device=dev) / half
         self.freqs = 1.0 / torch.pow(torch.full((), m.rope_theta,
                                                 dtype=torch.float32,

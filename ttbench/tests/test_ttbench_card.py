@@ -67,7 +67,7 @@ def test_the_control_reads_above_the_limit_at_full_width(card):
                        "rows": rows[:, cols].numpy(),
                        "top": rows.max(dim=1).values.numpy()})
     limit = cfg["check"]["served_gap"]
-    assert served_gap(m, params, 16, tables, sample, cols)[
+    assert served_gap(Model, m, params, 16, tables, sample, cols)[
         "served_gap"] == 0.0
-    assert served_gap(m, params, 16, tables, sample, cols, control=True)[
-        "served_gap"] > limit
+    assert served_gap(Model, m, params, 16, tables, sample, cols,
+                      control=True)["served_gap"] > limit

@@ -139,6 +139,41 @@ def test_prefill_bytes_equal_chip_smokes(smoke, case):
     assert tuple(map(_as_float, got)) == tuple(map(float, want))
 
 
+def _cost_module(name):
+    from ttbench.harness import _module
+    return _module(HERE / "costs" / f"{name}.py")
+
+
+@pytest.mark.parametrize("case", ["serve", "default", "long", "g4"])
+def test_decode_cost_module_equals_kernel_bytes(smoke, case):
+    kw = {"serve": dict(lens=smoke.SERVE_LENS), "default": {},
+          "long": dict(lens=smoke.LONG_LENS, maxp=smoke.LONG_MAXP),
+          "g4": dict(smoke.G4, lens=smoke.SERVE_LENS)}[case]
+    args, opts = smoke.decode_case(4, **kw)
+    q, k, v, pos, table, q_pos = args
+    want = kernel_bytes.decode_cost(q, k, pos, table, q_pos, opts["window"])
+    # the tensors the wrapper reports (`build.report_launch`)
+    got = _cost_module("paged_attention").cost(args, (torch.empty(0),))
+    assert all(g.dim() == 0 for g in got)
+    assert tuple(map(float, got)) == tuple(map(float, want))
+
+
+@pytest.mark.parametrize("case", ["default", "serve", "long", "g4"])
+def test_prefill_cost_module_equals_kernel_bytes(smoke, case):
+    kw = {"default": {},
+          "serve": dict(starts=smoke.SERVE_STARTS,
+                        widths=smoke.SERVE_WIDTHS),
+          "long": dict(starts=smoke.LONG_STARTS, maxp=smoke.LONG_MAXP,
+                       widths=[smoke.C] * smoke.B),
+          "g4": dict(smoke.G4)}[case]
+    args, opts = smoke.prefill_case(5, **kw)
+    q, k, v, pos, table, q_pos = args[:6]
+    want = kernel_bytes.prefill_cost(q, k, pos, table, q_pos, opts["window"])
+    got = _cost_module("paged_prefill").cost(args[:6], (torch.empty(0),))
+    assert all(g.dim() == 0 for g in got)
+    assert tuple(map(float, got)) == tuple(map(float, want))
+
+
 def test_step_split_and_merge_equal_chip_smokes(smoke):
     from repro_torch.serving.obs.trace import Event
     rng = np.random.default_rng(0)

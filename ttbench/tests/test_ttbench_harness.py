@@ -1,14 +1,15 @@
 """The harness without the card: a cell made entirely of files in a
-temporary directory runs through it (a new configuration, traffic mix
-and per-layer metric need only new files), a run without a card prints
-no result, and a run whose timed path is broken comes out not
-correct."""
+temporary directory runs through it (a new configuration, traffic mix,
+per-layer metric, configuration family and kernel cost need only new
+files), a run without a card prints no result, and a run whose timed
+path is broken comes out not correct."""
 
 import json
 import shutil
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,11 +34,12 @@ def _cell_dir(tmp: Path) -> Path:
     metric, written to ``tmp``."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     here = tmp / "bench"
-    for sub in ("configs", "traffic", "metrics", "families"):
+    for sub in ("configs", "traffic", "metrics", "families", "costs"):
         (here / sub).mkdir(parents=True)
     shutil.copy(HERE / "families" / "dense.py", here / "families")
-    for f in (HERE / "metrics").glob("*.py"):
-        shutil.copy(f, here / "metrics")
+    for sub in ("metrics", "costs"):
+        for f in (HERE / sub).glob("*.py"):
+            shutil.copy(f, here / sub)
     (here / "metrics" / "decode_steps_seen.py").write_text(NEW_METRIC)
     cfg = json.loads((HERE / "configs" / "paper-ee-100m.json").read_text())
     cfg.update(name="tiny", num_hidden_layers=4, hidden_size=64,
@@ -70,6 +72,45 @@ def _cell_dir(tmp: Path) -> Path:
         "moves": "itl_p95_ms"})
     (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
     return tmp
+
+
+ALT_FAMILY = '''"""A second family, added by a file alone: the dense one,
+wrapped so that it records each reference it builds and counts its FLOP
+calls."""
+
+from ttbench.families import dense
+from ttbench.families.dense import make_weights, program_config, shapes
+
+BUILT = []
+CALLS = {"prompt_flops": 0, "probe_flops": 0}
+
+
+class Model(dense.Model):
+    def __init__(self, m, params, chunk, control=False):
+        super().__init__(m, params, chunk, control=control)
+        BUILT.append((chunk, control))
+
+
+def prompt_flops(*a):
+    CALLS["prompt_flops"] += 1
+    return dense.prompt_flops(*a)
+
+
+def probe_flops(*a):
+    CALLS["probe_flops"] += 1
+    return dense.probe_flops(*a)
+'''
+
+MADE_UP_COST = '''"""A kernel added by a file alone: its input's bytes, 2
+operations an element."""
+
+import torch
+
+
+def cost(inputs, outputs):
+    n = torch.tensor(float(inputs[0].numel()), dtype=torch.float64)
+    return n * inputs[0].element_size(), 2 * n
+'''
 
 
 def _run(root, trace=False, seed=2**31 + 3):
@@ -149,3 +190,73 @@ def test_a_broken_timed_path_is_not_correct(tmp_path, monkeypatch, fault):
     assert out["correct"] is False
     assert out["check"]["served_gap"]["value"] > \
         out["check"]["served_gap"]["limit"]
+
+
+def test_a_second_family_is_served_and_judged_through_its_files(
+        tmp_path, monkeypatch):
+    from ttbench.families import dense
+    from ttbench.reference import check
+    from ttbench.tests.test_ttbench_families import made_up_phase
+    root = _cell_dir(tmp_path)
+    here = root / "bench"
+    (here / "families" / "tiny_alt.py").write_text(ALT_FAMILY)
+    path = here / "configs" / "tiny.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()),
+                                    family="tiny_alt")))
+    cells, seen = [], {}
+
+    class Kept(harness.Cell):
+        def __init__(self, *a):
+            super().__init__(*a)
+            cells.append(self)
+
+    monkeypatch.setattr(harness, "Cell", Kept)
+    for name in ("reference_tables", "judge"):
+        def keep(*a, _inner=getattr(harness, name), _name=name, **k):
+            seen[_name] = (a, k, _inner(*a, **k))
+            return seen[_name][2]
+        monkeypatch.setattr(harness, name, keep)
+    out = _run(root)
+    assert out["correct"] is True
+    alt = cells[0].family
+    assert alt.Model.__module__ == alt.__name__ != dense.__name__
+    chunk = cells[0].config["serving"]["prefill_chunk"]
+    # the tables' reference (chunk 1) and the judge's, nothing else
+    assert alt.BUILT == [(1, False), (chunk, False)]
+    # the readings are the dense family's on the same inputs
+    (cell, params, calib), _, tables = seen["reference_tables"]
+    cal = cell.config["calibration"]
+    want = check.tables_of(dense.Model, cell.m, params, calib, cal["lam"],
+                           cal["k"])
+    for field in ("grid", "edges", "stop"):
+        assert np.array_equal(getattr(tables, field), getattr(want, field))
+    assert tables.value == want.value
+    (_, _, tables, chosen, cols), _, got = seen["judge"]
+    want = check.served_gap(dense.Model, cell.m, params, chunk, tables,
+                            chosen, cols)
+    assert {k: v for k, v in got.items() if k != "requests"} == want
+    assert got["served_gap"] == out["check"]["served_gap"]["value"]
+    # the whole step's count goes through the family's FLOP functions
+    reader = cell.readers["step_mfu"]
+    run = made_up_phase(alt, cell.m)
+    assert reader.read(run) == reader.read(made_up_phase(dense, cell.m))
+    assert alt.CALLS["prompt_flops"] > 0 and alt.CALLS["probe_flops"] > 0
+
+
+def test_a_kernels_cost_module_is_found_by_file(tmp_path):
+    root = _cell_dir(tmp_path)
+    (root / "bench" / "costs" / "made_up_kernel.py").write_text(MADE_UP_COST)
+    cell = harness.Cell(root, "tiny-tier")
+    assert set(cell.costs) == {"paged_attention", "paged_prefill",
+                               "made_up_kernel"}
+    rec = harness._LaunchCost(cell.costs)
+    x = torch.ones(3, 5)
+    rec.kernel("made_up_kernel", (x,), (x,))
+    rec.kernel("made_up_kernel", (x[:2],), (x,))
+    rec.kernel("no_such_kernel", (x,), (x,))          # not costed
+    got = rec.totals()
+    assert set(got) == {"made_up_kernel"}
+    assert got["made_up_kernel"].tolist() == [[60.0, 30.0], [40.0, 20.0]]
+    # without a directory, the benchmark's own cost modules
+    assert set(harness._LaunchCost().fns) == {"paged_attention",
+                                              "paged_prefill"}

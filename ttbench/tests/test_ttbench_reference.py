@@ -119,7 +119,7 @@ def test_served_logits_equal_the_programs_to_rounding(strategy_name):
         np.int32)
     first, toks, logits, calib, nodes = _program_serve(
         cfg, params, strategy_name, prompt, 6)
-    tables = check.tables_of(m, params, calib, 0.5, 24)
+    tables = check.tables_of(Model, m, params, calib, 0.5, 24)
     ref = Model(m, params, 16)
     x, kv = ref.prompt(torch.as_tensor(prompt), room=8)
     assert int(ref.readout(m.n_nodes - 1, x[-1]).argmax()) == first
@@ -137,7 +137,7 @@ def test_served_logits_equal_the_programs_to_rounding(strategy_name):
     cols = np.arange(0, m.vocab, 7)
     sample = [_sample(prompt, first, toks, logits, nodes, strategy_name,
                       cols)]
-    got = check.served_gap(m, params, 16, tables, sample, cols)
+    got = check.served_gap(Model, m, params, 16, tables, sample, cols)
     assert got["served_gap"] < 3e-4 and got["tokens"] == 7
     assert got["other_node"] == 0
 
@@ -160,7 +160,7 @@ def test_a_lower_precision_fails_the_comparison():
         np.int32)
     first, toks, logits, calib, nodes = _program_serve(
         cfg, params, "always_last", prompt, 5)
-    tables = check.tables_of(m, params, calib, 0.5, 24)
+    tables = check.tables_of(Model, m, params, calib, 0.5, 24)
 
     def worst(model):
         x, kv = model.prompt(torch.as_tensor(prompt), room=8)
@@ -180,8 +180,8 @@ def test_a_lower_precision_fails_the_comparison():
     cols = np.arange(0, m.vocab, 7)
     sample = [_sample(prompt, first, toks, logits, nodes, "always_last",
                       cols)]
-    ours = check.served_gap(m, params, 16, tables, sample, cols)
-    ctl = check.served_gap(m, params, 16, tables, sample, cols,
+    ours = check.served_gap(Model, m, params, 16, tables, sample, cols)
+    ctl = check.served_gap(Model, m, params, 16, tables, sample, cols,
                            control=True)
     assert ctl["tokens"] == ours["tokens"] == 1 + 5
     assert ctl["served_gap"] > 10 * ours["served_gap"]
