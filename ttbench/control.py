@@ -61,7 +61,9 @@ def main() -> int:
                          "tokens": got["tokens"],
                          "requests": got["requests"],
                          "other_node": got["other_node"],
-                         "nodes": got["nodes"]}
+                         "nodes": got["nodes"], "ties": got["ties"],
+                         "followed": got["followed"],
+                         "capped": got["capped"]}
         out["limit"] = check["served_gap"]["limit"]
         out["seconds"] = time.perf_counter() - t0
         print(json.dumps(out), flush=True)

@@ -49,11 +49,14 @@ def _json(path: Path) -> dict:
 
 
 def _module(path: Path):
-    """The Python file ``path`` as a module of its own."""
+    """The Python file ``path`` as a module of its own (in
+    ``sys.modules`` while it runs and after, as a dataclass defined in it
+    needs)."""
     spec = importlib.util.spec_from_file_location(
         "ttbench_found." + str(path.with_suffix("")).replace(
             os.sep, "_").replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -554,26 +557,53 @@ def reference_tables(cell, params, calib_tokens):
                      cal["lam"], cal["k"])
 
 
+def tie_band(cell) -> float | None:
+    """The configuration's routing tie band (``check.routing_tie``), or
+    None.  A file that states it states why, and the share of judged
+    tokens the reference may follow (``check.followed_share``)."""
+    check = cell.config["check"]
+    if "routing_tie" not in check:
+        return None
+    for key in ("routing_tie_why", "followed_share"):
+        if key not in check:
+            raise ValueError(f"{cell.config['name']}: check states "
+                             f"routing_tie without {key}")
+    return float(check["routing_tie"])
+
+
 def judge(cell, params, tables, chosen, cols, control=False) -> dict:
     """The reference's readings on the sample: the program's, or with
     ``control`` the control's in its place at the same positions, through
-    the cell's family's reference."""
+    the cell's family's reference (following the judged side's expert
+    choice within the configuration's routing tie band, if it states
+    one)."""
     from ttbench.reference.check import served_gap
     out = served_gap(cell.family.Model, cell.m, params,
                      cell.config["serving"]["prefill_chunk"], tables,
-                     chosen, cols, control=control)
+                     chosen, cols, control=control, tie=tie_band(cell))
     out["requests"] = len(chosen)
     return out
 
 
 def verdict(cell, readings) -> tuple[bool, dict]:
-    """``correct``, and each number compared beside its limit."""
-    limit = cell.config["check"]["served_gap"]
+    """``correct``, and each number compared beside its limit; where the
+    configuration states ``followed_share``, the share of judged tokens
+    at which the reference followed the program's expert choice is held
+    to it too."""
+    limits = cell.config["check"]
+    limit = limits["served_gap"]
     correct = bool(readings["tokens"] > 0
                    and readings["served_gap"] <= limit)
-    return correct, {
+    check = {
         "served_gap": {"value": readings["served_gap"], "limit": limit},
         "judged_tokens": {"value": readings["tokens"], "limit": 1}}
+    if "followed_share" in limits:
+        share = (readings["followed"] / readings["tokens"]
+                 if readings["tokens"] else float("inf"))
+        check["followed_share"] = {"value": share,
+                                   "limit": limits["followed_share"]}
+        correct = correct and share <= limits["followed_share"]
+    return correct, check
 
 
 def memory_in_use(run, params) -> dict:
@@ -671,12 +701,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
                          chosen, run.cols)
     else:
         readings = {"served_gap": float("inf"), "tokens": 0,
-                    "requests": 0}
+                    "requests": 0, "ties": 0, "followed": 0, "capped": 0}
     print(f"reference: {time.perf_counter() - t_ref:.3f} s, "
           f"{readings['requests']} requests, {readings['tokens']} tokens, "
           f"served nodes {readings.get('nodes')}, "
-          f"{readings.get('other_node')} served at another node",
-          file=sys.stderr)
+          f"{readings.get('other_node')} served at another node; routing "
+          f"ties {readings['ties']}, followed {readings['followed']}, "
+          f"capped {readings['capped']}", file=sys.stderr)
     correct, check = verdict(cell, readings)
     result = {"correct": correct, "attempted": len(run.reqs), "failed": 0,
               "metrics": metrics, "device": device_info(device, peak)}

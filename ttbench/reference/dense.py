@@ -90,7 +90,10 @@ class Model:
 
     ``chunk`` is the serve's prefill chunk: prompt rows are computed in
     blocks of ``chunk`` positions from 0, as the serve feeds them;
-    ``device`` is the weights' device."""
+    ``device`` is the weights' device.  A dense decoder routes nothing,
+    so it never branches: ``ties``, ``followed`` and ``capped`` stay 0."""
+
+    ties = followed = capped = 0
 
     def __init__(self, m: Dense, params: dict, chunk: int,
                  control: bool = False):
@@ -243,11 +246,13 @@ class Model:
         return x, kv
 
     def decode(self, tok: int, pos: int, kv, strategy, tables,
-               depth: int | None = None):
+               depth: int | None = None, pick=None):
         """One token through the segments its walk probes (``depth``
         segments when given, else as the walk decides); each probed
         layer appends its bf16 key and value.  Returns (the walk's
-        served node, every probed node's logits, probed segments)."""
+        served node, every probed node's logits, probed segments).
+        ``pick`` is taken and never called: there is no routing to
+        tie."""
         m = self.m
         dev = self.p["embed"]["table"].device
         x = self.p["embed"]["table"][tok][None, :]
