@@ -95,7 +95,12 @@ class PrefillChunk(NamedTuple):
     decode: up to C prompt tokens per admitting lane, planned host-side
     by the scheduler's chunk planner.  Idle lanes and ragged tails are
     padded: position -1 rows are inert, garbage-page destinations
-    swallow their writes."""
+    swallow their writes.
+
+    The token step's chunk (`serving.engine.make_token_step`) packs the
+    lanes that prefill into its first rows: ``lane`` maps each row to
+    its lane (``n_lanes`` for an idle row) and ``emit`` is in lane space,
+    ``(n_lanes,)``.  The model's functions read neither."""
 
     tok: torch.Tensor          # (B, C) i32 chunk tokens (0 for padding)
     pos: torch.Tensor          # (B, C) i32 absolute positions (-1 = pad)
@@ -105,6 +110,7 @@ class PrefillChunk(NamedTuple):
     last_idx: torch.Tensor     # (B,) i32 row of the chunk's last token
     emit: torch.Tensor         # (B,) bool final chunk: emit first token
     active: torch.Tensor       # (B,) bool lanes prefilling this step
+    lane: torch.Tensor | None = None   # (B,) i32 each row's lane
 
 
 def attn_defs(cfg: AttnConfig, d_model: int) -> dict:

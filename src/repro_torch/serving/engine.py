@@ -38,6 +38,7 @@ from repro_torch.models import model as M
 from repro_torch.models.attention import paged_kernel
 from repro_torch.models.blocks import block_forward
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.kvpool.alloc import GARBAGE_PAGE
 from repro_torch.strategy.base import reset_lanes
 
 __all__ = ["Engine", "GenerationStats", "Classifier", "make_token_step",
@@ -175,10 +176,11 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
       prefill_slots: > 0 (paged mode only) adds CHUNKED PREFILL
         co-scheduled with decode: the step takes a
         `models.attention.PrefillChunk` of up to ``prefill_slots``
-        prompt tokens per admitting lane and runs its full-depth sweep
+        prompt tokens per admitting lane, the admitting lanes packed
+        into its rows (``chunk.lane``), and runs its full-depth sweep
         against the same pool.  Lanes whose chunk finishes the prompt
-        (``chunk.emit``) get their first token (argmax of the
-        final-position head logits) in ``next_tok``.
+        (``chunk.emit``, in lane space) get their first token (argmax of
+        the final-position head logits) in ``next_tok``.
       node_offset: global id of this model's FIRST node.  The
         multi-model cascade (`serving.cascade`) builds one step per
         ladder model over ONE combined strategy bank, so model m's
@@ -228,20 +230,31 @@ def make_token_step(params, cfg: ModelConfig, strategies, *,
 
     def chunk_pass(caches, page_table, chunk):
         """The prefill chunk at full depth against the pool (written in
-        place), then the head's argmax at each lane's last chunk row:
-        the first token of the lanes whose chunk ends their prompt.
-        Every shape is the chunk's ``(B, prefill_slots)``, and nothing
-        reads the device's values back on the host."""
+        place), then the head's argmax at each row's last chunk token:
+        the first token of the lanes whose chunk ends their prompt, in
+        lane space ``(B_lanes,)``.  The chunk's rows are the lanes of
+        ``chunk.lane`` (`models.attention.PrefillChunk`): each reads its
+        lane's row of ``page_table`` (B_lanes, maxp); an idle row, mapped
+        past the last lane, reads garbage pages only and leaves its token
+        in a sink row.  Every shape is the chunk's ``(rows,
+        prefill_slots)`` or the lanes', and nothing reads the device's
+        values back on the host."""
+        n_lanes = page_table.shape[0]
+        lane = chunk.lane.long()
         with paged_kernel(paged_kernel_on):
+            sink = torch.full_like(page_table[:1], GARBAGE_PAGE)
+            table = torch.cat([page_table, sink])[lane]
             xc = embed[chunk.tok.long()]
             for si in range(len(cfg.segments)):
                 xc, _ = M.prefill_chunk_segment(params, cfg, si, xc,
-                                                caches[si], page_table,
-                                                chunk)
+                                                caches[si], table, chunk)
             rows = torch.arange(xc.shape[0], device=xc.device)
             h = xc[rows, chunk.last_idx.long()]
             logits, _ = M.ramp_readout(params, cfg, h)
-            return torch.argmax(logits, dim=-1).to(torch.int32)
+            t0 = torch.zeros((n_lanes + 1,), dtype=torch.int32,
+                             device=xc.device)
+            t0[lane] = torch.argmax(logits, dim=-1).to(torch.int32)
+            return t0[:n_lanes]
 
     def eager_chunk(caches, page_table, chunk):
         t0 = chunk_pass(caches, page_table, chunk)

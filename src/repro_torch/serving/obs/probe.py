@@ -31,7 +31,8 @@ of a turn sum to the turn, apart from the probe's own clock reads.
 `end_turn` gives the turn's record, which the server adds to the turn's
 ``counter`` event (``turn_s``, ``<part>_s``, ``reads``, ``uploads``,
 ``upload_bytes``, ``idle_before_s``, and the counts the stepper gives
-`count`: ``chunk_graph_replays`` and ``chunk_graph_captures`` where it
+`count`: ``chunk_rows`` and ``chunk_rows_launched`` where it chunks its
+prefills, ``chunk_graph_replays`` and ``chunk_graph_captures`` where it
 graphs its chunk pass), and adds it to ``totals``.  That
 ``counter`` emit itself falls after the record is taken, outside every
 turn.

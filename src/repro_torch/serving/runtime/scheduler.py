@@ -24,9 +24,11 @@ Three layers:
     planner-budgeted prefill chunk for the admitting lanes through the
     shared `serving.engine.make_token_step`.  Caches are updated in
     place (``index_put_`` / indexed assignment), where the JAX package
-    builds new ones each step.  On the card the chunk's pass is one CUDA
-    graph a pool, recorded when the lane state is allocated and replayed
-    by every chunk step beside the decode (`serving.runtime.chunk_graph`).
+    builds new ones each step.  The chunk packs the lanes that prefill
+    into as few rows as a lane bucket holds.  On the card its pass is
+    one CUDA graph a bucket and pool, recorded when the lane state is
+    allocated and replayed by every chunk step beside the decode
+    (`serving.runtime.chunk_graph`).
 
   * `ChunkPlanner` — the per-step token budget for those chunks, split
     fairly across prompt-length buckets.
@@ -41,7 +43,8 @@ from repro_torch.models import model as M
 from repro_torch.models.attention import PagedKV, PrefillChunk
 from repro_torch.serving.engine import make_token_step
 from repro_torch.serving.kvpool import KVPool, PoolExhausted
-from repro_torch.serving.runtime.chunk_graph import ChunkGraph, pool_key
+from repro_torch.serving.runtime.chunk_graph import (ChunkGraph, lane_bucket,
+                                                     pool_key)
 from repro_torch.serving.runtime.request import Request, RequestQueue
 from repro_torch.strategy.base import init_lane
 
@@ -234,13 +237,20 @@ class EngineStepper:
     page cap for `KVPool.grow`, and the key that keeps two rungs'
     prefix caches apart).
 
-    A chunked stepper whose weights are on a CUDA device replays its
-    chunk pass as a CUDA graph (`serving.runtime.chunk_graph`): `alloc`
-    records it on the new pool, before any serve's clock starts, and a
-    chunk step whose pool is not the graph's records it again.
+    A chunked stepper runs its chunk at the width of the lanes that
+    prefill: `_build_chunk` packs them into the narrowest lane bucket
+    that holds them (`serving.runtime.chunk_graph.lane_buckets`).  One
+    whose weights are on a CUDA device replays its chunk pass as a CUDA
+    graph a bucket (`serving.runtime.chunk_graph`): `alloc` records
+    them on the new pool, before any serve's clock starts, and a chunk
+    step whose pool is not the graphs' records them again.
     ``chunk_stats`` then also counts ``chunk_graph_replays`` and
-    ``chunk_graph_captures``, and with a probe every step adds both to
-    its turn's record.  Elsewhere the pass runs eagerly."""
+    ``chunk_graph_captures`` (one a pool recorded), and with a probe
+    every step adds both to its turn's record.  Elsewhere the pass runs
+    eagerly.  With a probe every step of a chunked stepper also records
+    ``chunk_rows``, the prompt rows its chunk computes, and
+    ``chunk_rows_launched``, the rows it launches (0 and 0 for a step
+    without a chunk)."""
 
     virtual_time = False
     emits_tokens = True    # `emitted` really is token ids (EOS applies)
@@ -383,9 +393,9 @@ class EngineStepper:
                                     chunk_graph_captures=0)
 
     def _chunk_graph_ready(self, caches) -> int:
-        """Record the chunk pass's graph on ``caches`` unless the graph
-        held was recorded on them; returns the recordings made (0 or
-        1)."""
+        """Record the chunk pass's graphs on ``caches`` unless the
+        graphs held were recorded on them; returns the pools recorded (0
+        or 1)."""
         graph = self._chunk_graph
         if graph is not None and graph.key == pool_key(caches):
             return 0
@@ -398,7 +408,8 @@ class EngineStepper:
 
     def _replay_chunk(self, caches, page_table, chunk):
         """The token step's chunk pass on the card (its ``run_chunk``):
-        the pool's graph replayed on ``chunk``, beside the decode."""
+        the pool's graph of ``chunk``'s bucket replayed on it, beside
+        the decode."""
         captured = self._chunk_graph_ready(caches)
         finish = self._chunk_graph.run(page_table, chunk)
         self.chunk_stats["chunk_graph_replays"] += 1
@@ -524,7 +535,9 @@ class EngineStepper:
     def warmup(self) -> None:
         """Run one dummy request through prefill and a decode token
         before the serving clock starts (on the card this builds and
-        loads the kernels), then reset all lane state."""
+        loads the kernels), then reset all lane state.  Its chunks run
+        eagerly: their pool goes, and `alloc` records the chunk graphs
+        on the new one."""
         dummy = Request(rid=-1, prompt=np.zeros(self.prompt_len, np.int32),
                         max_tokens=1)
         if not self.reserve(dummy):
@@ -537,41 +550,51 @@ class EngineStepper:
         occ = np.zeros((self.n_lanes,), bool)
         occ[0] = True
         sid0 = np.zeros((self.n_lanes,), np.int32)
-        for _ in range(2 * self.prompt_len + 2):
-            if not self._prefilling:
-                break
+        graphed, self._chunk_graphed = self._chunk_graphed, False
+        try:
+            for _ in range(2 * self.prompt_len + 2):
+                if not self._prefilling:
+                    break
+                self.step(occ, sid0)
             self.step(occ, sid0)
-        self.step(occ, sid0)
+        finally:
+            self._chunk_graphed = graphed
         self.alloc()
 
     def _build_chunk(self, widths: dict):
         """Turn the planner's lane -> width map into the device
-        `PrefillChunk` (all idle when nothing is prefilling: position -1
-        rows, garbage destinations).  Advances the per-lane cursors and
-        returns the lanes whose prompt finishes with this chunk."""
+        `PrefillChunk`: the ``k`` lanes with a width, in the map's order,
+        packed into rows ``0..k-1`` of a chunk as wide as the narrowest
+        lane bucket that holds them (`chunk_graph.lane_bucket`); the
+        rows past them are idle (position -1, garbage destinations,
+        mapped to the sink lane ``n_lanes``), as is the whole chunk when
+        nothing is prefilling.  The chunk's ``lane`` map rides in one
+        upload with ``start`` and ``last_idx``; ``emit`` is in lane
+        space.  Advances the per-lane cursors and returns the lanes
+        whose prompt finishes with this chunk."""
         if not widths and self._idle_chunk is not None:
             return self._idle_chunk, []
         n, c = self.n_lanes, self.prefill_chunk
-        tok = np.zeros((n, c), np.int32)
-        pos = np.full((n, c), -1, np.int32)
-        dp = np.zeros((n, c), np.int32)     # 0 == the garbage sink
-        ds = np.zeros((n, c), np.int32)
-        start = np.zeros(n, np.int32)
-        last = np.zeros(n, np.int32)
+        b = lane_bucket(len(widths), n)
+        tok = np.zeros((b, c), np.int32)
+        pos = np.full((b, c), -1, np.int32)
+        dp = np.zeros((b, c), np.int32)     # 0 == the garbage sink
+        ds = np.zeros((b, c), np.int32)
+        rows = np.zeros((3, b), np.int32)   # start, last_idx, lane
+        rows[2] = n
         emit = np.zeros(n, bool)
-        act = np.zeros(n, bool)
+        act = np.zeros(b, bool)
         finished = []
-        for lane, w in widths.items():
+        for r, (lane, w) in enumerate(widths.items()):
             st = self._prefilling[lane]
             cur = st["cursor"]
             sl = slice(cur, cur + w)
-            tok[lane, :w] = st["prompt"][sl]
-            pos[lane, :w] = np.arange(cur, cur + w, dtype=np.int32)
-            dp[lane, :w] = st["plan"].dest_page[sl]
-            ds[lane, :w] = st["plan"].dest_slot[sl]
-            start[lane] = cur
-            last[lane] = w - 1
-            act[lane] = True
+            tok[r, :w] = st["prompt"][sl]
+            pos[r, :w] = np.arange(cur, cur + w, dtype=np.int32)
+            dp[r, :w] = st["plan"].dest_page[sl]
+            ds[r, :w] = st["plan"].dest_slot[sl]
+            rows[:, r] = cur, w - 1, lane
+            act[r] = True
             st["cursor"] = cur + w
             if st["cursor"] == st["lp"]:
                 emit[lane] = True
@@ -582,11 +605,12 @@ class EngineStepper:
                     "prefill_chunk", lane=int(lane),
                     rid=int(st.get("rid", -1)), width=int(w),
                     left=int(st["lp"] - st["cursor"]))
+        start, last, lanes = self._dev(rows)
         chunk = PrefillChunk(
             tok=self._dev(tok), pos=self._dev(pos), dest_page=self._dev(dp),
-            dest_slot=self._dev(ds), start=self._dev(start),
-            last_idx=self._dev(last), emit=self._dev(emit, torch.bool),
-            active=self._dev(act, torch.bool))
+            dest_slot=self._dev(ds), start=start, last_idx=last,
+            emit=self._dev(emit, torch.bool),
+            active=self._dev(act, torch.bool), lane=lanes)
         if widths:
             self.chunk_stats["chunk_steps"] += 1
         else:
@@ -642,6 +666,10 @@ class EngineStepper:
                          write_slot=self._dev(plan.write_slot))
         if self.prefill_chunk is not None:
             chunk, finished = self._build_chunk(widths)
+            if probe is not None:
+                probe.count(chunk_rows=sum(widths.values()),
+                            chunk_rows_launched=chunk.tok.numel()
+                            if widths else 0)
         if self.walk_io and walk is None:
             walk = (torch.ones((self.n_lanes,), dtype=torch.bool,
                                device=self.device),

@@ -240,7 +240,8 @@ def test_a_new_pool_is_recorded_anew(model, recordings):
     stepper._chunk_graphed = True
     stepper.alloc()
     first = stepper._chunk_graph
-    assert first is not None and len(recordings) == 1
+    # one recording a lane bucket of the 3 lanes: 1, 2 and 3
+    assert first is not None and len(recordings) == 3
     assert first.key == chunk_graph.pool_key(stepper.caches)
     # the recording ran on the idle chunk: nothing but the garbage page
     # 0 was written
@@ -248,7 +249,7 @@ def test_a_new_pool_is_recorded_anew(model, recordings):
         assert (seg["attn"]["pos"][:, 1:] == -1).all()
         assert not seg["attn"]["k"][:, 1:].any()
     stepper.alloc()                               # a new pool
-    assert stepper._chunk_graph is not first and len(recordings) == 2
+    assert stepper._chunk_graph is not first and len(recordings) == 6
     assert stepper.chunk_stats["chunk_graph_captures"] == 1
     # a pool put in place without alloc is recorded at the next chunk
     # step, and the probe's turn counts that recording
@@ -266,7 +267,7 @@ def test_a_new_pool_is_recorded_anew(model, recordings):
         turn = probe.end_turn()
         stepper.step(occ, np.zeros(LANES, np.int32))   # the same pool
     stepper.probe = None
-    assert len(recordings) == 3
+    assert len(recordings) == 9
     assert (turn["chunk_graph_captures"], turn["chunk_graph_replays"]) \
         == (1, 1)
     assert stepper.chunk_stats["chunk_graph_captures"] == 2

@@ -1323,7 +1323,7 @@ def test_probe_splits_every_wall_clock_turn(probe_model, kv):
             masked = 0 if occ.all() else 2 + leaves
             assert d["reads"] == n_seg * (2 + masked) + 1 + 4, (d, occ)
         # paged: the occupancy mask, the page table and write slots, the
-        # eight chunk tensors (or the idle chunk, built once) and sid;
+        # chunk's seven uploads (or the idle chunk, built once) and sid;
         # ring: the occupancy mask and sid
         assert d["uploads"] >= (5 if kv == "paged" else 2), d
         assert d["upload_bytes"] > 0
